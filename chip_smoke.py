@@ -1,0 +1,498 @@
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
+file; it exits non-zero without them.  Phases, in order (any failure exits
+non-zero before the result lines):
+
+  1. the card's name and power limit, the CUDA version; TF32 off;
+  2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
+  3. hold each kernel against its plain PyTorch version on the card, fp32
+     (absolute 1e-4) and bf16 (1e-2 of each output row's largest value),
+     at smoke and main-path shapes;
+  4. greedy decoding: smoke configs on the card match the CPU token for
+     token; a 2-layer full-width yi-9b (fp32) gives the same tokens at
+     decode_horizon 1 and 8 and agrees with a teacher-forced forward;
+  5. the slice at full width: yi-9b (48 layers, bf16, random weights from
+     a seeded generator) serves 8 requests through ``ServingEngine``; every
+     kernel's launch counter must be > 0 for that run, and at least 90 % of
+     the generated tokens must equal a teacher-forced forward's argmax;
+  6. time each kernel at the main-path shapes with CUDA events (median of
+     20 groups of 10 back-to-back calls) beside its bound, its plain
+     version and, where one exists, one PyTorch library call computing the
+     same function; each timed kernel's output is checked again.
+
+The last three lines are the card line, one JSON object with the kernel
+table and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
+# fp32: kernel and plain version sum in different orders, so they agree to
+# an absolute 1e-4.  bf16: both compute in fp32 and round the result to 8
+# significant bits, so an element may differ by one bf16 step, at most
+# 2^-7 of the largest |value| in its output row; the limit is 1e-2 of that
+# row maximum.  Attention over 2048 tokens spreads its weight thin, so the
+# long rows' values are small: a row-relative limit keeps the check as
+# tight on them as on the short rows (a kernel that kept its running sum
+# in bf16 fails it on the long rows, where an absolute limit would not).
+ATOL_FP32 = 1e-4
+ROW_RTOL_BF16 = 1e-2
+# a bf16 48-layer random-weight model rounds differently on the prefill
+# and decode paths, so near-tied argmaxes may flip (1 of 32 tokens in the
+# first measurement); a broken decode path agrees on almost none
+MIN_TEACHER_FORCED = 0.9
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def rand(gen, *shape, dtype=torch.float32, scale=0.5):
+    x = torch.randn(shape, generator=gen, device="cuda") * scale
+    return x.to(dtype)
+
+
+def agreement(got: torch.Tensor, want: torch.Tensor, dtype):
+    """(max absolute error, max row-relative error, within tolerance).
+    A row is one output vector over the head dimension."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    abs_err = diff.max().item()
+    d = got.shape[-1]
+    row_max = want.abs().reshape(-1, d).amax(-1).clamp_min(1e-30)
+    rel_err = (diff.reshape(-1, d).amax(-1) / row_max).max().item()
+    within = (abs_err <= ATOL_FP32 if dtype == torch.float32
+              else rel_err <= ROW_RTOL_BF16)
+    return abs_err, rel_err, within and bool(torch.isfinite(got).all())
+
+
+def tol_text(dtype) -> str:
+    return (f"atol={ATOL_FP32:.0e}" if dtype == torch.float32
+            else f"row_rtol={ROW_RTOL_BF16:.0e}")
+
+
+def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
+    """Median over ``reps`` of the mean device time of ``inner`` back-to-back
+    calls, from CUDA events around each group (one untimed call first).
+    ``fn(i)`` gets the call's index within its group."""
+    fn(0)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(inner):
+            fn(i)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return float(np.median(times))
+
+
+# --------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions.
+# --------------------------------------------------------------------------
+
+
+def paged_inputs(gen, B, Hq, Hkv, D, page, lens, dtype, *, window=0,
+                 trash_rows=(), n_pages=None, n_pool=None):
+    """Random pools and a block table of distinct pages per sequence."""
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    need = max(1, (int(lens.max()) + page - 1) // page)
+    n_pages = n_pages or need
+    n_pool = n_pool or B * n_pages + 1
+    trash = n_pool - 1
+    q = rand(gen, B, Hq, D, dtype=dtype)
+    kp = rand(gen, n_pool, Hkv, page, D, dtype=dtype)
+    vp = rand(gen, n_pool, Hkv, page, D, dtype=dtype)
+    perm = torch.randperm(n_pool - 1, generator=gen, device="cuda")
+    table = perm[:B * n_pages].reshape(B, n_pages).to(torch.int32)
+    for r in trash_rows:
+        table[r] = trash
+    if window:
+        start = torch.clamp(lens - window, min=0)
+    else:
+        start = torch.zeros_like(lens)
+    return q, kp, vp, table.contiguous(), lens, start.to(torch.int32)
+
+
+def check_paged(gen, fd, ref) -> None:
+    cases = [
+        # name, B, Hq, Hkv, D, page, lens, softcap, window, trash rows
+        ("smoke", 4, 4, 2, 32, 8, [0, 1, 13, 40], 0.0, 0, ()),
+        ("smoke-trash", 4, 4, 2, 32, 8, [5, 1, 9, 2], 0.0, 0, (1, 3)),
+        ("group1", 3, 4, 4, 64, 16, [7, 33, 100], 0.0, 0, ()),
+        ("yi-9b", 8, 32, 4, 128, 16,
+         [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 0, (3,)),
+        ("yi-9b-softcap", 8, 32, 4, 128, 16,
+         [1, 15, 16, 17, 300, 1000, 1500, 2048], 50.0, 0, ()),
+        ("yi-9b-window", 8, 32, 4, 128, 16,
+         [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 100, ()),
+        ("gemma2", 4, 8, 4, 256, 16, [3, 64, 517, 1024], 50.0, 61, ()),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, Hq, Hkv, D, page, lens, cap, win, trash in cases:
+            q, kp, vp, tb, ln, st = paged_inputs(
+                gen, B, Hq, Hkv, D, page, lens, dtype, window=win,
+                trash_rows=trash)
+            scale = 1.0 / D ** 0.5
+            got = fd.paged_decode(q, kp, vp, tb, ln, st, cap, scale)
+            torch.cuda.synchronize()
+            want = ref.paged_decode_plain(q, kp, vp, tb, ln, st, cap, scale)
+            err, rel, ok = agreement(got, want, dtype)
+            log(f"  paged_decode {name:14s} {str(dtype):14s} "
+                f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
+                f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"paged_decode {name} {dtype} disagrees")
+
+
+def check_prefill(gen, fa, ref) -> None:
+    cases = [
+        # name, B, Sq, Sk, Hq, Hkv, D, causal, softcap, window
+        ("smoke", 2, 24, 24, 4, 2, 32, True, 0.0, 0),
+        ("yi-9b-128", 1, 128, 128, 32, 4, 128, True, 0.0, 0),
+        ("yi-9b-200", 4, 200, 200, 32, 4, 128, True, 0.0, 0),
+        ("yi-9b-1024", 4, 1024, 1024, 32, 4, 128, True, 0.0, 0),
+        ("d64-window", 2, 256, 256, 4, 4, 64, True, 0.0, 64),
+        ("gemma2-256", 1, 200, 200, 8, 4, 256, True, 50.0, 64),
+        ("noncausal", 2, 100, 200, 4, 2, 64, False, 0.0, 0),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, Sq, Sk, Hq, Hkv, D, causal, cap, win in cases:
+            q = rand(gen, B, Sq, Hq, D, dtype=dtype)
+            k = rand(gen, B, Sk, Hkv, D, dtype=dtype)
+            v = rand(gen, B, Sk, Hkv, D, dtype=dtype)
+            got = fa.flash_attention(q, k, v, causal=causal, softcap=cap,
+                                     window=win)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           softcap=cap, window=win)
+            err, rel, ok = agreement(got, want, dtype)
+            log(f"  flash_attention {name:12s} {str(dtype):14s} "
+                f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
+                f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"flash_attention {name} {dtype} disagrees")
+
+
+# --------------------------------------------------------------------------
+# Phases 4 and 5: the engine.
+# --------------------------------------------------------------------------
+
+
+def serve(cfg, params, prompts, new_tokens, horizon, device, *, dtype,
+          num_blocks, block_size, max_seqs, max_blocks_per_seq=None):
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, num_blocks=num_blocks,
+                        block_size=block_size, max_seqs=max_seqs,
+                        dtype=dtype, decode_horizon=horizon, device=device,
+                        max_blocks_per_seq=max_blocks_per_seq)
+    for rid, p in enumerate(prompts):
+        eng.submit(rid, p, new_tokens)
+    t0 = time.monotonic()
+    fin = eng.run_to_completion()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {r.rid: r for r in fin}, eng, wall
+
+
+def teacher_forced_agreement(cfg, params, prompt, generated) -> float:
+    """Share of generated tokens that equal the argmax of one full forward
+    over prompt + generated (greedy consistency of decode vs prefill)."""
+    from repro_torch.models import forward
+    from repro_torch.models.sampling import mask_padded_vocab
+    seq = np.concatenate([prompt, np.asarray(generated[:-1], np.int32)])
+    toks = torch.from_numpy(seq[None]).cuda()
+    logits = forward(params, cfg, toks)[0, len(prompt) - 1:]
+    assert torch.isfinite(logits).all(), "non-finite logits"
+    pred = mask_padded_vocab(logits, cfg).argmax(-1).cpu().numpy()
+    return float(np.mean(pred == np.asarray(generated)))
+
+
+def phase_greedy() -> None:
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import init_params
+    for arch in ("yi-9b", "gemma2-2b"):
+        cfg = get_smoke_config(arch)
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab_size, rng.randint(8, 24))
+                   .astype(np.int32) for _ in range(6)]
+        p_cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+        p_gpu = _to(p_cpu, "cuda")
+        runs = {}
+        for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            for h in (1, 8):
+                fin, eng, _ = serve(cfg, params, prompts, 12, h, dev,
+                                    dtype=torch.float32, num_blocks=128,
+                                    block_size=8, max_seqs=4)
+                runs[dev, h] = ({r: fin[r].generated for r in fin},
+                                eng.decode_syncs)
+        same = len({repr(v[0]) for v in runs.values()}) == 1
+        log(f"  {cfg.name}: cuda == cpu tokens at H in (1, 8): {same}; "
+            f"decode_syncs H=1 {runs['cuda', 1][1]} H=8 {runs['cuda', 8][1]}")
+        if not same:
+            raise SystemExit(f"{cfg.name}: greedy tokens differ")
+
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=2)
+    params = init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (17, 40, 64, 100)]
+    out = {}
+    for h in (1, 8):
+        fin, eng, _ = serve(cfg, params, prompts, 16, h, "cuda",
+                            dtype=torch.float32, num_blocks=256,
+                            block_size=16, max_seqs=4, max_blocks_per_seq=16)
+        out[h] = {r: fin[r].generated for r in fin}
+    agree = min(teacher_forced_agreement(cfg, params, prompts[r], out[1][r])
+                for r in out[1])
+    log(f"  yi-9b 2-layer full width fp32: H=1 == H=8 {out[1] == out[8]}; "
+        f"teacher-forced agreement (min over requests) {agree:.3f}")
+    if out[1] != out[8] or agree < 1.0:
+        raise SystemExit("full-width 2-layer greedy check failed")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_full_width(ops):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+    cfg = get_config("yi-9b")
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n = param_count(params)
+    log(f"  yi-9b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n:,} params, "
+        f"{n * 2 / 1e9:.2f} GB bf16 (init {time.monotonic() - t0:.1f} s)")
+    kw = dict(dtype=torch.bfloat16, num_blocks=2048, block_size=16,
+              max_seqs=8, max_blocks_per_seq=128)
+    # warm-up: cuBLAS handles, allocator, kernel modules
+    warm = [np.arange(64, dtype=np.int32)]
+    serve(cfg, params, warm, 4, 8, "cuda", **kw)
+    rng = np.random.RandomState(0)
+    lens = rng.randint(128, 1025, 8)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fin, eng, wall = serve(cfg, params, prompts, 32, 8, "cuda", **kw)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ttft = [fin[r].t_first - fin[r].t_submit for r in fin]
+    t_last_first = max(fin[r].t_first for r in fin)
+    t_end = fin[0].t_submit + wall
+    dec_tokens = sum(len(fin[r].generated) - 1 for r in fin)
+    ok = (len(fin) == 8 and all(len(fin[r].generated) == 32 for r in fin)
+          and all(0 <= t < cfg.vocab_size for r in fin
+                  for t in fin[r].generated))
+    log(f"  prompts {sorted(int(x) for x in lens)}, 32 new tokens each, "
+        f"max_seqs 8, decode_horizon 8, pool 2048 x 16-token pages")
+    log(f"  tokens_out {eng.tokens_out}  prefill_tokens {eng.prefill_tokens}"
+        f"  steps {eng.steps}  decode_syncs {eng.decode_syncs}  "
+        f"horizons {eng.horizon_counts}")
+    log(f"  wall {wall:.3f} s  TTFT mean {np.mean(ttft) * 1e3:.1f} ms "
+        f"max {np.max(ttft) * 1e3:.1f} ms  decode "
+        f"{dec_tokens / max(t_end - t_last_first, 1e-9):.1f} tok/s "
+        f"(after the last first token)  end-to-end "
+        f"{eng.tokens_out / wall:.1f} tok/s  peak mem {peak:.2f} GB")
+    log(f"  launches: {counts}")
+    per_req = [teacher_forced_agreement(cfg, params, prompts[r],
+                                        fin[r].generated) for r in sorted(fin)]
+    agree = float(np.mean(per_req))
+    log(f"  teacher-forced agreement (bf16, all {len(fin)} requests) "
+        f"{agree:.4f}; per request {[round(a, 4) for a in per_req]}; "
+        f"limit {MIN_TEACHER_FORCED}")
+    if not ok:
+        raise SystemExit("full-width run returned wrong token counts/ids")
+    if min(counts.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched on the main path: "
+                         f"{counts}")
+    if agree < MIN_TEACHER_FORCED:
+        raise SystemExit("decode disagrees with the teacher-forced forward")
+    del params
+    torch.cuda.empty_cache()
+    return counts, len(fin), [int(x) for x in lens]
+
+
+# --------------------------------------------------------------------------
+# Phase 6: timing.
+# --------------------------------------------------------------------------
+
+
+def time_paged(gen, fd, ref, counts, n_req, prompt_lens):
+    """B1 at the main path's decode shape.  The timed calls rotate over
+    ROTATIONS block tables with disjoint pages, so their K/V (10 x ~13 MB)
+    does not stay in the 50 MB L2 between calls: each decode layer reads
+    its own layer's pages cold."""
+    B, Hq, Hkv, D, page = 8, 32, 4, 128, 16
+    lens = [n + 16 for n in prompt_lens]        # mid-way through decode
+    n_pages = 1 << (max(1, (max(lens) + page - 1) // page) - 1).bit_length()
+    rotations = 10
+    q, kp, vp, _, ln, st = paged_inputs(
+        gen, B, Hq, Hkv, D, page, lens, torch.bfloat16, n_pages=n_pages,
+        n_pool=rotations * B * n_pages + 1)
+    perm = torch.randperm(kp.shape[0] - 1, generator=gen, device="cuda")
+    tables = perm.to(torch.int32).reshape(rotations, B, n_pages)
+    scale = 1.0 / D ** 0.5
+    got = fd.paged_decode(q, kp, vp, tables[0], ln, st, 0.0, scale)
+    want = ref.paged_decode_plain(q, kp, vp, tables[0], ln, st, 0.0, scale)
+    err, rel, ok = agreement(got, want, torch.bfloat16)
+    if not ok:
+        raise SystemExit(f"paged_decode disagrees at the timing shape: "
+                         f"max_row_rel_err {rel:.3e}")
+    ms = time_ms(lambda i: fd.paged_decode(q, kp, vp, tables[i], ln, st, 0.0,
+                                           scale), inner=rotations)
+    plain = time_ms(lambda i: ref.paged_decode_plain(
+        q, kp, vp, tables[i], ln, st, 0.0, scale), inner=rotations)
+    tokens = sum(lens)
+    nbytes = (2 * tokens * Hkv * D * 2          # K and V of live positions
+              + 2 * B * Hq * D * 2               # q in, out
+              + B * n_pages * 4 + 2 * B * 4)     # table, lens, start
+    flops = 4 * tokens * Hq * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {"name": "paged_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:116",
+            "launches": counts["paged_decode"],
+            "launches_per_request": counts["paged_decode"] / n_req,
+            "max_abs_err": err, "max_row_rel_err": rel,
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} "
+                     f"lens={lens} bf16"}
+
+
+def time_prefill(gen, fa, ref, counts, n_req, prompt_lens):
+    B, S, Hq, Hkv, D = 1, max(prompt_lens), 32, 4, 128
+    q = rand(gen, B, S, Hq, D, dtype=torch.bfloat16)
+    k = rand(gen, B, S, Hkv, D, dtype=torch.bfloat16)
+    v = rand(gen, B, S, Hkv, D, dtype=torch.bfloat16)
+    got = fa.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    err, rel, ok = agreement(got, want, torch.bfloat16)
+    if not ok:
+        raise SystemExit(f"flash_attention disagrees at the timing shape: "
+                         f"max_row_rel_err {rel:.3e}")
+    ms = time_ms(lambda i: fa.flash_attention(q, k, v))
+    plain = time_ms(lambda i: ref.flash_attention_ref(q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    pairs = B * S * (S + 1) // 2                 # unmasked (q, k) pairs
+    flops = 4 * pairs * Hq * D
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:24",
+            "launches": counts["flash_attention"],
+            "launches_per_request": counts["flash_attention"] / n_req,
+            "max_abs_err": err, "max_row_rel_err": rel,
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": lib,
+            "shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16"}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    src = os.path.join(HERE, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: {src}/repro_torch not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    t_start = time.monotonic()
+    card = card_line()
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.monotonic()
+    reports = build.build_all()
+    log(f"[2] built {sorted(reports) or 'nothing (cached)'} in "
+        f"{time.monotonic() - t0:.1f} s")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {name}: {line.strip()}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    log("[3] kernels vs plain versions")
+    check_paged(gen, fd, ref)
+    check_prefill(gen, fa, ref)
+
+    log("[4] greedy decoding")
+    phase_greedy()
+
+    log("[5] yi-9b at full width")
+    counts, n_req, prompt_lens = phase_full_width(ops)
+
+    log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls)")
+    rows = [time_paged(gen, fd, ref, counts, n_req, prompt_lens),
+            time_prefill(gen, fa, ref, counts, n_req, prompt_lens)]
+    for r in rows:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  {r['name']}: kernel_ms {r['ms']:.4f}  bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})  plain_ms "
+            f"{r['plain_ms']:.4f}  library_ms {lib}  launches "
+            f"{r['launches']} ({r['launches_per_request']:.1f}/request)  "
+            f"[{r['shape']}]")
+    log(f"total {time.monotonic() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,51 @@
+"""Dispatch between each kernel and its plain version by device.
+
+CPU tensors go to the plain PyTorch version (``ref``); CUDA tensors go to
+the hand-written kernel, which launches or raises — there is no fallback.
+There is no head-dim padding here: pools and activations keep
+``D = head_dim`` (the 128-lane pad of the JAX package is a TPU matter).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, softcap: float = 0.0,
+                    window: int = 0) -> torch.Tensor:
+    """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]."""
+    if q.is_cuda:
+        return _fa.flash_attention(q, k, v, causal=causal, softcap=softcap,
+                                   window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
+                                   window=window)
+
+
+def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_table: torch.Tensor,
+                 lens: torch.Tensor, start: torch.Tensor, *,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """q [B, Hq, D]; pools [P, Hkv, page, D]; block_table [B, n_pages];
+    lens/start [B] -> [B, Hq, D] over positions [start, len), scores
+    scaled by 1/sqrt(D)."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.is_cuda:
+        return _fd.paged_decode(q, k_pages, v_pages, block_table, lens, start,
+                                softcap, scale)
+    return ref.paged_decode_plain(q, k_pages, v_pages, block_table, lens,
+                                  start, softcap, scale)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, by kernel."""
+    return {"paged_decode": _fd.paged_decode.launches,
+            "flash_attention": _fa.flash_attention.launches}
+
+
+def reset_launch_counts() -> None:
+    _fd.paged_decode.launches = 0
+    _fa.flash_attention.launches = 0

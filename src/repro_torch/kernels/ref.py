@@ -1,0 +1,128 @@
+"""Plain PyTorch versions of every kernel (the allclose ground truth).
+
+``flash_attention_ref``, ``flash_decode_ref``, ``flash_decode_paged_ref`` and
+``ssd_chunk_ref`` are the port's copies of the JAX package's oracles, with
+the same signatures and layouts.  ``paged_decode_plain`` is the plain
+version of the paged-decode kernel itself: it reads the kernel-native pool
+``[P, Hkv, page, D]`` and returns zeros where ``len == 0``, as the kernel
+does (``flash_decode_paged_ref`` returns the mean of V there, because its
+softmax over an all-masked row is uniform).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.0 ** 30
+
+
+def _expand(k: torch.Tensor, Hq: int) -> torch.Tensor:
+    rep = Hq // k.shape[2]
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0):
+    """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D]."""
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+    k = _expand(k, Hq)
+    v = _expand(v, Hq)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (D ** 0.5)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    s = torch.where(ok[None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_decode_ref(q, k, v, lens, *, softcap=0.0, start=None):
+    """q: [B, Hq, D]; k/v: [B, S, Hkv, D]; lens [B]; start [B] lower bound."""
+    B, Hq, D = q.shape
+    S = k.shape[1]
+    k = _expand(k, Hq)
+    v = _expand(v, Hq)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) / (D ** 0.5)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    ok = pos < lens[:, None, None]
+    if start is not None:
+        ok = ok & (pos >= start[:, None, None])
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)
+
+
+def flash_decode_paged_ref(q, k_pages, v_pages, block_table, lens, *,
+                           softcap=0.0, start=None):
+    """Page-major pools [P, page, Hkv, D]: gather pages, then dense decode."""
+    k = k_pages[block_table.long()]        # [B, n, page, Hkv, D]
+    v = v_pages[block_table.long()]
+    B_, n, p, H, D = k.shape
+    k = k.reshape(B_, n * p, H, D)
+    v = v.reshape(B_, n * p, H, D)
+    return flash_decode_ref(q, k, v, lens, softcap=softcap, start=start)
+
+
+def gather_pages_dense(k_pages, v_pages, block_table):
+    """Kernel-native pools [P, Hkv, page, D] gathered through a block table
+    into dense [B, n_pages * page, Hkv, D] caches."""
+    k = k_pages[block_table.long()]        # [B, n, Hkv, page, D]
+    v = v_pages[block_table.long()]
+    B, n, Hkv, page, D = k.shape
+    k = k.transpose(2, 3).reshape(B, n * page, Hkv, D)
+    v = v.transpose(2, 3).reshape(B, n * page, Hkv, D)
+    return k, v
+
+
+def paged_decode_plain(q, k_pages, v_pages, block_table, lens, start,
+                       softcap: float, scale: float):
+    """Plain version of the paged-decode kernel.
+
+    q: [B, Hq, D]; k_pages/v_pages: [P, Hkv, page, D] (kernel-native);
+    block_table: [B, n_pages] int32; lens/start: [B] int32 — position ``t``
+    is attended iff ``start <= t < len``.  fp32 softmax; rows with
+    ``len == 0`` are zero.  Returns [B, Hq, D] in q's dtype.
+    """
+    B, Hq, D = q.shape
+    k, v = gather_pages_dense(k_pages, v_pages, block_table)
+    k = _expand(k, Hq)
+    v = _expand(v, Hq)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    ok = (pos < lens[:, None, None]) & (pos >= start[:, None, None])
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", p, v.float())
+    out = torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def ssd_chunk_ref(x, dt, A, B_, C_):
+    """Within-chunk SSD oracle: x [B,Nc,Q,H,P], dt [B,Nc,Q,H], A [H],
+    B_/C_ [B,Nc,Q,H,N] -> (y [B,Nc,Q,H,P], S [B,Nc,H,P,N])."""
+    dtA = dt * A[None, None, None, :]
+    cs = torch.cumsum(dtA, dim=2)
+    Q = x.shape[2]
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    M = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                    torch.zeros_like(diff))
+    cb = torch.einsum("bcthn,bcshn->bchts", C_, B_)
+    scores = cb * torch.movedim(M, -1, 2)
+    xdt = x * dt[..., None]
+    y = torch.einsum("bchts,bcshp->bcthp", scores, xdt)
+    total = cs[:, :, -1, :]
+    w = torch.exp(total[:, :, None, :] - cs) * dt
+    S = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", w, B_, x)
+    return y, S

@@ -1,0 +1,10 @@
+from repro_torch.models.config import ModelConfig  # noqa: F401
+from repro_torch.models.model import (  # noqa: F401
+    PagedDecodeState,
+    decode_loop_paged,
+    decode_step_paged,
+    forward,
+    init_params,
+    param_count,
+    prefill,
+)

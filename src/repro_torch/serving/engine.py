@@ -1,0 +1,364 @@
+"""Continuous-batching serving engine (one model replica), PyTorch/CUDA.
+
+The port of the JAX package's ``ServingEngine`` main path: admit prompts by
+lifetime reservation while KV blocks remain, prefill them one-shot into the
+paged pool (grouped by prompt length, so RoPE positions need no padding),
+then step decode over the active set; finished sequences free their pages
+immediately.  Prefill and decode interleave within a step.
+
+Decode is device-resident: ``models.decode_loop_paged`` runs up to
+``decode_horizon`` steps — paged attention through the hand-written kernel,
+the K/V token write, sampling — with the tokens kept on the device, and
+returns a ``[B, H]`` token block read back with **one device→host transfer
+per horizon** (``decode_syncs`` counts them).  Batches are padded to
+power-of-two buckets with the trash slot, page counts to power-of-two
+buckets, and the horizon to a power-of-two floor of the safe step count
+(``min(decode_horizon, min remaining max_new_tokens)``, collapsed to 1 on a
+step that admitted a request).  Page capacity for the whole horizon is
+pre-extended against the admission-time reservation, so the device loop
+never needs a host allocation.  Under greedy decoding the token stream is
+the same for every horizon.
+
+``step_async()`` runs the host scheduling and fires the decode without
+reading it back; ``finish_step(pending)`` performs the transfer and
+retirement; ``step()`` is their composition.
+
+Not ported yet (ROADMAP.md): chunked prefill, the prefix cache,
+export/import and migration, SLO shedding, telemetry, ``decode_mode=
+"dense"`` and meshes.  ``load_stats()`` returns every key of the frozen
+schema, with 0 for those features.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.models import PagedDecodeState, decode_loop_paged, prefill
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import check_supported
+from repro_torch.models.sampling import sample
+from repro_torch.serving.kvcache import PagedKVCache
+
+# the frozen load_stats() key set (the JAX package's schema)
+LOAD_STATS_KEYS = frozenset({
+    "waiting", "active", "max_seqs", "free_blocks",
+    "free_blocks_effective", "tokens_out", "steps", "prefill_tokens",
+    "prefix_hits", "prefix_misses", "prefix_hit_tokens",
+    "prefix_evicted_bytes", "prefix_restored_bytes", "shed",
+    "decode_syncs", "load",
+    "rebalanced_in", "rebalanced_out", "preempted", "fragmentation",
+    "handoff_in", "handoff_out",
+})
+
+
+@dataclasses.dataclass
+class EngineRequest:
+    rid: int
+    prompt: np.ndarray           # int32 [S]
+    max_new_tokens: int
+    slot: int = -1
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    prefill_pos: int = 0         # prompt tokens already in pages
+    t_submit: float | None = None
+    t_first: float | None = None  # host clock when the first token was read
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_pos < len(self.prompt)
+
+
+@dataclasses.dataclass
+class PendingDecode:
+    """A dispatched-but-unsynced decode horizon: the device token block
+    between ``step_async`` and ``finish_step``."""
+    slots: list[int]
+    tokens: torch.Tensor    # [B_bucket, horizon] on the device
+    horizon: int
+
+
+def _pow2_bucket(n: int, cap: int) -> int:
+    """Smallest power of two >= n, clipped to cap."""
+    return min(cap, 1 << max(0, n - 1).bit_length())
+
+
+def _pow2_floor(n: int) -> int:
+    """Largest power of two <= n (n >= 1)."""
+    return 1 << (n.bit_length() - 1)
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, num_blocks: int = 512,
+                 block_size: int = 16, max_seqs: int = 8,
+                 dtype=torch.float32, greedy: bool = True, seed: int = 0,
+                 max_blocks_per_seq: int | None = None,
+                 decode_horizon: int = 1, device="cuda"):
+        """``params`` must already live on ``device``; ``dtype`` is the KV
+        pool's dtype.  Runs on CUDA unless ``device="cpu"`` is passed."""
+        check_supported(cfg)
+        if decode_horizon < 1:
+            raise ValueError("decode_horizon must be >= 1")
+        self.cfg = cfg
+        self.params = params
+        self.device = torch.device(device)
+        self.decode_horizon = decode_horizon
+        if max_blocks_per_seq is None:
+            max_blocks_per_seq = cfg.max_seq_len // block_size
+        self.cache = PagedKVCache.create(
+            cfg, num_blocks, block_size, max_seqs,
+            max_blocks_per_seq=max_blocks_per_seq, dtype=dtype,
+            device=self.device)
+        self.max_seqs = max_seqs
+        self.greedy = greedy
+        self.seed = seed
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.waiting: list[EngineRequest] = []
+        self.active: dict[int, EngineRequest] = {}    # slot -> request
+        self.steps = 0
+        self.tokens_out = 0
+        self.prefill_tokens = 0
+        # global decode-step counter: step t samples from
+        # step_generator(seed, t) in every horizon
+        self._sample_step = 0
+        # one increment per decode device->host sync (one per horizon)
+        self.decode_syncs = 0
+        self.horizon_counts: dict[int, int] = {}
+
+    # -- submission ------------------------------------------------------------
+
+    def _capacity_blocks(self) -> int:
+        """Blocks one sequence may ever hold on this replica."""
+        return min(self.cache.max_blocks_per_seq, self.cache.num_blocks)
+
+    def fits(self, ctx_len: int, new_tokens: int) -> bool:
+        """Can this replica ever serve a request of this size?"""
+        if new_tokens < 1:
+            return False
+        need = ctx_len + new_tokens - 1
+        bs = self.cache.block_size
+        return (need + bs - 1) // bs <= self._capacity_blocks()
+
+    def _validate(self, ctx_len: int, new_tokens: int, rid: int) -> None:
+        if new_tokens < 1:
+            raise ValueError(f"request {rid}: max_new_tokens must be >= 1")
+        # the final generated token is returned but never written to a page,
+        # so lifetime cache footprint is ctx + new - 1 positions
+        if not self.fits(ctx_len, new_tokens):
+            need = ctx_len + new_tokens - 1
+            raise ValueError(
+                f"request {rid}: context {ctx_len} + {new_tokens} new tokens "
+                f"needs {need} cache positions but this replica's "
+                f"per-sequence block capacity is "
+                f"{self._capacity_blocks()} x {self.cache.block_size} tokens")
+
+    def submit(self, rid: int, prompt: np.ndarray, max_new_tokens: int
+               ) -> None:
+        prompt = np.asarray(prompt, np.int32)
+        self._validate(len(prompt), max_new_tokens, rid)
+        self.waiting.append(EngineRequest(rid, prompt, max_new_tokens,
+                                          t_submit=time.monotonic()))
+
+    def _free_slots(self) -> list[int]:
+        return [s for s in range(self.max_seqs) if s not in self.active]
+
+    def load_stats(self) -> dict:
+        """Occupancy snapshot; every key of ``LOAD_STATS_KEYS``."""
+        free = self.cache.n_free_blocks
+        return {
+            "waiting": len(self.waiting),
+            "active": len(self.active),
+            "max_seqs": self.max_seqs,
+            "free_blocks": free,
+            "free_blocks_effective": free,
+            "tokens_out": self.tokens_out,
+            "steps": self.steps,
+            "prefill_tokens": self.prefill_tokens,
+            "prefix_hits": 0,
+            "prefix_misses": 0,
+            "prefix_hit_tokens": 0,
+            "prefix_evicted_bytes": 0,
+            "prefix_restored_bytes": 0,
+            "shed": 0,
+            "decode_syncs": self.decode_syncs,
+            "load": (len(self.waiting) + len(self.active)) / self.max_seqs,
+            "rebalanced_in": 0,
+            "rebalanced_out": 0,
+            "preempted": 0,
+            "fragmentation": self._fragmentation(),
+            "handoff_in": 0,
+            "handoff_out": 0,
+        }
+
+    def _fragmentation(self) -> float:
+        """1 - resident tokens / (held pages * block_size)."""
+        held = sum(len(b) for b in self.cache.seq_blocks.values())
+        if not held:
+            return 0.0
+        resident = sum(int(self.cache.seq_lens[s])
+                       for s in self.cache.seq_blocks)
+        return 1.0 - resident / (held * self.cache.block_size)
+
+    # -- scheduling ------------------------------------------------------------
+
+    def _admit(self) -> list[EngineRequest]:
+        """Move waiting requests into free slots while KV blocks remain."""
+        admitted = []
+        free = self._free_slots()
+        while self.waiting and free:
+            req = self.waiting[0]
+            ctx = len(req.prompt)
+            # reserve the lifetime footprint (prompt + decode growth)
+            total = ctx + (req.max_new_tokens - len(req.generated)) - 1
+            if not self.cache.can_admit(ctx, total_tokens=total):
+                break
+            self.waiting.pop(0)
+            req.slot = free.pop(0)
+            self.cache.admit(req.slot, ctx, total_tokens=total)
+            self.active[req.slot] = req
+            admitted.append(req)
+        return admitted
+
+    def _run_prefill(self, reqs: list[EngineRequest]) -> None:
+        # group by prompt length: same-length batches need no padding
+        by_len: dict[int, list[EngineRequest]] = {}
+        for r in reqs:
+            by_len.setdefault(len(r.prompt), []).append(r)
+        for pl, group in by_len.items():
+            toks = torch.from_numpy(np.stack([r.prompt for r in group])).to(
+                self.device)
+            logits, k, v = prefill(self.params, self.cfg, toks)
+            for i, r in enumerate(group):
+                self.cache.write_prefill(r.slot, k[:, i], v[:, i])
+            first = self._pick(logits)           # one sync per group
+            self.prefill_tokens += pl * len(group)
+            t_first = time.monotonic()
+            for i, r in enumerate(group):
+                r.t_first = t_first
+                r.prefill_pos = pl
+                r.generated.append(int(first[i]))
+                self.tokens_out += 1
+
+    def _pick(self, logits: torch.Tensor) -> np.ndarray:
+        if self.greedy:
+            return sample(logits, self.cfg).cpu().numpy()
+        return sample(logits, self.cfg, self._gen,
+                      temperature=1.0).cpu().numpy()
+
+    # -- decode ------------------------------------------------------------------
+
+    def _safe_horizon(self, slots: list[int], event: bool) -> int:
+        """How many decode steps the next dispatch may take:
+        ``min(decode_horizon, min remaining max_new_tokens)``, 1 on a step
+        with a scheduling event (an admission), floored to a power of two."""
+        H = self.decode_horizon
+        if H <= 1 or event:
+            return 1
+        rem = min(self.active[s].max_new_tokens - len(self.active[s].generated)
+                  for s in slots)
+        H = min(H, rem)
+        return _pow2_floor(H) if H > 1 else 1
+
+    def _dispatch_decode(self, slots: list[int], horizon: int
+                         ) -> PendingDecode:
+        """Fire the decode loop over the given slots; no host sync.
+
+        Pre-extends page capacity for the whole horizon and advances the
+        host ``seq_lens``; the device mirror advances with the loop.
+        """
+        slots = sorted(slots)
+        updates = []
+        for s in slots:
+            upd = self.cache.extend_for(s, horizon)
+            if upd is not None:
+                updates.append(upd)
+        self.cache.apply_table_updates(updates)   # one scatter for the batch
+        B = len(slots)
+        bucket = _pow2_bucket(B, self.max_seqs)
+        trash = self.cache.trash_slot
+        pad = bucket - B
+        dev = self.device
+        slot_t = torch.tensor(slots + [trash] * pad, dtype=torch.long,
+                              device=dev)
+        last = torch.tensor([self.active[s].generated[-1] for s in slots]
+                            + [0] * pad, dtype=torch.int32, device=dev)
+        bs = self.cache.block_size
+        need = (int(self.cache.seq_lens[slots].max()) + bs - 1) // bs
+        n_pages = _pow2_bucket(need, self.cache.max_blocks_per_seq)
+        step0 = self._sample_step
+        self._sample_step += horizon
+        self.horizon_counts[horizon] = self.horizon_counts.get(horizon, 0) + 1
+        cache = self.cache
+        state = PagedDecodeState(
+            k=cache.k, v=cache.v,
+            block_table=cache.block_table_dev[slot_t, :n_pages].contiguous(),
+            lens=cache.seq_lens_dev[slot_t])
+        toks, state = decode_loop_paged(
+            self.params, self.cfg, last, state, horizon,
+            temperature=0.0 if self.greedy else 1.0, seed=self.seed,
+            step0=step0)
+        cache.seq_lens_dev[slot_t] = state.lens
+        # padded rows advanced the trash slot's lens; pin it back to 0
+        cache.seq_lens_dev[trash] = 0
+        return PendingDecode(slots, toks, horizon)
+
+    def _finish_decode(self, pending: PendingDecode) -> None:
+        """Sync a dispatched horizon: ONE [B, H] device->host transfer."""
+        toks = pending.tokens.cpu().numpy()
+        self.decode_syncs += 1
+        for i, s in enumerate(pending.slots):
+            self.active[s].generated.extend(
+                int(t) for t in toks[i, :pending.horizon])
+            self.tokens_out += pending.horizon
+
+    def _retire(self) -> list[EngineRequest]:
+        done = []
+        for s in list(self.active):
+            r = self.active[s]
+            if len(r.generated) >= r.max_new_tokens:
+                r.done = True
+                self.cache.release_slot(s)
+                del self.active[s]
+                done.append(r)
+        return done
+
+    # -- main loop ---------------------------------------------------------------
+
+    def step_async(self) -> PendingDecode | None:
+        """The host half of one scheduler iteration: admission, prefill and
+        the decode dispatch, but not the decode sync.  Returns the pending
+        decode (None when nothing decoded) for ``finish_step``.
+
+        Sequences already active decode on a step that admits new prompts
+        (newly admitted requests get their first token from prefill)."""
+        self.steps += 1
+        decode_slots = [s for s, r in self.active.items() if not r.prefilling]
+        admitted = self._admit()
+        if admitted:
+            self._run_prefill(admitted)
+        if decode_slots:
+            h = self._safe_horizon(decode_slots, bool(admitted))
+            return self._dispatch_decode(decode_slots, h)
+        return None
+
+    def finish_step(self, pending: PendingDecode | None
+                    ) -> list[EngineRequest]:
+        """Sync a dispatched step and retire finished requests."""
+        if pending is not None:
+            self._finish_decode(pending)
+        return self._retire()
+
+    def step(self) -> list[EngineRequest]:
+        """One synchronous scheduler iteration; returns requests finished
+        this step."""
+        return self.finish_step(self.step_async())
+
+    def run_to_completion(self, max_steps: int = 100_000
+                          ) -> list[EngineRequest]:
+        finished = []
+        while (self.waiting or self.active) and self.steps < max_steps:
+            finished.extend(self.step())
+        return finished

@@ -1,0 +1,243 @@
+"""Paged KV cache (vLLM-style) with device-resident decode metadata.
+
+Storage: ``BlockPool`` owns the layer-stacked pools ``k/v: [L,
+num_blocks + 1, Hkv, block, D]`` in kernel-native layout (the paged-decode
+kernel and its plain version read ``[page, Hkv, block, D]`` tiles without a
+transpose) plus the host-side ``BlockAllocator``.  Physical block
+``num_blocks`` is a trash page: padded batch rows write their dummy K/V
+there, so the decode step needs no masking branches.  ``D`` is the model's
+head_dim; nothing is padded.
+
+A ``PagedKVCache`` holds a pool and its per-slot block tables and
+sequence lengths.  Admission reserves a sequence's full lifetime block
+count (prompt + decode growth), so later ``extend_for`` calls draw from
+already-reserved capacity.  The host ``block_table``/``seq_lens`` (numpy)
+are the scheduler's truth; the device mirrors ``block_table_dev
+[max_seqs + 1, max_blocks_per_seq]`` (initialised to the trash page) and
+``seq_lens_dev [max_seqs + 1]`` are updated incrementally — one small
+scatter on admit / page crossing / release.  Row ``max_seqs`` is the trash
+slot used to pad decode batches to bucket sizes.
+
+Block ids and tables mean the same thing as in the JAX package.  Where the
+JAX package replaces its pool arrays functionally, this port writes the
+pool and mirror tensors in place (``index_put_`` / slice assignment).
+Prefix sharing, migration and the copy primitives are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+
+class BlockAllocator:
+    """Host-side free-list of physical blocks, in the JAX package's order.
+
+    Prefix sharing (reference counts, ``share``, pinned blocks) is not
+    ported yet: every block has one owner."""
+
+    def __init__(self, num_blocks: int):
+        self.free = list(range(num_blocks - 1, -1, -1))
+
+    def alloc(self, n: int) -> list[int]:
+        if len(self.free) < n:
+            raise MemoryError(f"KV pool exhausted (need {n}, "
+                              f"have {len(self.free)})")
+        return [self.free.pop() for _ in range(n)]
+
+    def release(self, blocks: list[int]) -> None:
+        self.free.extend(blocks)
+
+
+class BlockPool:
+    """Device K/V block pool + allocator."""
+
+    def __init__(self, cfg: ModelConfig, num_blocks: int,
+                 block_size: int = 16, dtype=torch.float32, device="cuda"):
+        self.cfg = cfg
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.device = torch.device(device)
+        shape = (cfg.n_layers, num_blocks + 1, cfg.n_kv_heads, block_size,
+                 cfg.head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.allocator = BlockAllocator(num_blocks)
+
+    @property
+    def trash_page(self) -> int:
+        return self.num_blocks
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    cfg: ModelConfig
+    block_size: int
+    num_blocks: int             # pool-wide physical block count
+    max_seqs: int
+    max_blocks_per_seq: int
+    pool: BlockPool
+    block_table: np.ndarray     # host [max_seqs, max_blocks_per_seq] int32
+    seq_lens: np.ndarray        # host [max_seqs] int32
+    block_table_dev: torch.Tensor  # device [max_seqs + 1, max_blocks_per_seq]
+    seq_lens_dev: torch.Tensor     # device [max_seqs + 1]
+    seq_blocks: dict            # slot -> list[int]
+    used_blocks: int = 0
+    reserved_blocks: int = 0    # admitted sequences' lifetime reservations
+    seq_reserved: dict = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, num_blocks: int = 256,
+               block_size: int = 16, max_seqs: int = 16,
+               max_blocks_per_seq: int = 64, dtype=torch.float32,
+               device="cuda") -> "PagedKVCache":
+        """A cache over a private pool.  A pool shared by several replica
+        views (the JAX package's ``from_pool`` and quotas) comes with the
+        cluster."""
+        pool = BlockPool(cfg, num_blocks, block_size, dtype, device)
+        # device tables start at the trash page so un-admitted / padded rows
+        # read and write only the trash page
+        table_dev = torch.full((max_seqs + 1, max_blocks_per_seq),
+                               pool.trash_page, dtype=torch.int32,
+                               device=pool.device)
+        lens_dev = torch.zeros(max_seqs + 1, dtype=torch.int32,
+                               device=pool.device)
+        return cls(cfg, block_size, num_blocks, max_seqs, max_blocks_per_seq,
+                   pool, np.zeros((max_seqs, max_blocks_per_seq), np.int32),
+                   np.zeros(max_seqs, np.int32), table_dev, lens_dev, {})
+
+    # -- pool delegation ------------------------------------------------------
+
+    @property
+    def k(self) -> torch.Tensor:
+        return self.pool.k
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self.pool.v
+
+    @property
+    def allocator(self) -> BlockAllocator:
+        return self.pool.allocator
+
+    @property
+    def device(self) -> torch.device:
+        return self.pool.device
+
+    @property
+    def n_free_blocks(self) -> int:
+        """Blocks not yet reserved by an admitted sequence."""
+        return self.num_blocks - self.reserved_blocks
+
+    def _blocks(self, tokens: int) -> int:
+        return (tokens + self.block_size - 1) // self.block_size
+
+    @property
+    def trash_slot(self) -> int:
+        """Device table/lens row used to pad decode batches to bucket size."""
+        return self.max_seqs
+
+    # -- slot lifecycle -------------------------------------------------------
+
+    def admit(self, slot: int, prompt_len: int, total_tokens: int) -> None:
+        """Admit one sequence: allocate its prompt blocks now and reserve its
+        full lifetime block count (``total_tokens`` = prompt + decode
+        growth) so its decode growth can never fail."""
+        n = self._blocks(prompt_len)
+        reserve = max(n, self._blocks(total_tokens))
+        blocks = self.allocator.alloc(n)
+        self.used_blocks += n
+        self.reserved_blocks += reserve
+        self.seq_reserved[slot] = reserve
+        self.seq_blocks[slot] = blocks
+        self.block_table[slot, :] = 0
+        self.block_table[slot, :n] = blocks
+        self.seq_lens[slot] = prompt_len
+        # incremental device sync: one row write per admission
+        row = np.full(self.max_blocks_per_seq, self.num_blocks, np.int32)
+        row[:n] = blocks
+        self.block_table_dev[slot] = torch.from_numpy(row).to(self.device)
+        self.seq_lens_dev[slot] = prompt_len
+
+    def can_admit(self, prompt_len: int, total_tokens: int) -> bool:
+        """Whether the lifetime reservation of a sequence of ``total_tokens``
+        (prompt + expected decode growth) fits in the unreserved blocks."""
+        need = max(self._blocks(prompt_len), self._blocks(total_tokens))
+        return self.n_free_blocks >= need
+
+    def extend_for(self, slot: int, n_tokens: int) -> tuple | None:
+        """Ensure page capacity for the next ``n_tokens`` decode tokens.
+
+        The horizon pre-extend: every block the decode loop will write
+        through the block table (positions ``len .. len + n_tokens - 1``) is
+        allocated here in one host pass, out of the slot's admission
+        reservation.  The host length advances here; the device
+        ``seq_lens_dev`` row advances with the decode loop.
+
+        Returns the pending device table update ``(slot, first_col,
+        new_blocks)``, or None, so a batch caller applies all slots'
+        updates in one scatter (``apply_table_updates``).
+        """
+        new_len = int(self.seq_lens[slot]) + n_tokens
+        n_have = len(self.seq_blocks[slot])
+        need = (new_len + self.block_size - 1) // self.block_size
+        update = None
+        if need > n_have:
+            if need > self.seq_reserved[slot]:
+                raise MemoryError("sequence grew beyond its admission "
+                                  "reservation")
+            grow = need - n_have
+            new_blocks = self.allocator.alloc(grow)
+            self.used_blocks += grow
+            self.seq_blocks[slot].extend(new_blocks)
+            self.block_table[slot, n_have:need] = new_blocks
+            update = (slot, n_have, new_blocks)
+        self.seq_lens[slot] = new_len
+        return update
+
+    def apply_table_updates(self, updates: list[tuple]) -> None:
+        """Apply deferred ``extend_for`` device updates in one scatter."""
+        if not updates:
+            return
+        rows, cols, vals = [], [], []
+        for slot, start, blocks in updates:
+            rows.extend([slot] * len(blocks))
+            cols.extend(range(start, start + len(blocks)))
+            vals.extend(blocks)
+        idx = torch.tensor([rows, cols], dtype=torch.long, device=self.device)
+        self.block_table_dev.index_put_(
+            (idx[0], idx[1]),
+            torch.tensor(vals, dtype=torch.int32, device=self.device))
+
+    def release_slot(self, slot: int) -> None:
+        blocks = self.seq_blocks.pop(slot, [])
+        self.allocator.release(blocks)
+        self.used_blocks -= len(blocks)
+        self.reserved_blocks -= self.seq_reserved.pop(slot, len(blocks))
+        self.seq_lens[slot] = 0
+        self.block_table[slot, :] = 0
+        self.block_table_dev[slot] = self.num_blocks
+        self.seq_lens_dev[slot] = 0
+
+    # -- device writes ---------------------------------------------------------
+
+    def write_prefill(self, slot: int, k_seq: torch.Tensor,
+                      v_seq: torch.Tensor) -> None:
+        """k_seq/v_seq: [L, S, Hkv, D] from prefill; written into the
+        slot's pages in place."""
+        L, S, Hkv, D = k_seq.shape
+        bs = self.block_size
+        n = (S + bs - 1) // bs
+        pad = n * bs - S
+        if pad:
+            k_seq = torch.nn.functional.pad(k_seq, (0, 0, 0, 0, 0, pad))
+            v_seq = torch.nn.functional.pad(v_seq, (0, 0, 0, 0, 0, pad))
+        kb = k_seq.reshape(L, n, bs, Hkv, D).transpose(2, 3)  # [L,n,Hkv,bs,D]
+        vb = v_seq.reshape(L, n, bs, Hkv, D).transpose(2, 3)
+        idx = torch.tensor(self.seq_blocks[slot], dtype=torch.long,
+                           device=self.device)
+        self.k[:, idx] = kb.to(self.k.dtype)
+        self.v[:, idx] = vb.to(self.v.dtype)

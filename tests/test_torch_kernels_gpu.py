@@ -1,0 +1,138 @@
+"""Each of the port's CUDA kernels against its plain PyTorch version, on the
+card.  Without a card every test here skips; on the card run
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+This file imports no JAX, so that it runs where only the port is
+installed.  Its cases and seeded numpy inputs are shared with the CPU
+tests of the plain versions against JAX (``test_torch_kernels.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import ref
+
+PAGED_CASES = [
+    # name, B, Hq, Hkv, D, page, lens, softcap, window, trash rows
+    ("group2", 3, 4, 2, 32, 8, [5, 17, 40], 0.0, 0, ()),
+    ("group1-ragged", 2, 4, 4, 32, 8, [13, 23], 0.0, 0, ()),
+    ("group8-d128", 2, 8, 1, 128, 16, [1, 45], 0.0, 0, ()),
+    ("softcap50", 2, 4, 2, 32, 8, [19, 33], 50.0, 0, ()),
+    ("window-mid-page", 3, 4, 2, 32, 8, [10, 37, 64], 0.0, 12, ()),
+    ("trash-row", 3, 4, 2, 32, 8, [9, 1, 30], 0.0, 0, (1,)),
+]
+PAGED_IDS = [c[0] for c in PAGED_CASES]
+
+
+def paged_inputs(seed, B, Hq, Hkv, D, page, lens, *, window=0,
+                 trash_rows=()):
+    """numpy q [B,Hq,D], kernel-native pools [P,Hkv,page,D] whose last page
+    is the trash page, a table of distinct pages, lens and start."""
+    r = np.random.RandomState(seed)
+    lens = np.asarray(lens, np.int32)
+    n_pages = max(1, (int(lens.max()) + page - 1) // page)
+    P = B * n_pages + 1
+    q = (r.randn(B, Hq, D) * 0.5).astype(np.float32)
+    kp = (r.randn(P, Hkv, page, D) * 0.5).astype(np.float32)
+    vp = (r.randn(P, Hkv, page, D) * 0.5).astype(np.float32)
+    table = r.permutation(P - 1)[:B * n_pages].reshape(B, n_pages)
+    table = table.astype(np.int32)
+    for row in trash_rows:
+        table[row] = P - 1
+    start = (np.maximum(lens - window, 0) if window
+             else np.zeros_like(lens)).astype(np.int32)
+    return q, kp, vp, table, lens, start
+
+
+def flash_inputs(seed, B, Sq, Sk, Hq, Hkv, D):
+    r = np.random.RandomState(seed)
+    q = (r.randn(B, Sq, Hq, D) * 0.5).astype(np.float32)
+    k = (r.randn(B, Sk, Hkv, D) * 0.5).astype(np.float32)
+    v = (r.randn(B, Sk, Hkv, D) * 0.5).astype(np.float32)
+    return q, k, v
+
+
+def to_torch(*arrays, device="cpu"):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+# fp32: the kernel sums in another order than the plain version, so the
+# two agree to an absolute 1e-4.  bf16: both compute in fp32 and round the
+# result to 8 significant bits, so an element may differ by one bf16 step,
+# at most 2^-7 of the largest |value| in its output row; the limit is 1e-2
+# of that row maximum, which keeps the check tight on long rows, whose
+# attention output is small.
+ATOL_FP32 = 1e-4
+ROW_RTOL_BF16 = 1e-2
+
+
+def close(a, b, atol):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), atol=atol, rtol=0)
+
+
+def kernel_close(got, want, dtype):
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    if dtype == torch.float32:
+        close(got, want, ATOL_FP32)
+        return
+    d = got.shape[-1]
+    err = np.abs(got - want).reshape(-1, d).max(-1)
+    row_max = np.maximum(np.abs(want).reshape(-1, d).max(-1), 1e-30)
+    assert np.isfinite(got).all()
+    assert (err / row_max).max() <= ROW_RTOL_BF16, (err / row_max).max()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,Hq,Hkv,D,page,lens,cap,win,trash",
+                         PAGED_CASES + [("len0", 2, 4, 2, 32, 8, [0, 21],
+                                         0.0, 0, ())],
+                         ids=PAGED_IDS + ["len0"])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, name, B, Hq, Hkv, D,
+                                           page, lens, cap, win, trash):
+    q, kp, vp, tb, ln, st = to_torch(
+        *paged_inputs(11, B, Hq, Hkv, D, page, lens, window=win,
+                      trash_rows=trash), device=cuda)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = tfd.paged_decode.launches
+    got = tfd.paged_decode(q, kp, vp, tb, ln, st, cap, 1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    assert tfd.paged_decode.launches == before + 1
+    want = ref.paged_decode_plain(q, kp, vp, tb, ln, st, cap, 1.0 / D ** 0.5)
+    kernel_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,cap,win", [
+    (2, 24, 24, 4, 2, 32, True, 0.0, 0),
+    (1, 200, 200, 32, 4, 128, True, 0.0, 0),
+    (2, 256, 256, 4, 4, 64, True, 0.0, 64),
+    (1, 130, 130, 8, 4, 256, True, 50.0, 64),
+    (2, 40, 70, 4, 2, 64, False, 0.0, 0),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, Hq,
+                                              Hkv, D, causal, cap, win):
+    q, k, v = (t.to(dtype) for t in to_torch(
+        *flash_inputs(12, B, Sq, Sk, Hq, Hkv, D), device=cuda))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, softcap=cap,
+                              window=win)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=cap,
+                                   window=win)
+    kernel_close(got, want, dtype)
