@@ -9,22 +9,28 @@ non-zero before the result lines):
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card, fp32
-     (absolute 1e-4) and bf16 (1e-2 of each output row's largest value),
-     at smoke and main-path shapes;
-  4. greedy decoding: smoke configs on the card match the CPU token for
-     token; a 2-layer full-width yi-9b (fp32) gives the same tokens at
-     decode_horizon 1 and 8 and agrees with a teacher-forced forward;
-  5. the slice at full width: yi-9b (48 layers, bf16, random weights from
-     a seeded generator) serves 8 requests through ``ServingEngine``; every
-     kernel's launch counter must be > 0 for that run, and at least 90 % of
-     the generated tokens must equal a teacher-forced forward's argmax;
-  6. time each kernel at the main-path shapes with CUDA events (median of
-     20 groups of 10 back-to-back calls) beside its bound, its plain
-     version and, where one exists, one PyTorch library call computing the
-     same function; each timed kernel's output is checked again.
+     (absolute 1e-4; the SSD chunk kernel 1e-4 of each output row's
+     largest value) and bf16 (1e-2 of each output row's largest value), at
+     smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m);
+  4. greedy decoding: the smoke configs on the card match the CPU token
+     for token; 2-layer full-width yi-9b, hymba-1.5b and mamba2-370m (fp32)
+     give the same tokens at decode_horizon 1 and 8 and agree with a
+     teacher-forced forward;
+  5. the served models at full width, one after another: yi-9b (48
+     layers), hymba-1.5b (32) and mamba2-370m (48), bf16, random weights
+     from a seeded generator, each serving 8 requests through
+     ``ServingEngine``; the launch counters are set to 0 just before each
+     run and read just after it, and every kernel on that model's path must
+     have launched; at least 90 % of the generated tokens must equal a
+     teacher-forced forward's argmax;
+  6. time each kernel at each model's serving shapes with CUDA events
+     (median of 20 groups of 10 back-to-back calls) beside its bound, its
+     plain version and, where one exists, one PyTorch library call
+     computing the same function; each timed kernel's output is checked
+     again.
 
 The last three lines are the card line, one JSON object with the kernel
-table and ``{"ok": true, "device": {...}}``.
+table (one row per kernel and model) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -41,6 +47,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
+FP32_FLOPS_PER_S = 67e12           # H100 SXM fp32 rate outside tensor cores
+TF32_FLOPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
 # fp32: kernel and plain version sum in different orders, so they agree to
 # an absolute 1e-4.  bf16: both compute in fp32 and round the result to 8
 # significant bits, so an element may differ by one bf16 step, at most
@@ -51,10 +59,23 @@ BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 # in bf16 fails it on the long rows, where an absolute limit would not).
 ATOL_FP32 = 1e-4
 ROW_RTOL_BF16 = 1e-2
+# the SSD chunk kernel is fp32 only; each output is a sum of up to 256
+# exp-weighted products whose size grows with the chunk and the state
+# width, so its limit is relative to the output row's largest |value| (a
+# row is y[t, :] or S[p, :]): fp32 sums of 256 terms in another order
+# differ by ~1e-6 of it, a wrong or missing term by far more than 1e-4
+ROW_RTOL_SSD = 1e-4
 # a bf16 48-layer random-weight model rounds differently on the prefill
 # and decode paths, so near-tied argmaxes may flip (1 of 32 tokens in the
 # first measurement); a broken decode path agrees on almost none
 MIN_TEACHER_FORCED = 0.9
+# the served models at full width, in order, and the kernels each one's
+# serving run must launch
+FULL_WIDTH = (
+    ("yi-9b", ("paged_decode", "flash_attention")),
+    ("hymba-1.5b", ("paged_decode", "flash_attention", "ssd_chunk")),
+    ("mamba2-370m", ("ssd_chunk",)),
+)
 
 
 def log(*args) -> None:
@@ -77,15 +98,20 @@ def rand(gen, *shape, dtype=torch.float32, scale=0.5):
 def agreement(got: torch.Tensor, want: torch.Tensor, dtype):
     """(max absolute error, max row-relative error, within tolerance).
     A row is one output vector over the head dimension."""
-    got, want = got.float(), want.float()
-    diff = (got - want).abs()
-    abs_err = diff.max().item()
-    d = got.shape[-1]
-    row_max = want.abs().reshape(-1, d).amax(-1).clamp_min(1e-30)
-    rel_err = (diff.reshape(-1, d).amax(-1) / row_max).max().item()
+    abs_err, rel_err, finite = row_rel(got, want)
     within = (abs_err <= ATOL_FP32 if dtype == torch.float32
               else rel_err <= ROW_RTOL_BF16)
-    return abs_err, rel_err, within and bool(torch.isfinite(got).all())
+    return abs_err, rel_err, within and finite
+
+
+def row_rel(got: torch.Tensor, want: torch.Tensor):
+    """(max absolute error, max row-relative error, all finite)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    d = got.shape[-1]
+    row_max = want.abs().reshape(-1, d).amax(-1).clamp_min(1e-30)
+    rel = (diff.reshape(-1, d).amax(-1) / row_max).max().item()
+    return diff.max().item(), rel, bool(torch.isfinite(got).all())
 
 
 def tol_text(dtype) -> str:
@@ -152,6 +178,8 @@ def check_paged(gen, fd, ref) -> None:
         ("yi-9b-window", 8, 32, 4, 128, 16,
          [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 100, ()),
         ("gemma2", 4, 8, 4, 256, 16, [3, 64, 517, 1024], 50.0, 61, ()),
+        ("hymba", 8, 25, 5, 64, 16,
+         [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 0, (3,)),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Hq, Hkv, D, page, lens, cap, win, trash in cases:
@@ -180,6 +208,8 @@ def check_prefill(gen, fa, ref) -> None:
         ("d64-window", 2, 256, 256, 4, 4, 64, True, 0.0, 64),
         ("gemma2-256", 1, 200, 200, 8, 4, 256, True, 50.0, 64),
         ("noncausal", 2, 100, 200, 4, 2, 64, False, 0.0, 0),
+        ("hymba-200", 4, 200, 200, 25, 5, 64, True, 0.0, 0),
+        ("hymba-1024", 2, 1024, 1024, 25, 5, 64, True, 0.0, 0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Sq, Sk, Hq, Hkv, D, causal, cap, win in cases:
@@ -197,6 +227,42 @@ def check_prefill(gen, fa, ref) -> None:
                 f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"flash_attention {name} {dtype} disagrees")
+
+
+def ssd_inputs(gen, B, Nc, Q, H, P, N, G):
+    """x, dt (in softplus's range at init), A < 0 and per-group B/C."""
+    x = rand(gen, B, Nc, Q, H, P, scale=0.3)
+    dt = rand(gen, B, Nc, Q, H, scale=0.05).abs() + 0.01
+    A = -rand(gen, H, scale=1.0).abs()
+    Bm = rand(gen, B, Nc, Q, G, N, scale=0.3)
+    Cm = rand(gen, B, Nc, Q, G, N, scale=0.3)
+    return x, dt, A, Bm, Cm
+
+
+def check_ssd(gen, ssd, ref) -> None:
+    cases = [
+        # name, B, Nc, Q, H, P, N, G
+        ("smoke", 2, 2, 64, 4, 16, 16, 1),
+        ("ragged-q100", 1, 1, 100, 4, 32, 16, 1),
+        ("groups2", 1, 2, 64, 8, 32, 16, 2),
+        ("mamba2", 1, 4, 256, 32, 64, 128, 1),
+        ("mamba2-q195", 2, 1, 195, 32, 64, 128, 1),
+        ("hymba", 1, 4, 256, 25, 64, 16, 1),
+        ("hymba-batch", 3, 2, 256, 25, 64, 16, 1),
+    ]
+    for name, B, Nc, Q, H, P, N, G in cases:
+        x, dt, A, Bm, Cm = ssd_inputs(gen, B, Nc, Q, H, P, N, G)
+        y, S = ssd.ssd_chunk(x, dt, A, Bm, Cm)
+        torch.cuda.synchronize()
+        y_want, S_want = ref.ssd_chunk_plain(x, dt, A, Bm, Cm)
+        for out, got, want in (("y", y, y_want), ("S", S, S_want)):
+            err, rel, finite = row_rel(got, want)
+            ok = finite and rel <= ROW_RTOL_SSD
+            log(f"  ssd_chunk {name:12s} {out} max_abs_err={err:.3e} "
+                f"max_row_rel_err={rel:.3e} row_rtol={ROW_RTOL_SSD:.0e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"ssd_chunk {name} {out} disagrees")
 
 
 # --------------------------------------------------------------------------
@@ -221,6 +287,16 @@ def serve(cfg, params, prompts, new_tokens, horizon, device, *, dtype,
     return {r.rid: r for r in fin}, eng, wall
 
 
+def serving_times(fin: dict, wall: float):
+    """(each request's TTFT in s, decode tokens/s after the last first
+    token) of a ``serve`` run."""
+    ttft = [fin[r].t_first - fin[r].t_submit for r in fin]
+    t_last_first = max(fin[r].t_first for r in fin)
+    t_end = min(fin[r].t_submit for r in fin) + wall
+    dec_tokens = sum(len(fin[r].generated) - 1 for r in fin)
+    return ttft, dec_tokens / max(t_end - t_last_first, 1e-9)
+
+
 def teacher_forced_agreement(cfg, params, prompt, generated) -> float:
     """Share of generated tokens that equal the argmax of one full forward
     over prompt + generated (greedy consistency of decode vs prefill)."""
@@ -237,7 +313,7 @@ def teacher_forced_agreement(cfg, params, prompt, generated) -> float:
 def phase_greedy() -> None:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import init_params
-    for arch in ("yi-9b", "gemma2-2b"):
+    for arch in ("yi-9b", "gemma2-2b", "mamba2-370m", "hymba-1.5b"):
         cfg = get_smoke_config(arch)
         rng = np.random.RandomState(0)
         prompts = [rng.randint(0, cfg.vocab_size, rng.randint(8, 24))
@@ -258,25 +334,29 @@ def phase_greedy() -> None:
         if not same:
             raise SystemExit(f"{cfg.name}: greedy tokens differ")
 
-    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=2)
-    params = init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
-    rng = np.random.RandomState(1)
-    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (17, 40, 64, 100)]
-    out = {}
-    for h in (1, 8):
-        fin, eng, _ = serve(cfg, params, prompts, 16, h, "cuda",
-                            dtype=torch.float32, num_blocks=256,
-                            block_size=16, max_seqs=4, max_blocks_per_seq=16)
-        out[h] = {r: fin[r].generated for r in fin}
-    agree = min(teacher_forced_agreement(cfg, params, prompts[r], out[1][r])
-                for r in out[1])
-    log(f"  yi-9b 2-layer full width fp32: H=1 == H=8 {out[1] == out[8]}; "
-        f"teacher-forced agreement (min over requests) {agree:.3f}")
-    if out[1] != out[8] or agree < 1.0:
-        raise SystemExit("full-width 2-layer greedy check failed")
-    del params
-    torch.cuda.empty_cache()
+    for arch, _ in FULL_WIDTH:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        params = init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+        rng = np.random.RandomState(1)
+        prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (17, 40, 64, 100)]
+        out = {}
+        for h in (1, 8):
+            fin, eng, _ = serve(cfg, params, prompts, 16, h, "cuda",
+                                dtype=torch.float32, num_blocks=256,
+                                block_size=16, max_seqs=4,
+                                max_blocks_per_seq=16)
+            out[h] = {r: fin[r].generated for r in fin}
+        agree = min(teacher_forced_agreement(cfg, params, prompts[r],
+                                             out[1][r]) for r in out[1])
+        log(f"  {arch} 2-layer full width fp32: H=1 == H=8 "
+            f"{out[1] == out[8]}; teacher-forced agreement (min over "
+            f"requests) {agree:.3f}")
+        if out[1] != out[8] or agree < 1.0:
+            raise SystemExit(f"{arch}: full-width 2-layer greedy check "
+                             "failed")
+        del params
+        torch.cuda.empty_cache()
 
 
 def _to(tree, device):
@@ -285,36 +365,48 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_full_width(ops):
+# the phase-5 job's engine: 16-token pages, 8 slots, bf16
+FULL_WIDTH_ENGINE = dict(dtype=torch.bfloat16, num_blocks=2048,
+                         block_size=16, max_seqs=8, max_blocks_per_seq=128)
+
+
+def full_width_prompts(cfg) -> list:
+    """The phase-5 job's 8 prompts of 128-1024 tokens (32 new tokens
+    each are asked for)."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(128, 1025, 8)
+    return [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def phase_full_width(ops, arch: str, required: tuple) -> dict:
+    """Serve 8 requests with ``arch`` at full width; the launch counters
+    are set to 0 just before the run and read just after it."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count
-    cfg = get_config("yi-9b")
+    cfg = get_config(arch)
     t0 = time.monotonic()
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     n = param_count(params)
-    log(f"  yi-9b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n:,} params, "
-        f"{n * 2 / 1e9:.2f} GB bf16 (init {time.monotonic() - t0:.1f} s)")
-    kw = dict(dtype=torch.bfloat16, num_blocks=2048, block_size=16,
-              max_seqs=8, max_blocks_per_seq=128)
+        f"ssm {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{n:,} params, {n * 2 / 1e9:.2f} GB bf16 "
+        f"(init {time.monotonic() - t0:.1f} s)")
+    kw = FULL_WIDTH_ENGINE
     # warm-up: cuBLAS handles, allocator, kernel modules
     warm = [np.arange(64, dtype=np.int32)]
     serve(cfg, params, warm, 4, 8, "cuda", **kw)
-    rng = np.random.RandomState(0)
-    lens = rng.randint(128, 1025, 8)
-    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+    prompts = full_width_prompts(cfg)
+    lens = [len(p) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     fin, eng, wall = serve(cfg, params, prompts, 32, 8, "cuda", **kw)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    ttft = [fin[r].t_first - fin[r].t_submit for r in fin]
-    t_last_first = max(fin[r].t_first for r in fin)
-    t_end = fin[0].t_submit + wall
-    dec_tokens = sum(len(fin[r].generated) - 1 for r in fin)
+    ttft, decode_rate = serving_times(fin, wall)
     ok = (len(fin) == 8 and all(len(fin[r].generated) == 32 for r in fin)
           and all(0 <= t < cfg.vocab_size for r in fin
                   for t in fin[r].generated))
@@ -324,8 +416,7 @@ def phase_full_width(ops):
         f"  steps {eng.steps}  decode_syncs {eng.decode_syncs}  "
         f"horizons {eng.horizon_counts}")
     log(f"  wall {wall:.3f} s  TTFT mean {np.mean(ttft) * 1e3:.1f} ms "
-        f"max {np.max(ttft) * 1e3:.1f} ms  decode "
-        f"{dec_tokens / max(t_end - t_last_first, 1e-9):.1f} tok/s "
+        f"max {np.max(ttft) * 1e3:.1f} ms  decode {decode_rate:.1f} tok/s "
         f"(after the last first token)  end-to-end "
         f"{eng.tokens_out / wall:.1f} tok/s  peak mem {peak:.2f} GB")
     log(f"  launches: {counts}")
@@ -333,18 +424,22 @@ def phase_full_width(ops):
                                         fin[r].generated) for r in sorted(fin)]
     agree = float(np.mean(per_req))
     log(f"  teacher-forced agreement (bf16, all {len(fin)} requests) "
-        f"{agree:.4f}; per request {[round(a, 4) for a in per_req]}; "
-        f"limit {MIN_TEACHER_FORCED}")
+        f"{agree:.4f}; per request {[round(a, 4) for a in per_req]}, min "
+        f"{min(per_req):.4f}; limit {MIN_TEACHER_FORCED}")
     if not ok:
-        raise SystemExit("full-width run returned wrong token counts/ids")
-    if min(counts.values()) <= 0:
-        raise SystemExit(f"a kernel was not launched on the main path: "
-                         f"{counts}")
+        raise SystemExit(f"{arch}: full-width run returned wrong token "
+                         "counts/ids")
+    missing = [k for k in required if counts[k] <= 0]
+    if missing:
+        raise SystemExit(f"{arch}: kernels {missing} were not launched on "
+                         f"its serving path: {counts}")
     if agree < MIN_TEACHER_FORCED:
-        raise SystemExit("decode disagrees with the teacher-forced forward")
+        raise SystemExit(f"{arch}: decode disagrees with the teacher-forced "
+                         "forward")
     del params
     torch.cuda.empty_cache()
-    return counts, len(fin), [int(x) for x in lens]
+    return {"arch": arch, "cfg": cfg, "counts": counts, "n_req": len(fin),
+            "lens": [int(x) for x in lens]}
 
 
 # --------------------------------------------------------------------------
@@ -352,13 +447,39 @@ def phase_full_width(ops):
 # --------------------------------------------------------------------------
 
 
-def time_paged(gen, fd, ref, counts, n_req, prompt_lens):
-    """B1 at the main path's decode shape.  The timed calls rotate over
-    ROTATIONS block tables with disjoint pages, so their K/V (10 x ~13 MB)
-    does not stay in the 50 MB L2 between calls: each decode layer reads
-    its own layer's pages cold."""
-    B, Hq, Hkv, D, page = 8, 32, 4, 128, 16
-    lens = [n + 16 for n in prompt_lens]        # mid-way through decode
+KERNEL_FILES = {
+    "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                     "src/repro/kernels/flash_decode.py:116"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:24"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_scan.py:19"),
+}
+
+
+def _row(name, run, err, rel, ms, plain, t_bytes, t_ops,
+         library_ms, shape, **extra):
+    counts, n_req = run["counts"], run["n_req"]
+    source, replaces = KERNEL_FILES[name]
+    return {"name": name, "model": run["arch"], "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": counts[name],
+            "launches_per_request": counts[name] / n_req,
+            "max_abs_err": err, "max_row_rel_err": rel,
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": shape, **extra}
+
+
+def time_paged(gen, fd, ref, run):
+    """B1 at the model's decode shape (B = 8, each context mid-way through
+    decode).  The timed calls rotate over ROTATIONS block tables with
+    disjoint pages, so their K/V does not stay in the 50 MB L2 between
+    calls: each decode layer reads its own layer's pages cold."""
+    cfg = run["cfg"]
+    B, Hq, Hkv, D, page = 8, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim, 16
+    lens = [n + 16 for n in run["lens"]]
     n_pages = 1 << (max(1, (max(lens) + page - 1) // page) - 1).bit_length()
     rotations = 10
     q, kp, vp, _, ln, st = paged_inputs(
@@ -382,24 +503,17 @@ def time_paged(gen, fd, ref, counts, n_req, prompt_lens):
               + 2 * B * Hq * D * 2               # q in, out
               + B * n_pages * 4 + 2 * B * 4)     # table, lens, start
     flops = 4 * tokens * Hq * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return {"name": "paged_decode", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-            "replaces": "src/repro/kernels/flash_decode.py:116",
-            "launches": counts["paged_decode"],
-            "launches_per_request": counts["paged_decode"] / n_req,
-            "max_abs_err": err, "max_row_rel_err": rel,
-            "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} "
-                     f"lens={lens} bf16"}
+    return _row("paged_decode", run, err, rel, ms, plain,
+                nbytes / HBM_BYTES_PER_S * 1e3,
+                flops / BF16_FLOPS_PER_S * 1e3, None,
+                f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} lens={lens} "
+                f"bf16")
 
 
-def time_prefill(gen, fa, ref, counts, n_req, prompt_lens):
-    B, S, Hq, Hkv, D = 1, max(prompt_lens), 32, 4, 128
+def time_prefill(gen, fa, ref, run):
+    cfg = run["cfg"]
+    B, S = 1, max(run["lens"])
+    Hq, Hkv, D = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
     q = rand(gen, B, S, Hq, D, dtype=torch.bfloat16)
     k = rand(gen, B, S, Hkv, D, dtype=torch.bfloat16)
     v = rand(gen, B, S, Hkv, D, dtype=torch.bfloat16)
@@ -417,19 +531,54 @@ def time_prefill(gen, fa, ref, counts, n_req, prompt_lens):
     pairs = B * S * (S + 1) // 2                 # unmasked (q, k) pairs
     flops = 4 * pairs * Hq * D
     nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    return _row("flash_attention", run, err, rel, ms,
+                plain, nbytes / HBM_BYTES_PER_S * 1e3,
+                flops / BF16_FLOPS_PER_S * 1e3, lib,
+                f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16")
+
+
+def time_ssd(gen, ssd, ref, run):
+    """B4 at the model's longest phase-5 prompt, chunked as ``ssd_chunked``
+    chunks it (Q = min(chunk, L), L padded to a multiple of Q), fp32.  The
+    inputs are not rotated: in prefill the kernel reads x, dt, B and C
+    right after the conv wrote them.  Bound: each input read and each
+    output written once; operations C.B once per group and causal pair,
+    score @ (dt x) and the state product once per head, at the card's
+    tensor-core rate for fp32 inputs (TF32).  The same operations at the
+    fp32 rate outside the tensor cores, the units this kernel uses, are
+    reported beside it as ``bound_ms_fp32_cuda_cores``."""
+    cfg = run["cfg"]
+    L = max(run["lens"])
+    Q = min(cfg.ssm_chunk, L)
+    B, Nc = 1, -(-L // Q)
+    H, P, N, G = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                  cfg.ssm_groups)
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, Nc, Q, H, P, N, G)
+    y, S = ssd.ssd_chunk(x, dt, A, Bm, Cm)
+    y_want, S_want = ref.ssd_chunk_plain(x, dt, A, Bm, Cm)
+    err, rel = 0.0, 0.0
+    for got, want in ((y, y_want), (S, S_want)):
+        e, r, finite = row_rel(got, want)
+        err, rel = max(err, e), max(rel, r)
+        if not finite or r > ROW_RTOL_SSD:
+            raise SystemExit(f"ssd_chunk disagrees at the timing shape: "
+                             f"max_row_rel_err {r:.3e}")
+    ms = time_ms(lambda i: ssd.ssd_chunk(x, dt, A, Bm, Cm))
+    plain = time_ms(lambda i: ref.ssd_chunk_plain(x, dt, A, Bm, Cm))
+    chunks = B * Nc
+    pairs = Q * (Q + 1) // 2
+    flops = chunks * (pairs * 2 * N * G + pairs * 2 * P * H
+                      + 2 * Q * P * N * H)
+    nbytes = 4 * (2 * chunks * Q * H * P          # x in, y out
+                  + chunks * H * P * N             # S out
+                  + 2 * chunks * Q * G * N         # B, C
+                  + chunks * Q * H + H)            # dt, A
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:24",
-            "launches": counts["flash_attention"],
-            "launches_per_request": counts["flash_attention"] / n_req,
-            "max_abs_err": err, "max_row_rel_err": rel,
-            "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": lib,
-            "shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16"}
+    return _row("ssd_chunk", run, err, rel, ms, plain, t_bytes,
+                flops / TF32_FLOPS_PER_S * 1e3, None,
+                f"B={B} Nc={Nc} Q={Q} H={H} P={P} N={N} G={G} (L={L}) fp32",
+                bound_ms_fp32_cuda_cores=max(
+                    t_bytes, flops / FP32_FLOPS_PER_S * 1e3))
 
 
 def main() -> int:
@@ -446,6 +595,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd_scan as ssd
 
     t_start = time.monotonic()
     card = card_line()
@@ -468,20 +618,26 @@ def main() -> int:
     log("[3] kernels vs plain versions")
     check_paged(gen, fd, ref)
     check_prefill(gen, fa, ref)
+    check_ssd(gen, ssd, ref)
 
     log("[4] greedy decoding")
     phase_greedy()
 
-    log("[5] yi-9b at full width")
-    counts, n_req, prompt_lens = phase_full_width(ops)
+    runs = []
+    for i, (arch, required) in enumerate(FULL_WIDTH):
+        log(f"[5.{i + 1}] {arch} at full width")
+        runs.append(phase_full_width(ops, arch, required))
 
     log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls)")
-    rows = [time_paged(gen, fd, ref, counts, n_req, prompt_lens),
-            time_prefill(gen, fa, ref, counts, n_req, prompt_lens)]
+    timers = {"paged_decode": lambda run: time_paged(gen, fd, ref, run),
+              "flash_attention": lambda run: time_prefill(gen, fa, ref, run),
+              "ssd_chunk": lambda run: time_ssd(gen, ssd, ref, run)}
+    rows = [timers[name](run) for run, (_, required) in zip(runs, FULL_WIDTH)
+            for name in required]
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {r['name']}: kernel_ms {r['ms']:.4f}  bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']})  plain_ms "
+        log(f"  {r['name']} ({r['model']}): kernel_ms {r['ms']:.4f}  "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  plain_ms "
             f"{r['plain_ms']:.4f}  library_ms {lib}  launches "
             f"{r['launches']} ({r['launches_per_request']:.1f}/request)  "
             f"[{r['shape']}]")

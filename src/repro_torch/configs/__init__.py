@@ -11,6 +11,8 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "gemma2-2b": "gemma2_2b",
+    "hymba-1.5b": "hymba_1_5b",
+    "mamba2-370m": "mamba2_370m",
     "yi-9b": "yi_9b",
 }
 

@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -40,12 +41,25 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                                   start, softcap, scale)
 
 
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B_: torch.Tensor, C_: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Within-chunk SSD, fp32: x [B, Nc, Q, H, P], dt [B, Nc, Q, H], A [H],
+    B_/C_ [B, Nc, Q, G, N] per group -> (y [B, Nc, Q, H, P],
+    S [B, Nc, H, P, N])."""
+    if x.is_cuda:
+        return _ssd.ssd_chunk(x, dt, A, B_, C_)
+    return ref.ssd_chunk_plain(x, dt, A, B_, C_)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"paged_decode": _fd.paged_decode.launches,
-            "flash_attention": _fa.flash_attention.launches}
+            "flash_attention": _fa.flash_attention.launches,
+            "ssd_chunk": _ssd.ssd_chunk.launches}
 
 
 def reset_launch_counts() -> None:
     _fd.paged_decode.launches = 0
     _fa.flash_attention.launches = 0
+    _ssd.ssd_chunk.launches = 0

@@ -1,12 +1,15 @@
 """Plain PyTorch versions of every kernel (the allclose ground truth).
 
-``flash_attention_ref``, ``flash_decode_ref``, ``flash_decode_paged_ref`` and
-``ssd_chunk_ref`` are the port's copies of the JAX package's oracles, with
-the same signatures and layouts.  ``paged_decode_plain`` is the plain
-version of the paged-decode kernel itself: it reads the kernel-native pool
-``[P, Hkv, page, D]`` and returns zeros where ``len == 0``, as the kernel
-does (``flash_decode_paged_ref`` returns the mean of V there, because its
-softmax over an all-masked row is uniform).
+``flash_attention_ref``, ``flash_decode_ref``, ``flash_decode_paged_ref``,
+``ssd_chunk_ref`` and ``ssd_reference`` are the port's copies of the JAX
+package's oracles, with the same signatures and layouts.
+``paged_decode_plain`` is the plain version of the paged-decode kernel
+itself: it reads the kernel-native pool ``[P, Hkv, page, D]`` and returns
+zeros where ``len == 0``, as the kernel does (``flash_decode_paged_ref``
+returns the mean of V there, because its softmax over an all-masked row is
+uniform).  ``ssd_chunk_plain`` is the plain version of the SSD chunk
+kernel: it takes B/C per group, as the kernel does, where ``ssd_chunk_ref``
+takes them already broadcast to heads.
 """
 from __future__ import annotations
 
@@ -126,3 +129,32 @@ def ssd_chunk_ref(x, dt, A, B_, C_):
     w = torch.exp(total[:, :, None, :] - cs) * dt
     S = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", w, B_, x)
     return y, S
+
+
+def ssd_chunk_plain(x, dt, A, B_, C_):
+    """Plain version of the SSD chunk kernel: x [B,Nc,Q,H,P], dt [B,Nc,Q,H],
+    A [H], B_/C_ [B,Nc,Q,G,N] per group (head h reads group h // (H // G))
+    -> (y [B,Nc,Q,H,P], S [B,Nc,H,P,N])."""
+    rep = x.shape[3] // B_.shape[3]
+    return ssd_chunk_ref(x, dt, A, torch.repeat_interleave(B_, rep, dim=3),
+                         torch.repeat_interleave(C_, rep, dim=3))
+
+
+def ssd_reference(xs, dt, A, B_, C_, init_state=None):
+    """Token-by-token recurrent SSD oracle: xs [B,L,H,P], dt [B,L,H], A [H],
+    B_/C_ [B,L,G,N] -> (y [B,L,H,P], final state [B,H,P,N])."""
+    Bsz, L, H, P = xs.shape
+    N = B_.shape[3]
+    rep = H // B_.shape[2]
+    B_h = torch.repeat_interleave(B_, rep, dim=2)
+    C_h = torch.repeat_interleave(C_, rep, dim=2)
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                         device=xs.device)
+             if init_state is None else init_state)
+    ys = []
+    for t in range(L):
+        a = torch.exp(dt[:, t] * A[None, :])
+        state = state * a[..., None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dt[:, t], xs[:, t], B_h[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", C_h[:, t], state))
+    return torch.stack(ys, dim=1), state

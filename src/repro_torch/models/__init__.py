@@ -1,6 +1,7 @@
 from repro_torch.models.config import ModelConfig  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     PagedDecodeState,
+    PrefillCache,
     decode_loop_paged,
     decode_step_paged,
     forward,

@@ -36,28 +36,22 @@ def _project_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return q, k, v
 
 
-def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p: dict,
-                cfg: ModelConfig, is_local: bool = False) -> torch.Tensor:
-    """Causal attention of projected q [B, S, Hq, D] over k/v
-    [B, S, Hkv, D], then the output projection -> [B, S, d_model]."""
-    B, S = q.shape[:2]
+def full_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                   positions: torch.Tensor, is_local: bool = False):
+    """Train/prefill self-attention over the whole sequence.
+
+    Returns (out [B, S, d_model], k, v [B, S, Hkv, D]); prefill caches the
+    projected k and v.  ``is_local`` selects gemma2's sliding-window mask
+    for this layer.
+    """
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg, positions)
     window = cfg.local_window if is_local else 0
     out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=True,
                               softcap=float(cfg.attn_logit_softcap),
                               window=window)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
-
-
-def full_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                   positions: torch.Tensor, is_local: bool = False
-                   ) -> torch.Tensor:
-    """Train/prefill self-attention over the whole sequence.
-
-    ``is_local`` selects gemma2's sliding-window mask for this layer.
-    """
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    return attend_full(q, k, v, p, cfg, is_local)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"], k, v
 
 
 def paged_decode_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,

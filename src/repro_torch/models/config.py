@@ -91,6 +91,10 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_heads * self.ssm_head_dim
+
     def padded_vocab(self, multiple: int = 256) -> int:
         return _round_up(self.vocab_size, multiple)
 

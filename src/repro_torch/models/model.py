@@ -1,19 +1,22 @@
-"""The decoder-only model of the port: attention-only dense architectures.
+"""The decoder-only model of the port: dense attention, SSD (mamba2) and
+hybrid parallel attention + SSD (hymba) layers.
 
 Parameters are a plain dict with the JAX package's keys and layout: layers
 stacked on axis 0 under ``blocks`` (``blocks["attn"]["wq"]`` is
-[L, d_model, q_dim]), weights as ``x @ w`` matrices.  PyTorch runs eagerly,
-so the JAX layer ``scan`` is a Python loop over layer views.
+[L, d_model, q_dim], ``blocks["ssm"]["w_x"]`` [L, d_model, d_inner]),
+weights as ``x @ w`` matrices.  PyTorch runs eagerly, so the JAX layer
+``scan`` is a Python loop over layer views.
 
 Entry points:
   init_params(cfg, seed, dtype, device)        -> parameter dict
   forward(params, cfg, tokens)                 -> logits [B, S, Vpad]
-  prefill(params, cfg, tokens)                 -> (logits [B, Vpad], k, v)
+  prefill(params, cfg, tokens)                 -> (logits [B, Vpad],
+                                                   PrefillCache)
   decode_step_paged(params, cfg, tokens, st)   -> (logits, state)
   decode_loop_paged(params, cfg, tokens, st, horizon)
       -> ([B, horizon] tokens on the device, state)
 
-MoE and SSM layers are not ported yet; configs that need them raise.
+MoE layers are not ported yet; configs that need them raise.
 """
 from __future__ import annotations
 
@@ -24,22 +27,37 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, rms_norm, softcap
 from repro_torch.models.sampling import sample, step_generator
 
 
 @dataclasses.dataclass
+class PrefillCache:
+    """What one-shot prefill leaves for decode, per layer (None where the
+    architecture has no such state)."""
+    k: torch.Tensor | None      # [L, B, S, Hkv, D]
+    v: torch.Tensor | None
+    ssm: torch.Tensor | None    # [L, B, H, P, N] fp32 final SSM state
+    conv: torch.Tensor | None   # [L, B, W - 1, conv_ch] last conv inputs
+
+
+@dataclasses.dataclass
 class PagedDecodeState:
     """Device-resident paged decode state.
 
-    ``k``/``v`` are the pools [L, P, Hkv, page, D] in kernel-native layout;
-    decode steps write them in place.
+    ``k``/``v`` are the pools [L, P, Hkv, page, D] in kernel-native layout
+    (None for an attention-free model); ``ssm``/``conv`` are the batch's
+    SSM state and conv window rows (None without SSM layers).  Decode steps
+    write all four in place.
     """
-    k: torch.Tensor
-    v: torch.Tensor
+    k: torch.Tensor | None
+    v: torch.Tensor | None
     block_table: torch.Tensor   # [B, n_pages] int32 physical page ids
     lens: torch.Tensor          # [B] int32 tokens already cached
+    ssm: torch.Tensor | None = None     # [L, B, H, P, N] fp32
+    conv: torch.Tensor | None = None    # [L, B, W - 1, conv_ch]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -47,10 +65,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet "
             "(ROADMAP.md Queue A item 7, models/moe.py)")
-    if cfg.has_ssm or not cfg.has_attn:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM layers are not ported yet "
-            "(ROADMAP.md Queue A item 8, models/ssm.py)")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pos_embedding} positions are not ported yet "
@@ -77,8 +91,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     """Random weights from a ``torch.Generator`` seeded with ``seed``, made
     on ``device``.
 
-    Same keys, shapes and scales as the JAX package's ``init_params``; the
-    values differ (JAX keys cannot be reproduced in torch).
+    Same keys, shapes, scales and dtypes as the JAX package's
+    ``init_params`` (the SSM's ``dt_bias``/``A_log``/``D`` stay fp32); the
+    random values differ (JAX keys cannot be reproduced in torch).
     """
     check_supported(cfg)
     generator = torch.Generator(device=device)
@@ -93,16 +108,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
         return torch.zeros(shape, dtype=dtype, device=device)
 
     s = 1.0 / math.sqrt(d)
-    attn = {"wq": normal((L, d, q_dim), s), "wk": normal((L, d, kv_dim), s),
-            "wv": normal((L, d, kv_dim), s),
-            "wo": normal((L, q_dim, d), 1.0 / math.sqrt(q_dim))}
-    if cfg.qkv_bias:
-        attn.update(bq=zeros(L, q_dim), bk=zeros(L, kv_dim),
-                    bv=zeros(L, kv_dim))
-    if cfg.qk_norm:
-        attn.update(q_norm=zeros(L, cfg.head_dim),
-                    k_norm=zeros(L, cfg.head_dim))
-    blocks: dict = {"ln1": zeros(L, d), "attn": attn}
+    blocks: dict = {"ln1": zeros(L, d)}
+    if cfg.has_attn:
+        attn = {"wq": normal((L, d, q_dim), s),
+                "wk": normal((L, d, kv_dim), s),
+                "wv": normal((L, d, kv_dim), s),
+                "wo": normal((L, q_dim, d), 1.0 / math.sqrt(q_dim))}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(L, q_dim), bk=zeros(L, kv_dim),
+                        bv=zeros(L, kv_dim))
+        if cfg.qk_norm:
+            attn.update(q_norm=zeros(L, cfg.head_dim),
+                        k_norm=zeros(L, cfg.head_dim))
+        blocks["attn"] = attn
+    if cfg.has_ssm:
+        blocks["ssm"] = ssm_lib.init_ssm(cfg, normal, dtype, device)
+    if cfg.hybrid:
+        blocks["attn_out_norm"] = zeros(L, d)
+        blocks["ssm_out_norm"] = zeros(L, d)
     if cfg.sandwich_norm:
         blocks["post_ln1"] = zeros(L, d)
     if f > 0:
@@ -157,12 +180,28 @@ def _mix_residual(x, mix, bp, cfg: ModelConfig):
     return x + mix
 
 
+def _combine(attn_out, ssm_out, bp, cfg: ModelConfig):
+    """The mixer output: attention, SSM, or hymba's normalised average."""
+    if cfg.hybrid:
+        return 0.5 * (rms_norm(attn_out, bp["attn_out_norm"], cfg.norm_eps)
+                      + rms_norm(ssm_out, bp["ssm_out_norm"], cfg.norm_eps))
+    return attn_out if cfg.has_attn else ssm_out
+
+
 def _block(x, bp, cfg: ModelConfig, layer: int, positions):
-    """Full-sequence block: attention + dense MLP with residuals."""
+    """Full-sequence block: attention and/or SSD mixer + dense MLP with
+    residuals.  Returns (x, per-layer PrefillCache entries k, v, ssm, conv).
+    """
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    mix = attn_lib.full_attention(h, bp["attn"], cfg, positions,
-                                  cfg.local_is_local(layer))
-    return _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
+    attn_out = ssm_out = k = v = state = conv = None
+    if cfg.has_attn:
+        attn_out, k, v = attn_lib.full_attention(
+            h, bp["attn"], cfg, positions, cfg.local_is_local(layer))
+    if cfg.has_ssm:
+        ssm_out, state, conv = ssm_lib.ssm_forward(h, bp["ssm"], cfg)
+    mix = _combine(attn_out, ssm_out, bp, cfg)
+    x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
+    return x, (k, v, state, conv)
 
 
 # --------------------------------------------------------------------------
@@ -200,33 +239,31 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     positions = _positions(B, S, tokens.device)
     x = embed_inputs(params, cfg, tokens)
     for layer in range(cfg.n_layers):
-        x = _block(x, layer_params(params["blocks"], layer), cfg, layer,
-                   positions)
+        x, _ = _block(x, layer_params(params["blocks"], layer), cfg, layer,
+                      positions)
     return lm_logits(params, cfg, x)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
     """One-shot prefill of same-length prompts.
 
-    tokens [B, S] -> (last-token logits [B, Vpad] fp32,
-    k [L, B, S, Hkv, D], v [L, B, S, Hkv, D]).
+    tokens [B, S] -> (last-token logits [B, Vpad] fp32, PrefillCache with
+    k/v [L, B, S, Hkv, D], the final SSM state [L, B, H, P, N] and the conv
+    window [L, B, W - 1, conv_ch], each None where the model has none).
     """
     check_supported(cfg)
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     x = embed_inputs(params, cfg, tokens)
-    ks, vs = [], []
+    per_layer = []
     for layer in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], layer)
-        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        q, k, v = attn_lib._project_qkv(h, bp["attn"], cfg, positions)
-        ks.append(k)
-        vs.append(v)
-        mix = attn_lib.attend_full(q, k, v, bp["attn"], cfg,
-                                   cfg.local_is_local(layer))
-        x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
+        x, caches = _block(x, layer_params(params["blocks"], layer), cfg,
+                           layer, positions)
+        per_layer.append(caches)
     logits = lm_logits(params, cfg, x[:, -1:, :])[:, 0]
-    return logits, torch.stack(ks), torch.stack(vs)
+    stacked = [None if parts[0] is None else torch.stack(parts)
+               for parts in zip(*per_layer)]
+    return logits, PrefillCache(*stacked)
 
 
 # --------------------------------------------------------------------------
@@ -239,7 +276,8 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     """One token for every sequence, attending the paged pool directly.
 
     tokens [B] int32.  Each layer's new K/V token is written into its page
-    in place and attention reads pages through the block table.
+    in place and attention reads pages through the block table; each SSM
+    layer's state and conv window rows are updated in place.
     Returns (logits [B, Vpad] fp32, state with lens + 1).
     """
     check_supported(cfg)
@@ -247,9 +285,17 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     for layer in range(cfg.n_layers):
         bp = layer_params(params["blocks"], layer)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        mix = attn_lib.paged_decode_attention(
-            h, bp["attn"], cfg, state.k[layer], state.v[layer],
-            state.block_table, state.lens, cfg.local_is_local(layer))
+        attn_out = ssm_out = None
+        if cfg.has_attn:
+            attn_out = attn_lib.paged_decode_attention(
+                h, bp["attn"], cfg, state.k[layer], state.v[layer],
+                state.block_table, state.lens, cfg.local_is_local(layer))
+        if cfg.has_ssm:
+            ssm_out, new_state, new_conv = ssm_lib.ssm_decode_step(
+                h, bp["ssm"], cfg, state.ssm[layer], state.conv[layer])
+            state.ssm[layer] = new_state
+            state.conv[layer] = new_conv
+        mix = _combine(attn_out, ssm_out, bp, cfg)
         x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
     logits = lm_logits(params, cfg, x)[:, 0]
     return logits, dataclasses.replace(state, lens=state.lens + 1)
@@ -261,12 +307,12 @@ def decode_loop_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                       step0: int = 0):
     """``horizon`` decode steps with the tokens kept on the device.
 
-    The scatter-first loop: each step writes its K/V token into the pool,
-    attends, samples and feeds the token straight back.  Nothing here
-    reads a value back to the host; the caller makes one transfer of the
-    returned [B, horizon] block per horizon.  Page capacity for
-    ``horizon`` more tokens per sequence must already be in the block
-    table.  With ``temperature > 0`` step ``step0 + i`` samples from
+    The scatter-first loop: each step writes its K/V token into the pool
+    and its SSM rows in place, attends, samples and feeds the token straight
+    back.  Nothing here reads a value back to the host; the caller makes
+    one transfer of the returned [B, horizon] block per horizon.  Page
+    capacity for ``horizon`` more tokens per sequence must already be in
+    the block table.  With ``temperature > 0`` step ``step0 + i`` samples from
     ``step_generator(seed, step0 + i)``, so sampled streams do not depend
     on the horizon.
     Returns (tokens [B, horizon] int32, state with lens + horizon).

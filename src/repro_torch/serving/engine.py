@@ -23,6 +23,13 @@ the same for every horizon.
 reading it back; ``finish_step(pending)`` performs the transfer and
 retirement; ``step()`` is their composition.
 
+Models with SSM layers (mamba2, hymba) keep one SSM state and conv window
+row per slot on the device: prefill writes a request's rows, each decode
+dispatch gathers the batch's rows into the loop's state and scatters them
+back, with padded rows on the trash row.  As in the JAX package, chunked
+prefill and the prefix cache are attention-only (the SSD scan has no
+per-position state to resume from).
+
 Not ported yet (ROADMAP.md): chunked prefill, the prefix cache,
 export/import and migration, SLO shedding, telemetry, ``decode_mode=
 "dense"`` and meshes.  ``load_stats()`` returns every key of the frozen
@@ -230,9 +237,14 @@ class ServingEngine:
         for pl, group in by_len.items():
             toks = torch.from_numpy(np.stack([r.prompt for r in group])).to(
                 self.device)
-            logits, k, v = prefill(self.params, self.cfg, toks)
+            logits, cache = prefill(self.params, self.cfg, toks)
             for i, r in enumerate(group):
-                self.cache.write_prefill(r.slot, k[:, i], v[:, i])
+                if self.cfg.has_attn:
+                    self.cache.write_prefill(r.slot, cache.k[:, i],
+                                             cache.v[:, i])
+                if self.cfg.has_ssm:
+                    self.cache.ssm[:, r.slot] = cache.ssm[:, i]
+                    self.cache.conv[:, r.slot] = cache.conv[:, i]
             first = self._pick(logits)           # one sync per group
             self.prefill_tokens += pl * len(group)
             t_first = time.monotonic()
@@ -292,10 +304,14 @@ class ServingEngine:
         self._sample_step += horizon
         self.horizon_counts[horizon] = self.horizon_counts.get(horizon, 0) + 1
         cache = self.cache
+        has_ssm = cache.ssm is not None
         state = PagedDecodeState(
             k=cache.k, v=cache.v,
             block_table=cache.block_table_dev[slot_t, :n_pages].contiguous(),
-            lens=cache.seq_lens_dev[slot_t])
+            lens=cache.seq_lens_dev[slot_t],
+            # gathers copy the batch's rows; the loop updates the copies
+            ssm=cache.ssm[:, slot_t] if has_ssm else None,
+            conv=cache.conv[:, slot_t] if has_ssm else None)
         toks, state = decode_loop_paged(
             self.params, self.cfg, last, state, horizon,
             temperature=0.0 if self.greedy else 1.0, seed=self.seed,
@@ -303,6 +319,10 @@ class ServingEngine:
         cache.seq_lens_dev[slot_t] = state.lens
         # padded rows advanced the trash slot's lens; pin it back to 0
         cache.seq_lens_dev[trash] = 0
+        if has_ssm:
+            # padded rows land on the trash row, which no slot reads
+            cache.ssm[:, slot_t] = state.ssm
+            cache.conv[:, slot_t] = state.conv
         return PendingDecode(slots, toks, horizon)
 
     def _finish_decode(self, pending: PendingDecode) -> None:

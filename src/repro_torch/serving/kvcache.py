@@ -6,7 +6,14 @@ kernel and its plain version read ``[page, Hkv, block, D]`` tiles without a
 transpose) plus the host-side ``BlockAllocator``.  Physical block
 ``num_blocks`` is a trash page: padded batch rows write their dummy K/V
 there, so the decode step needs no masking branches.  ``D`` is the model's
-head_dim; nothing is padded.
+head_dim; nothing is padded.  An attention-free model (mamba2) has no K/V
+pools, but keeps the allocator and block accounting, as in the JAX
+package.
+
+Models with SSM layers also keep device rows per slot: ``ssm [L, max_seqs
++ 1, H, P, N]`` (fp32) and ``conv [L, max_seqs + 1, W - 1, conv_ch]`` (pool
+dtype), with the trash row last.  Prefill writes a slot's rows; the decode
+loop gathers the batch's rows and scatters them back.
 
 A ``PagedKVCache`` holds a pool and its per-slot block tables and
 sequence lengths.  Admission reserves a sequence's full lifetime block
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ssm import conv_channels
 
 
 class BlockAllocator:
@@ -53,7 +61,8 @@ class BlockAllocator:
 
 
 class BlockPool:
-    """Device K/V block pool + allocator."""
+    """Device K/V block pool (none for an attention-free model) +
+    allocator."""
 
     def __init__(self, cfg: ModelConfig, num_blocks: int,
                  block_size: int = 16, dtype=torch.float32, device="cuda"):
@@ -61,10 +70,12 @@ class BlockPool:
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.device = torch.device(device)
-        shape = (cfg.n_layers, num_blocks + 1, cfg.n_kv_heads, block_size,
-                 cfg.head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.k = self.v = None
+        if cfg.has_attn:
+            shape = (cfg.n_layers, num_blocks + 1, cfg.n_kv_heads,
+                     block_size, cfg.head_dim)
+            self.k = torch.zeros(shape, dtype=dtype, device=self.device)
+            self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self.allocator = BlockAllocator(num_blocks)
 
     @property
@@ -88,6 +99,8 @@ class PagedKVCache:
     used_blocks: int = 0
     reserved_blocks: int = 0    # admitted sequences' lifetime reservations
     seq_reserved: dict = dataclasses.field(default_factory=dict)
+    ssm: torch.Tensor | None = None     # [L, max_seqs + 1, H, P, N] fp32
+    conv: torch.Tensor | None = None    # [L, max_seqs + 1, W - 1, conv_ch]
 
     @classmethod
     def create(cls, cfg: ModelConfig, num_blocks: int = 256,
@@ -105,18 +118,28 @@ class PagedKVCache:
                                device=pool.device)
         lens_dev = torch.zeros(max_seqs + 1, dtype=torch.int32,
                                device=pool.device)
+        ssm = conv = None
+        if cfg.has_ssm:
+            L = cfg.n_layers
+            ssm = torch.zeros((L, max_seqs + 1, cfg.ssm_heads,
+                               cfg.ssm_head_dim, cfg.ssm_state),
+                              dtype=torch.float32, device=pool.device)
+            conv = torch.zeros((L, max_seqs + 1, cfg.ssm_conv_width - 1,
+                                conv_channels(cfg)), dtype=dtype,
+                               device=pool.device)
         return cls(cfg, block_size, num_blocks, max_seqs, max_blocks_per_seq,
                    pool, np.zeros((max_seqs, max_blocks_per_seq), np.int32),
-                   np.zeros(max_seqs, np.int32), table_dev, lens_dev, {})
+                   np.zeros(max_seqs, np.int32), table_dev, lens_dev, {},
+                   ssm=ssm, conv=conv)
 
     # -- pool delegation ------------------------------------------------------
 
     @property
-    def k(self) -> torch.Tensor:
+    def k(self) -> torch.Tensor | None:
         return self.pool.k
 
     @property
-    def v(self) -> torch.Tensor:
+    def v(self) -> torch.Tensor | None:
         return self.pool.v
 
     @property

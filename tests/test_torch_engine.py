@@ -1,8 +1,8 @@
 """The port's ``ServingEngine`` against the JAX package's, on the same
 weights and the same job (the quickstart job: 6 requests, prompts of 8-24
 tokens, 12 new tokens, ``RandomState(0)``).  fp32 on the CPU: greedy
-streams, counters and the final K/V pools must agree; pools within
-ATOL = 1e-4 (the same fp32 math in another order).
+streams, counters and the final K/V pools and SSM rows must agree; those
+within ATOL = 1e-4 (the same fp32 math in another order).
 """
 import functools
 
@@ -47,8 +47,22 @@ def _counters(e):
     return (e.decode_syncs, e.steps, e.tokens_out, e.prefill_tokens)
 
 
-@pytest.mark.parametrize("arch,horizon", [("yi-9b", 1), ("yi-9b", 8),
-                                          ("gemma2-2b", 8)])
+def _device_state_close(eng, jeng):
+    """Pools, and the real slots' SSM rows (the trash row takes the padded
+    rows' updates in whichever order the scatter applies them), agree."""
+    n = eng.max_seqs
+    for name, rows in (("k", None), ("v", None), ("ssm", n), ("conv", n)):
+        got, want = getattr(eng.cache, name), getattr(jeng.cache, name)
+        assert (got is None) == (want is None), name
+        if got is not None:
+            np.testing.assert_allclose(
+                got[:, :rows].numpy(), np.asarray(want)[:, :rows],
+                atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch,horizon", [
+    ("yi-9b", 1), ("yi-9b", 8), ("gemma2-2b", 8), ("mamba2-370m", 1),
+    ("mamba2-370m", 8), ("hymba-1.5b", 1), ("hymba-1.5b", 8)])
 def test_engine_matches_jax(arch, horizon):
     jcfg, jp, cfg, tp = _weights(arch)
     jeng = JaxEngine(jcfg, jp, decode_horizon=horizon, **ENGINE_KW)
@@ -63,29 +77,33 @@ def test_engine_matches_jax(arch, horizon):
         # each request decodes 11 tokens after its first: one sync per step
         # would take at least 11
         assert eng.decode_syncs < 11
-    # every K/V token landed in the same page and row
-    np.testing.assert_allclose(eng.cache.k.numpy(), np.asarray(jeng.cache.k),
-                               atol=ATOL, rtol=0)
-    np.testing.assert_allclose(eng.cache.v.numpy(), np.asarray(jeng.cache.v),
-                               atol=ATOL, rtol=0)
+    # every K/V token landed in the same page and row, and every slot
+    # holds the same SSM state
+    _device_state_close(eng, jeng)
 
 
 SCHEDULES = [
-    # name, (prompt len, new tokens) per request, horizon, max_seqs, blocks
-    ("staggered-retire", ((8, 9), (8, 17), (12, 5)), 8, 2, 64),
-    ("retire-boundary", ((8, 4), (8, 20)), 16, 2, 64),
-    ("pool-bound-admission", ((20, 12), (20, 12), (8, 4)), 4, 4, 8),
+    # name, arch, (prompt len, new tokens) per request, horizon, max_seqs,
+    # blocks, prompt seed
+    ("staggered-retire", "yi-9b", ((8, 9), (8, 17), (12, 5)), 8, 2, 64, 1),
+    ("retire-boundary", "yi-9b", ((8, 4), (8, 20)), 16, 2, 64, 1),
+    ("pool-bound-admission", "yi-9b", ((20, 12), (20, 12), (8, 4)), 4, 4, 8,
+     1),
+    # the mamba2 jobs of the JAX package's horizon-parity test
+    ("ssm-horizon-1", "mamba2-370m", ((8, 6), (8, 11)), 1, 2, 64, 2),
+    ("ssm-horizon-8", "mamba2-370m", ((8, 6), (8, 11)), 8, 2, 64, 2),
 ]
 
 
-@pytest.mark.parametrize("name,jobs,horizon,max_seqs,blocks", SCHEDULES,
-                         ids=[s[0] for s in SCHEDULES])
-def test_engine_schedule_matches_jax(name, jobs, horizon, max_seqs, blocks):
+@pytest.mark.parametrize("name,arch,jobs,horizon,max_seqs,blocks,seed",
+                         SCHEDULES, ids=[s[0] for s in SCHEDULES])
+def test_engine_schedule_matches_jax(name, arch, jobs, horizon, max_seqs,
+                                     blocks, seed):
     """Admission waiting on slots or on reserved blocks, retirement inside
     a horizon's budget and the power-of-two horizon floor make the same
     decisions, step for step, as in the JAX engine."""
-    jcfg, jp, cfg, tp = _weights("yi-9b")
-    rng = np.random.RandomState(1)
+    jcfg, jp, cfg, tp = _weights(arch)
+    rng = np.random.RandomState(seed)
     prompts = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), new)
                for n, new in jobs]
     kw = dict(num_blocks=blocks, block_size=8, max_seqs=max_seqs,

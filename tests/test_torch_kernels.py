@@ -10,8 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_kernels_gpu import (PAGED_CASES, PAGED_IDS, close,
-                                    flash_inputs, paged_inputs, to_torch)
+from test_torch_kernels_gpu import (PAGED_CASES, PAGED_IDS, SSD_CASES,
+                                    close, flash_inputs, paged_inputs,
+                                    ssd_inputs, to_torch)
 
 from repro.kernels import flash_decode as jfd
 from repro.kernels import ops as jops
@@ -19,6 +20,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import ssd_scan as tssd
 
 ATOL = 3e-5
 
@@ -132,6 +134,7 @@ FLASH_CASES = [
     (1, 200, 6, 2, 96, 0.0, 0),
     (1, 128, 2, 1, 256, 0.0, 0),
     (1, 72, 8, 1, 32, 0.0, 0),        # group 8, ragged S
+    (1, 96, 25, 5, 64, 0.0, 0),       # hymba heads, group 5
 ]
 
 
@@ -166,17 +169,17 @@ def test_ops_flash_attention_on_cpu_is_the_plain_version():
 
 
 # --------------------------------------------------------------------------
-# SSD chunk oracle (B0; its kernel B4 is not ported yet).
+# SSD chunk (B4).
 # --------------------------------------------------------------------------
 
-SSD_CASES = [
+SSD_REF_CASES = [
     (2, 3, 64, 4, 64, 32),
     (1, 2, 128, 2, 64, 128),
     (1, 1, 64, 8, 32, 16),
 ]
 
 
-@pytest.mark.parametrize("B,Nc,Q,H,P,N", SSD_CASES)
+@pytest.mark.parametrize("B,Nc,Q,H,P,N", SSD_REF_CASES)
 def test_ssd_chunk_ref_matches_jax(B, Nc, Q, H, P, N):
     r = np.random.RandomState(9)
     x = (r.randn(B, Nc, Q, H, P) * 0.3).astype(np.float32)
@@ -189,6 +192,36 @@ def test_ssd_chunk_ref_matches_jax(B, Nc, Q, H, P, N):
     yr, Sr = jref.ssd_chunk_ref(*args)
     _close(y.numpy(), yr)
     _close(S.numpy(), Sr)
+
+
+# the JAX package's kernel shapes (G = 1), then the port's own cases
+SSD_PLAIN_CASES = [("jax-" + "-".join(map(str, c)), *c, 1)
+                   for c in SSD_REF_CASES] + SSD_CASES
+
+
+@pytest.mark.parametrize("name,B,Nc,Q,H,P,N,G", SSD_PLAIN_CASES,
+                         ids=[c[0] for c in SSD_PLAIN_CASES])
+def test_ssd_chunk_plain_matches_jax(name, B, Nc, Q, H, P, N, G):
+    """The kernel's plain version takes B/C per group; JAX's oracle and its
+    interpret-mode Pallas kernel take them broadcast to heads."""
+    x, dt, A, Bm, Cm = ssd_inputs(14, B, Nc, Q, H, P, N, G)
+    y, S = ref.ssd_chunk_plain(*to_torch(x, dt, A, Bm, Cm))
+    Bh = np.repeat(Bm, H // G, axis=3)
+    Ch = np.repeat(Cm, H // G, axis=3)
+    args = tuple(map(jnp.asarray, (x, dt, A, Bh, Ch)))
+    for yr, Sr in (jref.ssd_chunk_ref(*args),
+                   jops.ssd_chunk(*args, interpret=True)):
+        _close(y.numpy(), yr)
+        _close(S.numpy(), Sr)
+
+
+def test_ops_ssd_chunk_on_cpu_is_the_plain_version():
+    args = to_torch(*ssd_inputs(15, 1, 2, 64, 8, 32, 16, 2))
+    before = ops.launch_counts()
+    got = ops.ssd_chunk(*args)
+    want = ref.ssd_chunk_plain(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ops.launch_counts() == before
 
 
 # --------------------------------------------------------------------------
@@ -204,6 +237,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     fq, fk, fv = to_torch(*flash_inputs(10, 1, 16, 16, 4, 2, 32))
     with pytest.raises(ValueError, match="CUDA kernel"):
         tfa.flash_attention(fq, fk, fv)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tssd.ssd_chunk(*to_torch(*ssd_inputs(10, 1, 1, 16, 2, 16, 8)))
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as tssd
 
 PAGED_CASES = [
     # name, B, Hq, Hkv, D, page, lens, softcap, window, trash rows
@@ -23,6 +24,7 @@ PAGED_CASES = [
     ("softcap50", 2, 4, 2, 32, 8, [19, 33], 50.0, 0, ()),
     ("window-mid-page", 3, 4, 2, 32, 8, [10, 37, 64], 0.0, 12, ()),
     ("trash-row", 3, 4, 2, 32, 8, [9, 1, 30], 0.0, 0, (1,)),
+    ("hymba-group5", 2, 25, 5, 64, 16, [20, 77], 0.0, 0, ()),
 ]
 PAGED_IDS = [c[0] for c in PAGED_CASES]
 
@@ -55,6 +57,28 @@ def flash_inputs(seed, B, Sq, Sk, Hq, Hkv, D):
     return q, k, v
 
 
+SSD_CASES = [
+    # name, B, Nc, Q, H, P, N, G
+    ("smoke", 2, 2, 64, 4, 16, 16, 1),
+    ("ragged-q", 1, 1, 100, 4, 32, 16, 1),
+    ("groups2", 1, 2, 64, 8, 32, 16, 2),
+    ("q1", 1, 3, 1, 2, 16, 8, 1),
+]
+SSD_IDS = [c[0] for c in SSD_CASES]
+
+
+def ssd_inputs(seed, B, Nc, Q, H, P, N, G=1):
+    """numpy x [B,Nc,Q,H,P], dt [B,Nc,Q,H] in the range softplus gives at
+    init, A [H] < 0 and per-group B/C [B,Nc,Q,G,N]."""
+    r = np.random.RandomState(seed)
+    x = (r.randn(B, Nc, Q, H, P) * 0.3).astype(np.float32)
+    dt = (np.abs(r.randn(B, Nc, Q, H) * 0.05) + 0.01).astype(np.float32)
+    A = (-np.abs(r.randn(H))).astype(np.float32)
+    Bm = (r.randn(B, Nc, Q, G, N) * 0.3).astype(np.float32)
+    Cm = (r.randn(B, Nc, Q, G, N) * 0.3).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
 def to_torch(*arrays, device="cpu"):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in arrays]
@@ -68,6 +92,11 @@ def to_torch(*arrays, device="cpu"):
 # attention output is small.
 ATOL_FP32 = 1e-4
 ROW_RTOL_BF16 = 1e-2
+# the SSD chunk kernel is fp32 only; each output is a sum of up to Q = 256
+# exp-weighted products whose size grows with the chunk, so the limit is
+# relative to the output row's largest |value| (a row is y[t, :] or
+# S[p, :]): fp32 sums of 256 terms in another order differ by ~1e-6 of it
+ROW_RTOL_SSD = 1e-4
 
 
 def close(a, b, atol):
@@ -75,17 +104,25 @@ def close(a, b, atol):
                                np.asarray(b, np.float32), atol=atol, rtol=0)
 
 
-def kernel_close(got, want, dtype):
+def row_rel_err(got, want) -> float:
+    """Largest |got - want| of an output row over the row's largest
+    |want|, rows along the last axis."""
     got = got.float().cpu().numpy()
     want = want.float().cpu().numpy()
-    if dtype == torch.float32:
-        close(got, want, ATOL_FP32)
-        return
     d = got.shape[-1]
     err = np.abs(got - want).reshape(-1, d).max(-1)
     row_max = np.maximum(np.abs(want).reshape(-1, d).max(-1), 1e-30)
     assert np.isfinite(got).all()
-    assert (err / row_max).max() <= ROW_RTOL_BF16, (err / row_max).max()
+    return float((err / row_max).max())
+
+
+def kernel_close(got, want, dtype):
+    if dtype == torch.float32:
+        close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+              ATOL_FP32)
+        return
+    rel = row_rel_err(got, want)
+    assert rel <= ROW_RTOL_BF16, rel
 
 
 @pytest.fixture
@@ -123,6 +160,7 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, name, B, Hq, Hkv, D,
     (2, 256, 256, 4, 4, 64, True, 0.0, 64),
     (1, 130, 130, 8, 4, 256, True, 50.0, 64),
     (2, 40, 70, 4, 2, 64, False, 0.0, 0),
+    (1, 300, 300, 25, 5, 64, True, 0.0, 0),     # hymba heads, group 5
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, Hq,
                                               Hkv, D, causal, cap, win):
@@ -136,3 +174,20 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, Hq,
     want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=cap,
                                    window=win)
     kernel_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,Nc,Q,H,P,N,G", SSD_CASES + [
+    ("mamba2", 1, 4, 256, 32, 64, 128, 1),
+    ("hymba", 1, 4, 256, 25, 64, 16, 1),
+], ids=SSD_IDS + ["mamba2", "hymba"])
+def test_ssd_chunk_kernel_matches_plain(cuda, name, B, Nc, Q, H, P, N, G):
+    x, dt, A, Bm, Cm = to_torch(*ssd_inputs(13, B, Nc, Q, H, P, N, G),
+                                device=cuda)
+    before = tssd.ssd_chunk.launches
+    y, S = tssd.ssd_chunk(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert tssd.ssd_chunk.launches == before + 1
+    y_want, S_want = ref.ssd_chunk_plain(x, dt, A, Bm, Cm)
+    assert row_rel_err(y, y_want) <= ROW_RTOL_SSD
+    assert row_rel_err(S, S_want) <= ROW_RTOL_SSD

@@ -4,8 +4,9 @@ JAX ``init_params`` of each smoke config goes through
 ``repro_torch.convert.from_jax_params``; both packages then see the same
 numpy inputs.  fp32 on the CPU, where the port's kernels resolve to their
 plain versions and JAX runs its exact jnp paths (``attn_impl="jnp"``).
-Logits and K/V agree within ATOL = 1e-4 (the same fp32 math in another
-order through a few layers); greedy tokens agree exactly.
+Logits, K/V, SSM states and conv windows agree within ATOL = 1e-4 (the
+same fp32 math in another order through a few layers; the SSD's chunked
+scan sums in another order too); greedy tokens agree exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_jax_params
 
 ATOL = 1e-4
-ARCHS = ["yi-9b", "gemma2-2b"]
+ARCHS = ["yi-9b", "gemma2-2b", "mamba2-370m", "hymba-1.5b"]
 PAGE = 8
 
 
@@ -43,8 +44,8 @@ def test_config_copy_matches_jax(pair):
     jcfg, _, cfg, _ = pair
     for f in type(cfg).__dataclass_fields__:
         assert getattr(cfg, f) == getattr(jcfg, f), f
-    assert (cfg.padded_vocab(), cfg.q_dim, cfg.kv_dim) == (
-        jcfg.padded_vocab(), jcfg.q_dim, jcfg.kv_dim)
+    assert (cfg.padded_vocab(), cfg.q_dim, cfg.kv_dim, cfg.d_inner) == (
+        jcfg.padded_vocab(), jcfg.q_dim, jcfg.kv_dim, jcfg.d_inner)
 
 
 def test_converted_params_are_exact(pair):
@@ -85,42 +86,55 @@ def test_prefill_matches_jax(pair):
     toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 70))
     toks = toks.astype(np.int32)
     jlogits, jcache = jm.prefill(jp, jcfg, jnp.asarray(toks))
-    logits, k, v = tm.prefill(tp, cfg, torch.from_numpy(toks))
+    logits, cache = tm.prefill(tp, cfg, torch.from_numpy(toks))
     _close(logits.numpy(), jlogits)
-    _close(k.numpy(), jcache.k)
-    _close(v.numpy(), jcache.v)
+    for name in ("k", "v", "ssm", "conv"):
+        want, got = getattr(jcache, name), getattr(cache, name)
+        assert (got is None) == (want is None), name
+        if want is not None:
+            _close(got.numpy(), want)
+    assert (cache.ssm is not None) == cfg.has_ssm
+    assert (cache.k is not None) == cfg.has_attn
 
 
 def _paged_state(jcfg, jp, prompt_len, horizon, seed):
-    """Prefill two prompts with JAX and write their K/V into a numpy pool
-    [L, P + 1, Hkv, PAGE, D] through a block table with room for
-    ``horizon`` more tokens.  Returns (first tokens, pools, table, lens)."""
+    """Prefill two prompts with JAX and write their K/V (if the model has
+    attention) into a numpy pool [L, P + 1, Hkv, PAGE, D] through a block
+    table with room for ``horizon`` more tokens.  Returns (first tokens,
+    pools, table, lens, SSM state, conv window); absent parts are None."""
     r = np.random.RandomState(seed)
     B = 2
     toks = r.randint(0, jcfg.vocab_size, (B, prompt_len)).astype(np.int32)
     logits, cache = jm.prefill(jp, jcfg, jnp.asarray(toks))
-    k, v = np.asarray(cache.k), np.asarray(cache.v)
-    L, _, S, Hkv, D = k.shape
+    S = prompt_len
     n = (S + horizon + PAGE - 1) // PAGE
     P = B * n + 3
     table = r.permutation(P)[:B * n].reshape(B, n).astype(np.int32)
-    kp = np.zeros((L, P + 1, Hkv, PAGE, D), np.float32)
-    vp = np.zeros_like(kp)
-    for b in range(B):
-        for t in range(S):
-            kp[:, table[b, t // PAGE], :, t % PAGE] = k[:, b, t]
-            vp[:, table[b, t // PAGE], :, t % PAGE] = v[:, b, t]
+    kp = vp = ssm = conv = None
+    if cache.k is not None:
+        k, v = np.asarray(cache.k), np.asarray(cache.v)
+        L, _, _, Hkv, D = k.shape
+        kp = np.zeros((L, P + 1, Hkv, PAGE, D), np.float32)
+        vp = np.zeros_like(kp)
+        for b in range(B):
+            for t in range(S):
+                kp[:, table[b, t // PAGE], :, t % PAGE] = k[:, b, t]
+                vp[:, table[b, t // PAGE], :, t % PAGE] = v[:, b, t]
+    if cache.ssm is not None:
+        ssm, conv = np.asarray(cache.ssm), np.asarray(cache.conv)
     first = np.array(jnp.argmax(logits[:, :jcfg.vocab_size], -1),
                      np.int32)
-    return first, kp, vp, table, np.full(B, S, np.int32)
+    return first, kp, vp, table, np.full(B, S, np.int32), ssm, conv
 
 
-def _states(first, kp, vp, table, lens):
-    jstate = jm.PagedDecodeState(jnp.asarray(kp), jnp.asarray(vp),
-                                 jnp.asarray(table), jnp.asarray(lens),
-                                 None, None)
-    tstate = tm.PagedDecodeState(*(torch.from_numpy(a.copy())
-                                   for a in (kp, vp, table, lens)))
+def _states(first, kp, vp, table, lens, ssm, conv):
+    jstate = jm.PagedDecodeState(*(None if a is None else jnp.asarray(a)
+                                   for a in (kp, vp, table, lens, ssm,
+                                             conv)))
+    tstate = tm.PagedDecodeState(*(None if a is None
+                                   else torch.from_numpy(a.copy())
+                                   for a in (kp, vp, table, lens, ssm,
+                                             conv)))
     return jstate, tstate
 
 
@@ -133,10 +147,12 @@ def test_decode_step_paged_matches_jax(pair):
     logits, new = tm.decode_step_paged(tp, cfg, torch.from_numpy(first),
                                        tstate)
     _close(logits.numpy(), jlogits)
-    # the port wrote the new token's K/V into the pool in place
-    assert new.k is tstate.k
-    _close(new.k.numpy(), jnew.k)
-    _close(new.v.numpy(), jnew.v)
+    # the port wrote the new K/V token and SSM rows in place
+    for name in ("k", "v", "ssm", "conv"):
+        got = getattr(new, name)
+        assert got is getattr(tstate, name), name
+        if got is not None:
+            _close(got.numpy(), getattr(jnew, name))
     np.testing.assert_array_equal(new.lens.numpy(), np.asarray(jnew.lens))
 
 
@@ -152,7 +168,7 @@ def test_decode_loop_paged_greedy_tokens_match_jax(pair, horizon):
     got, new = tm.decode_loop_paged(tp, cfg, torch.from_numpy(first),
                                     tstate, horizon)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    np.testing.assert_array_equal(new.lens.numpy(), pool[-1] + horizon)
+    np.testing.assert_array_equal(new.lens.numpy(), pool[3] + horizon)
 
 
 def test_sampled_stream_is_horizon_invariant(pair):
@@ -177,7 +193,5 @@ def test_unported_families_raise():
     from repro_torch.models.config import ModelConfig
     moe = ModelConfig("m", "moe", 2, 64, 4, 2, 32, 128, 256, n_experts=4,
                       top_k=2)
-    ssm = ModelConfig("s", "ssm", 2, 64, 4, 2, 32, 0, 256, ssm_state=16)
-    for cfg in (moe, ssm):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.init_params(moe, device="cpu")
