@@ -11,29 +11,37 @@ non-zero before the result lines):
   3. hold each kernel against its plain PyTorch version on the card, fp32
      (absolute 1e-4; the SSD chunk kernel 1e-4 of each output row's
      largest value) and bf16 (1e-2 of each output row's largest value), at
-     smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m);
-  4. greedy decoding: the smoke configs on the card match the CPU token
-     for token; 2-layer full-width yi-9b, hymba-1.5b and mamba2-370m (fp32)
-     give the same tokens at decode_horizon 1 and 8 and agree with a
+     smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m),
+     the prefill kernel also at a chunk's query offset;
+  4. greedy decoding: the smoke configs give the same tokens on the card
+     and the CPU in every engine mode (paged at decode_horizon 1 and 8,
+     the dense mode, chunked prefill); 2-layer full-width yi-9b, hymba-1.5b and
+     mamba2-370m (fp32) give the same tokens in every mode (chunked prefill
+     in 64-token chunks; ignored by the SSM models) and agree with a
      teacher-forced forward;
   5. the served models at full width, one after another: yi-9b (48
-     layers), hymba-1.5b (32) and mamba2-370m (48), bf16, random weights
-     from a seeded generator, each serving 8 requests through
-     ``ServingEngine``; the launch counters are set to 0 just before each
-     run and read just after it, and every kernel on that model's path must
-     have launched; at least 90 % of the generated tokens must equal a
+     layers) three times on the same weights (paged decode, the dense
+     decode mode, chunked prefill in 256-token budgets), hymba-1.5b (32)
+     and mamba2-370m (48), bf16, random weights from a seeded generator,
+     each run serving 8 requests through ``ServingEngine``; the launch
+     counters are set to 0 just before each run and read just after it,
+     every kernel on that run's path must have launched (and the dense run
+     no paged decode, the chunked run the prefill kernel more than once per
+     layer and request); at least 90 % of the generated tokens must equal a
      teacher-forced forward's argmax;
-  6. time each kernel at each model's serving shapes with CUDA events
+  6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
      computing the same function; each timed kernel's output is checked
      again.
 
 The last three lines are the card line, one JSON object with the kernel
-table (one row per kernel and model) and ``{"ok": true, "device": {...}}``.
+table (one row per kernel and timed run) and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -69,13 +77,35 @@ ROW_RTOL_SSD = 1e-4
 # and decode paths, so near-tied argmaxes may flip (1 of 32 tokens in the
 # first measurement); a broken decode path agrees on almost none
 MIN_TEACHER_FORCED = 0.9
-# the served models at full width, in order, and the kernels each one's
-# serving run must launch
+# one phase-5 run of a model: its engine options, the kernels the run
+# must launch and must not launch, and the phase-6 timings taken at its
+# shapes
+Variant = collections.namedtuple(
+    "Variant", "name options launch no_launch timed")
+PAGED = dict(decode_horizon=8)
+# the served models at full width, in order, and their runs
 FULL_WIDTH = (
-    ("yi-9b", ("paged_decode", "flash_attention")),
-    ("hymba-1.5b", ("paged_decode", "flash_attention", "ssd_chunk")),
-    ("mamba2-370m", ("ssd_chunk",)),
+    ("yi-9b", (
+        Variant("paged", PAGED, ("paged_decode", "flash_attention"), (),
+                ("paged_decode", "flash_attention")),
+        Variant("dense", dict(decode_mode="dense"),
+                ("flash_decode", "flash_attention"), ("paged_decode",),
+                ("flash_decode",)),
+        Variant("chunked", dict(PAGED, prefill_chunk_tokens=256),
+                ("paged_decode", "flash_attention"), (),
+                ("flash_attention_chunk",)),
+    )),
+    ("hymba-1.5b", (
+        Variant("paged", PAGED,
+                ("paged_decode", "flash_attention", "ssd_chunk"), (),
+                ("paged_decode", "flash_attention", "ssd_chunk")),
+    )),
+    ("mamba2-370m", (
+        Variant("paged", PAGED, ("ssd_chunk",), (), ("ssd_chunk",)),
+    )),
 )
+# phase 6's chunk shape: 256 queries after 512 resident tokens
+CHUNK, CHUNK_OFFSET = 256, 512
 
 
 def log(*args) -> None:
@@ -229,6 +259,77 @@ def check_prefill(gen, fa, ref) -> None:
                 raise SystemExit(f"flash_attention {name} {dtype} disagrees")
 
 
+def check_chunk(gen, fa, ref) -> None:
+    """The prefill kernel on a chunk: C queries at positions off + [0, C)
+    over the off + C keys before and in it."""
+    cases = [
+        # name, B, C, offset, Hq, Hkv, D, softcap, window
+        ("smoke", 1, 24, 40, 4, 2, 32, 0.0, 0),
+        ("yi-9b", 1, CHUNK, CHUNK_OFFSET, 32, 4, 128, 0.0, 0),
+        ("yi-9b-window", 1, CHUNK, CHUNK_OFFSET, 32, 4, 128, 0.0, 100),
+        ("gemma2-window", 1, CHUNK, CHUNK_OFFSET, 8, 4, 256, 50.0, 300),
+        ("hymba-ragged", 2, 100, 77, 25, 5, 64, 0.0, 0),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, C, off, Hq, Hkv, D, cap, win in cases:
+            q = rand(gen, B, C, Hq, D, dtype=dtype)
+            k = rand(gen, B, off + C, Hkv, D, dtype=dtype)
+            v = rand(gen, B, off + C, Hkv, D, dtype=dtype)
+            got = fa.flash_attention(q, k, v, softcap=cap, window=win,
+                                     q_offset=off)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, softcap=cap, window=win,
+                                           q_offset=off)
+            err, rel, ok = agreement(got, want, dtype)
+            log(f"  flash_attention q_offset {name:14s} {str(dtype):14s} "
+                f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
+                f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"flash_attention q_offset {name} {dtype} "
+                                 "disagrees")
+
+
+def dense_inputs(gen, B, S, Hq, Hkv, D, lens, dtype, *, window=0, rot=1):
+    """q, ``rot`` dense caches [rot, B, S, Hkv, D] each of K and V, lens
+    and start (the last ``window`` positions when ``window`` > 0)."""
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = rand(gen, B, Hq, D, dtype=dtype)
+    k = rand(gen, rot, B, S, Hkv, D, dtype=dtype)
+    v = rand(gen, rot, B, S, Hkv, D, dtype=dtype)
+    start = (torch.clamp(lens - window, min=0) if window
+             else torch.zeros_like(lens))
+    return q, k, v, lens, start.to(torch.int32)
+
+
+def check_dense(gen, fd, ref) -> None:
+    cases = [
+        # name, B, S, Hq, Hkv, D, lens, softcap, window
+        ("smoke-len0", 4, 40, 4, 2, 32, [0, 1, 13, 40], 0.0, 0),
+        ("ragged-s", 3, 1000, 8, 2, 64, [1, 999, 1000], 0.0, 0),
+        ("yi-9b", 8, 2048, 32, 4, 128,
+         [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 0),
+        ("yi-9b-window", 8, 2048, 32, 4, 128,
+         [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 100),
+        ("gemma2", 4, 1030, 8, 4, 256, [3, 64, 517, 1030], 50.0, 61),
+        ("hymba", 8, 979, 25, 5, 64,
+         [1, 15, 16, 17, 300, 600, 900, 979], 0.0, 0),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, S, Hq, Hkv, D, lens, cap, win in cases:
+            q, k, v, ln, st = dense_inputs(gen, B, S, Hq, Hkv, D, lens,
+                                           dtype, window=win)
+            scale = 1.0 / D ** 0.5
+            got = fd.flash_decode(q, k[0], v[0], ln, st, cap, scale)
+            torch.cuda.synchronize()
+            want = ref.flash_decode_plain(q, k[0], v[0], ln, st, cap, scale)
+            err, rel, ok = agreement(got, want, dtype)
+            log(f"  flash_decode {name:14s} {str(dtype):14s} "
+                f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
+                f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"flash_decode {name} {dtype} disagrees")
+
+
 def ssd_inputs(gen, B, Nc, Q, H, P, N, G):
     """x, dt (in softplus's range at init), A < 0 and per-group B/C."""
     x = rand(gen, B, Nc, Q, H, P, scale=0.3)
@@ -270,13 +371,9 @@ def check_ssd(gen, ssd, ref) -> None:
 # --------------------------------------------------------------------------
 
 
-def serve(cfg, params, prompts, new_tokens, horizon, device, *, dtype,
-          num_blocks, block_size, max_seqs, max_blocks_per_seq=None):
+def serve(cfg, params, prompts, new_tokens, device, **engine_kw):
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(cfg, params, num_blocks=num_blocks,
-                        block_size=block_size, max_seqs=max_seqs,
-                        dtype=dtype, decode_horizon=horizon, device=device,
-                        max_blocks_per_seq=max_blocks_per_seq)
+    eng = ServingEngine(cfg, params, device=device, **engine_kw)
     for rid, p in enumerate(prompts):
         eng.submit(rid, p, new_tokens)
     t0 = time.monotonic()
@@ -310,9 +407,22 @@ def teacher_forced_agreement(cfg, params, prompt, generated) -> float:
     return float(np.mean(pred == np.asarray(generated)))
 
 
+# phase 4's engine modes: paged decode at horizons 1 and 8, the dense
+# decode mode, and chunked prefill (8-token chunks on the smoke configs;
+# the SSM models ignore it and prefill one-shot)
+SMOKE_MODES = {
+    "H=1": dict(decode_horizon=1),
+    "H=8": dict(decode_horizon=8),
+    "dense": dict(decode_mode="dense"),
+    "chunked": dict(decode_horizon=8, prefill_chunk_tokens=8),
+}
+
+
 def phase_greedy() -> None:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import init_params
+    smoke_engine = dict(dtype=torch.float32, num_blocks=128, block_size=8,
+                        max_seqs=4)
     for arch in ("yi-9b", "gemma2-2b", "mamba2-370m", "hymba-1.5b"):
         cfg = get_smoke_config(arch)
         rng = np.random.RandomState(0)
@@ -322,18 +432,24 @@ def phase_greedy() -> None:
         p_gpu = _to(p_cpu, "cuda")
         runs = {}
         for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
-            for h in (1, 8):
-                fin, eng, _ = serve(cfg, params, prompts, 12, h, dev,
-                                    dtype=torch.float32, num_blocks=128,
-                                    block_size=8, max_seqs=4)
-                runs[dev, h] = ({r: fin[r].generated for r in fin},
-                                eng.decode_syncs)
-        same = len({repr(v[0]) for v in runs.values()}) == 1
-        log(f"  {cfg.name}: cuda == cpu tokens at H in (1, 8): {same}; "
-            f"decode_syncs H=1 {runs['cuda', 1][1]} H=8 {runs['cuda', 8][1]}")
-        if not same:
-            raise SystemExit(f"{cfg.name}: greedy tokens differ")
+            for mode, kw in SMOKE_MODES.items():
+                fin, eng, _ = serve(cfg, params, prompts, 12, dev,
+                                    **smoke_engine, **kw)
+                runs[dev, mode] = ({r: fin[r].generated for r in fin},
+                                   eng.decode_syncs)
+        same = {m: runs["cuda", m][0] == runs["cpu", m][0]
+                for m in SMOKE_MODES}
+        across = all(v[0] == runs["cpu", "H=1"][0] for v in runs.values())
+        log(f"  {cfg.name}: cuda == cpu tokens {same}; all modes alike "
+            f"{across}; decode_syncs H=1 {runs['cuda', 'H=1'][1]} H=8 "
+            f"{runs['cuda', 'H=8'][1]} chunked "
+            f"{runs['cuda', 'chunked'][1]} dense {runs['cuda', 'dense'][1]}")
+        if not all(same.values()) or not across:
+            raise SystemExit(f"{cfg.name}: greedy tokens differ between "
+                             "the card and the CPU or between modes")
 
+    full_modes = dict(SMOKE_MODES, chunked=dict(decode_horizon=8,
+                                                 prefill_chunk_tokens=64))
     for arch, _ in FULL_WIDTH:
         cfg = dataclasses.replace(get_config(arch), n_layers=2)
         params = init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
@@ -341,18 +457,20 @@ def phase_greedy() -> None:
         prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                    for n in (17, 40, 64, 100)]
         out = {}
-        for h in (1, 8):
-            fin, eng, _ = serve(cfg, params, prompts, 16, h, "cuda",
+        for mode, kw in full_modes.items():
+            fin, eng, _ = serve(cfg, params, prompts, 16, "cuda",
                                 dtype=torch.float32, num_blocks=256,
                                 block_size=16, max_seqs=4,
-                                max_blocks_per_seq=16)
-            out[h] = {r: fin[r].generated for r in fin}
+                                max_blocks_per_seq=16, **kw)
+            out[mode] = {r: fin[r].generated for r in fin}
+        same = {m: out[m] == out["H=1"] for m in full_modes}
         agree = min(teacher_forced_agreement(cfg, params, prompts[r],
-                                             out[1][r]) for r in out[1])
-        log(f"  {arch} 2-layer full width fp32: H=1 == H=8 "
-            f"{out[1] == out[8]}; teacher-forced agreement (min over "
-            f"requests) {agree:.3f}")
-        if out[1] != out[8] or agree < 1.0:
+                                             out["H=1"][r])
+                    for r in out["H=1"])
+        log(f"  {arch} 2-layer full width fp32: tokens equal to H=1 "
+            f"{same}; teacher-forced agreement (min over requests) "
+            f"{agree:.3f}")
+        if not all(same.values()) or agree < 1.0:
             raise SystemExit(f"{arch}: full-width 2-layer greedy check "
                              "failed")
         del params
@@ -379,9 +497,10 @@ def full_width_prompts(cfg) -> list:
             for n in lens]
 
 
-def phase_full_width(ops, arch: str, required: tuple) -> dict:
-    """Serve 8 requests with ``arch`` at full width; the launch counters
-    are set to 0 just before the run and read just after it."""
+def phase_full_width(ops, arch: str, variants: tuple) -> list[dict]:
+    """Serve 8 requests with ``arch`` at full width, once per variant, on
+    one set of weights; the launch counters are set to 0 just before each
+    run and read just after it."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count
     cfg = get_config(arch)
@@ -395,51 +514,66 @@ def phase_full_width(ops, arch: str, required: tuple) -> dict:
         f"{cfg.ssm_state}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
         f"{n:,} params, {n * 2 / 1e9:.2f} GB bf16 "
         f"(init {time.monotonic() - t0:.1f} s)")
-    kw = FULL_WIDTH_ENGINE
-    # warm-up: cuBLAS handles, allocator, kernel modules
-    warm = [np.arange(64, dtype=np.int32)]
-    serve(cfg, params, warm, 4, 8, "cuda", **kw)
     prompts = full_width_prompts(cfg)
     lens = [len(p) for p in prompts]
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    fin, eng, wall = serve(cfg, params, prompts, 32, 8, "cuda", **kw)
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    ttft, decode_rate = serving_times(fin, wall)
-    ok = (len(fin) == 8 and all(len(fin[r].generated) == 32 for r in fin)
-          and all(0 <= t < cfg.vocab_size for r in fin
-                  for t in fin[r].generated))
-    log(f"  prompts {sorted(int(x) for x in lens)}, 32 new tokens each, "
-        f"max_seqs 8, decode_horizon 8, pool 2048 x 16-token pages")
-    log(f"  tokens_out {eng.tokens_out}  prefill_tokens {eng.prefill_tokens}"
-        f"  steps {eng.steps}  decode_syncs {eng.decode_syncs}  "
-        f"horizons {eng.horizon_counts}")
-    log(f"  wall {wall:.3f} s  TTFT mean {np.mean(ttft) * 1e3:.1f} ms "
-        f"max {np.max(ttft) * 1e3:.1f} ms  decode {decode_rate:.1f} tok/s "
-        f"(after the last first token)  end-to-end "
-        f"{eng.tokens_out / wall:.1f} tok/s  peak mem {peak:.2f} GB")
-    log(f"  launches: {counts}")
-    per_req = [teacher_forced_agreement(cfg, params, prompts[r],
-                                        fin[r].generated) for r in sorted(fin)]
-    agree = float(np.mean(per_req))
-    log(f"  teacher-forced agreement (bf16, all {len(fin)} requests) "
-        f"{agree:.4f}; per request {[round(a, 4) for a in per_req]}, min "
-        f"{min(per_req):.4f}; limit {MIN_TEACHER_FORCED}")
-    if not ok:
-        raise SystemExit(f"{arch}: full-width run returned wrong token "
-                         "counts/ids")
-    missing = [k for k in required if counts[k] <= 0]
-    if missing:
-        raise SystemExit(f"{arch}: kernels {missing} were not launched on "
-                         f"its serving path: {counts}")
-    if agree < MIN_TEACHER_FORCED:
-        raise SystemExit(f"{arch}: decode disagrees with the teacher-forced "
-                         "forward")
+    runs = []
+    for var in variants:
+        kw = dict(FULL_WIDTH_ENGINE, **var.options)
+        # warm-up: cuBLAS handles, allocator, kernel modules
+        serve(cfg, params, [np.arange(64, dtype=np.int32)], 4, "cuda", **kw)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        fin, eng, wall = serve(cfg, params, prompts, 32, "cuda", **kw)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ttft, decode_rate = serving_times(fin, wall)
+        ok = (len(fin) == 8
+              and all(len(fin[r].generated) == 32 for r in fin)
+              and all(0 <= t < cfg.vocab_size for r in fin
+                      for t in fin[r].generated))
+        log(f"  [{var.name}] prompts {sorted(int(x) for x in lens)}, 32 new "
+            f"tokens each, max_seqs 8, pool 2048 x 16-token pages, "
+            f"{var.options}")
+        log(f"  [{var.name}] tokens_out {eng.tokens_out}  prefill_tokens "
+            f"{eng.prefill_tokens}  steps {eng.steps}  decode_syncs "
+            f"{eng.decode_syncs}  horizons {eng.horizon_counts}")
+        log(f"  [{var.name}] wall {wall:.3f} s  TTFT mean "
+            f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms  "
+            f"decode {decode_rate:.1f} tok/s (after the last first token)  "
+            f"end-to-end {eng.tokens_out / wall:.1f} tok/s  peak mem "
+            f"{peak:.2f} GB")
+        log(f"  [{var.name}] launches: {counts}")
+        per_req = [teacher_forced_agreement(cfg, params, prompts[r],
+                                            fin[r].generated)
+                   for r in sorted(fin)]
+        agree = float(np.mean(per_req))
+        log(f"  [{var.name}] teacher-forced agreement (bf16, all "
+            f"{len(fin)} requests) {agree:.4f}; per request "
+            f"{[round(a, 4) for a in per_req]}, min {min(per_req):.4f}; "
+            f"limit {MIN_TEACHER_FORCED}")
+        if not ok:
+            raise SystemExit(f"{arch} {var.name}: full-width run returned "
+                             "wrong token counts/ids")
+        missing = [k for k in var.launch if counts[k] <= 0]
+        stray = [k for k in var.no_launch if counts[k] > 0]
+        if missing or stray:
+            raise SystemExit(f"{arch} {var.name}: kernels {missing} were not "
+                             f"launched and {stray} were launched on its "
+                             f"serving path: {counts}")
+        if ("prefill_chunk_tokens" in var.options
+                and counts["flash_attention"] <= cfg.n_layers * len(fin)):
+            raise SystemExit(f"{arch} {var.name}: the prefill kernel ran "
+                             "no more than once per layer and request: "
+                             "nothing was chunked")
+        if agree < MIN_TEACHER_FORCED:
+            raise SystemExit(f"{arch} {var.name}: decode disagrees with the "
+                             "teacher-forced forward")
+        runs.append({"arch": arch, "variant": var, "cfg": cfg,
+                     "counts": counts, "n_req": len(fin),
+                     "lens": [int(x) for x in lens]})
     del params
     torch.cuda.empty_cache()
-    return {"arch": arch, "cfg": cfg, "counts": counts, "n_req": len(fin),
-            "lens": [int(x) for x in lens]}
+    return runs
 
 
 # --------------------------------------------------------------------------
@@ -450,6 +584,8 @@ def phase_full_width(ops, arch: str, required: tuple) -> dict:
 KERNEL_FILES = {
     "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                      "src/repro/kernels/flash_decode.py:116"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:32"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:24"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
@@ -461,7 +597,8 @@ def _row(name, run, err, rel, ms, plain, t_bytes, t_ops,
          library_ms, shape, **extra):
     counts, n_req = run["counts"], run["n_req"]
     source, replaces = KERNEL_FILES[name]
-    return {"name": name, "model": run["arch"], "route": "cuda",
+    return {"name": name, "model": run["arch"],
+            "run": run["variant"].name, "route": "cuda",
             "source": source, "replaces": replaces,
             "launches": counts[name],
             "launches_per_request": counts[name] / n_req,
@@ -535,6 +672,91 @@ def time_prefill(gen, fa, ref, run):
                 plain, nbytes / HBM_BYTES_PER_S * 1e3,
                 flops / BF16_FLOPS_PER_S * 1e3, lib,
                 f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16")
+
+
+def time_dense(gen, fd, ref, run):
+    """B3 at the dense run's decode shape: B = 8, each context mid-way
+    through decode, a dense cache of S = the longest context.  The timed
+    calls rotate over ROTATIONS caches, so their K/V does not stay in the
+    50 MB L2 between calls, as each layer's gathered cache would not.
+    Library: ``scaled_dot_product_attention`` with a boolean length mask
+    and GQA, one PyTorch call computing the same function (softcap 0)."""
+    cfg = run["cfg"]
+    B, Hq, Hkv, D = 8, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    lens = [n + 16 for n in run["lens"]]
+    S = max(lens)
+    rotations = 10
+    q, k, v, ln, st = dense_inputs(gen, B, S, Hq, Hkv, D, lens,
+                                   torch.bfloat16, rot=rotations)
+    scale = 1.0 / D ** 0.5
+    got = fd.flash_decode(q, k[0], v[0], ln, st, 0.0, scale)
+    want = ref.flash_decode_plain(q, k[0], v[0], ln, st, 0.0, scale)
+    err, rel, ok = agreement(got, want, torch.bfloat16)
+    mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])
+    mask = mask[:, None, None, :]                       # [B, 1, 1, S]
+    qt = q[:, :, None, :]                               # [B, Hq, 1, D]
+    kt, vt = k.transpose(2, 3), v.transpose(2, 3)       # [rot, B, Hkv, S, D]
+
+    def library(i):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt[i], vt[i], attn_mask=mask, enable_gqa=True)
+
+    if not ok:
+        raise SystemExit(f"flash_decode disagrees at the timing shape: "
+                         f"max_row_rel_err {rel:.3e}")
+    # the library call's own distance from the plain version, for the
+    # record (it rounds in bf16 where it likes)
+    _, lib_rel, _ = row_rel(library(0)[:, :, 0], want)
+    ms = time_ms(lambda i: fd.flash_decode(q, k[i], v[i], ln, st, 0.0,
+                                           scale), inner=rotations)
+    plain = time_ms(lambda i: ref.flash_decode_plain(
+        q, k[i], v[i], ln, st, 0.0, scale), inner=rotations)
+    lib = time_ms(library, inner=rotations)
+    tokens = sum(lens)
+    nbytes = (2 * tokens * Hkv * D * 2          # K and V of live positions
+              + 2 * B * Hq * D * 2               # q in, out
+              + 2 * B * 4)                       # lens, start
+    flops = 4 * tokens * Hq * D
+    return _row("flash_decode", run, err, rel, ms, plain,
+                nbytes / HBM_BYTES_PER_S * 1e3,
+                flops / BF16_FLOPS_PER_S * 1e3, lib,
+                f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} lens={lens} bf16",
+                library_max_row_rel_err=lib_rel)
+
+
+def time_chunk(gen, fa, ref, run):
+    """B2 on one prefill chunk: CHUNK queries at positions CHUNK_OFFSET +
+    [0, CHUNK) over the CHUNK_OFFSET + CHUNK keys before and in it.
+    Library: ``scaled_dot_product_attention`` with the offset causal mask
+    as a boolean mask and GQA."""
+    cfg = run["cfg"]
+    B, C, off = 1, CHUNK, CHUNK_OFFSET
+    Hq, Hkv, D = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    q = rand(gen, B, C, Hq, D, dtype=torch.bfloat16)
+    k = rand(gen, B, off + C, Hkv, D, dtype=torch.bfloat16)
+    v = rand(gen, B, off + C, Hkv, D, dtype=torch.bfloat16)
+    got = fa.flash_attention(q, k, v, q_offset=off)
+    want = ref.flash_attention_ref(q, k, v, q_offset=off)
+    err, rel, ok = agreement(got, want, torch.bfloat16)
+    if not ok:
+        raise SystemExit(f"flash_attention disagrees at the chunk shape: "
+                         f"max_row_rel_err {rel:.3e}")
+    ms = time_ms(lambda i: fa.flash_attention(q, k, v, q_offset=off))
+    plain = time_ms(lambda i: ref.flash_attention_ref(q, k, v,
+                                                      q_offset=off))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = (torch.arange(off + C, device="cuda")[None, :]
+            <= off + torch.arange(C, device="cuda")[:, None])
+    lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    pairs = B * (C * off + C * (C + 1) // 2)     # unmasked (q, k) pairs
+    flops = 4 * pairs * Hq * D
+    nbytes = 2 * (2 * B * C * Hq * D + 2 * B * (off + C) * Hkv * D)
+    return _row("flash_attention", run, err, rel, ms, plain,
+                nbytes / HBM_BYTES_PER_S * 1e3,
+                flops / BF16_FLOPS_PER_S * 1e3, lib,
+                f"B={B} C={C} q_offset={off} Sk={off + C} Hq={Hq} Hkv={Hkv} "
+                f"D={D} causal bf16")
 
 
 def time_ssd(gen, ssd, ref, run):
@@ -617,28 +839,34 @@ def main() -> int:
     gen.manual_seed(0)
     log("[3] kernels vs plain versions")
     check_paged(gen, fd, ref)
+    check_dense(gen, fd, ref)
     check_prefill(gen, fa, ref)
+    check_chunk(gen, fa, ref)
     check_ssd(gen, ssd, ref)
 
     log("[4] greedy decoding")
     phase_greedy()
 
     runs = []
-    for i, (arch, required) in enumerate(FULL_WIDTH):
-        log(f"[5.{i + 1}] {arch} at full width")
-        runs.append(phase_full_width(ops, arch, required))
+    for i, (arch, variants) in enumerate(FULL_WIDTH):
+        log(f"[5.{i + 1}] {arch} at full width "
+            f"({', '.join(v.name for v in variants)})")
+        runs += phase_full_width(ops, arch, variants)
 
     log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls)")
     timers = {"paged_decode": lambda run: time_paged(gen, fd, ref, run),
+              "flash_decode": lambda run: time_dense(gen, fd, ref, run),
               "flash_attention": lambda run: time_prefill(gen, fa, ref, run),
+              "flash_attention_chunk": lambda run: time_chunk(gen, fa, ref,
+                                                              run),
               "ssd_chunk": lambda run: time_ssd(gen, ssd, ref, run)}
-    rows = [timers[name](run) for run, (_, required) in zip(runs, FULL_WIDTH)
-            for name in required]
+    rows = [timers[name](run) for run in runs
+            for name in run["variant"].timed]
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {r['name']} ({r['model']}): kernel_ms {r['ms']:.4f}  "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})  plain_ms "
-            f"{r['plain_ms']:.4f}  library_ms {lib}  launches "
+        log(f"  {r['name']} ({r['model']}, {r['run']} run): kernel_ms "
+            f"{r['ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+            f"  plain_ms {r['plain_ms']:.4f}  library_ms {lib}  launches "
             f"{r['launches']} ({r['launches_per_request']:.1f}/request)  "
             f"[{r['shape']}]")
     log(f"total {time.monotonic() - t_start:.1f} s")

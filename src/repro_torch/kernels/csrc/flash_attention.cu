@@ -5,9 +5,11 @@
 // k/v [B, Sk, Hkv, D], query head h reading KV head h / group (GQA in the
 // index arithmetic, no expanded K/V copy), with optional tanh softcap,
 // causal mask k <= q, sliding window k > q - window and an fp32 online
-// softmax over key tiles.  Ragged Sq / Sk are masked inside the kernel, so
-// no caller pads anything (the non-causal padded-key leak of the JAX
-// padding wrapper does not exist here).
+// softmax over key tiles.  Query row i sits at position q_offset + i for
+// both masks (a prefill chunk after q_offset resident tokens; 0 for a
+// whole prompt), keys at their index.  Ragged Sq / Sk are masked inside
+// the kernel, so no caller pads anything (the non-causal padded-key leak
+// of the JAX padding wrapper does not exist here).
 //
 // What bounds it on an H100: operations at prefill lengths (4 * Sq * Sk *
 // D / 2 FLOPs per head under the causal mask against ~2 bytes per element
@@ -39,8 +41,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int Hq, int Hkv, int causal, int window,
-                       float softcap, float scale) {
+                       int Sk, int Hq, int Hkv, int q_offset, int causal,
+                       int window, float softcap, float scale) {
   constexpr int LD = D + 1;
   constexpr int NJ = kBK / 4;  // scores per thread
   constexpr int NC = D / 4;    // output columns per thread
@@ -52,7 +54,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid & 31;
   const int r = tid >> 2;      // query row within the tile
   const int c0 = tid & 3;      // this thread's column / key phase
-  const int qpos = q0 + r;
+  const int qpos = q_offset + q0 + r;  // masks compare keys with this
 
   extern __shared__ float sm[];
   float* Qs = sm;
@@ -81,10 +83,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m_i = kNegInf;
   float l_i = 0.f;
 
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int q_last = q_offset + min(q0 + kBQ, Sq) - 1;
   int kt_end = (Sk + kBK - 1) / kBK;
   if (causal) kt_end = min(kt_end, q_last / kBK + 1);
-  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int kt_begin =
+      window > 0 ? max(0, q_offset + q0 - window + 1) / kBK : 0;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
@@ -149,8 +152,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (qpos < Sq) {
-    T* ob = out + (static_cast<int64_t>(b) * Sq + qpos) * q_row +
+  if (q0 + r < Sq) {
+    T* ob = out + (static_cast<int64_t>(b) * Sq + q0 + r) * q_row +
             static_cast<int64_t>(hq) * D + c0;
     const float inv = 1.f / fmaxf(l_i, 1e-30f);
 #pragma unroll
@@ -160,8 +163,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           int Sq, int Sk, int Hq, int Hkv, int q_offset, int causal,
+           int window, float softcap, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = allow_smem(flash_attention_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -169,27 +172,28 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv,
-      causal, window, softcap, scale);
+      q_offset, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int Hq, int Hkv, int D, int causal, int window,
-               float softcap, float scale, cudaStream_t s) {
+               int Sq, int Sk, int Hq, int Hkv, int D, int q_offset,
+               int causal, int window, float softcap, float scale,
+               cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                           softcap, scale, s);
+      return launch<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, causal,
+                           window, softcap, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                           softcap, scale, s);
+      return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, causal,
+                           window, softcap, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                            softcap, scale, s);
+      return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, causal,
+                            window, softcap, scale, s);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
-                            softcap, scale, s);
+      return launch<T, 256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, q_offset, causal,
+                            window, softcap, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -199,20 +203,22 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace repro_torch
 
 // q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; out [B, Sq, Hq, D].  Contiguous,
-// one device, D in {32, 64, 128, 256}.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// one device, D in {32, 64, 128, 256}; query row i at position
+// q_offset + i.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, int B, int Sq,
-                               int Sk, int Hq, int Hkv, int D, int causal,
-                               int window, float softcap, float scale,
-                               void* stream) {
+                               int Sk, int Hq, int Hkv, int D, int q_offset,
+                               int causal, int window, float softcap,
+                               float scale, void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_d<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
-                             window, softcap, scale, s);
+    return dispatch_d<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, q_offset,
+                             causal, window, softcap, scale, s);
   if (dtype == kBFloat16)
     return dispatch_d<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D,
-                                     causal, window, softcap, scale, s);
+                                     q_offset, causal, window, softcap,
+                                     scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

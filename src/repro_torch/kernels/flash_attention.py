@@ -3,8 +3,11 @@
 Replaces the Pallas TPU kernel ``_kernel``/``flash_attention`` of the JAX
 package.  GQA is resolved inside the kernel (query head h reads KV head
 h // group) and ragged Sq / Sk are masked there, so nothing is padded or
-expanded here.  Its plain version is ``ref.flash_attention_ref``;
-``ops.flash_attention`` picks between them by the tensors' device.
+expanded here.  ``q_offset`` places query row i at position q_offset + i
+for the causal and window masks: a prefill chunk attends to the resident
+tokens before it and to itself.  Its plain version is
+``ref.flash_attention_ref``; ``ops.flash_attention`` picks between them by
+the tensors' device.
 
 ``flash_attention.launches`` counts the kernel launches this process made.
 """
@@ -23,19 +26,19 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
+        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Launch the prefill kernel on CUDA tensors.
 
     q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D]; fp32 or bf16, D in
-    ``HEAD_DIMS``.  Scores are scaled by 1/sqrt(D).  Returns
-    [B, Sq, Hq, D] in q's dtype.
+    ``HEAD_DIMS``; query row i at position ``q_offset + i``.  Scores are
+    scaled by 1/sqrt(D).  Returns [B, Sq, Hq, D] in q's dtype.
     """
     if not q.is_cuda:
         raise ValueError("flash_attention launches a CUDA kernel; "
@@ -48,6 +51,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
     dev = q.device
     check_tensor("q", q, dev, q.dtype, (B, Sq, Hq, D))
     check_tensor("k", k, dev, q.dtype, (B, Sk, Hkv, D))
@@ -59,8 +64,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().flash_attention(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal), int(window),
-        float(softcap), float(scale), stream)
+        out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(q_offset), int(causal),
+        int(window), float(softcap), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

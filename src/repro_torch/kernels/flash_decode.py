@@ -1,14 +1,20 @@
-"""Paged decode attention: the wrapper around ``csrc/paged_decode.cu``.
+"""Decode attention: the wrappers around ``csrc/paged_decode.cu`` and
+``csrc/flash_decode.cu``.
 
-Replaces the Pallas TPU kernel ``_paged_kernel``/``_paged_call`` of the JAX
-package (entry ``flash_decode_paged_native``).  The kernel runs one CTA per
-(sequence, KV head) serving all of the group's query heads, so every live
-page crosses device memory once per KV head; it is bound by those bytes
-(see the note at the top of the CUDA source).  Its plain version is
-``ref.paged_decode_plain``; ``ops.paged_decode`` picks between them by the
-tensors' device.
+``paged_decode`` replaces the Pallas TPU kernel ``_paged_kernel``/
+``_paged_call`` of the JAX package (entry ``flash_decode_paged_native``);
+``flash_decode`` replaces ``_decode_kernel``/``flash_decode``, the same
+attention over a dense per-sequence cache.  Both kernels run one CTA per
+(sequence, KV head) serving all of the group's query heads through one
+shared loop (``csrc/decode_group.cuh``), so every live K/V row crosses
+device memory once per KV head; they are bound by those bytes (see the
+notes at the top of the CUDA sources).  Their plain versions are
+``ref.paged_decode_plain`` and ``ref.flash_decode_plain``;
+``ops.paged_decode`` and ``ops.flash_decode`` pick between kernel and
+plain version by the tensors' device.
 
-``paged_decode.launches`` counts the kernel launches this process made.
+``paged_decode.launches`` and ``flash_decode.launches`` count the kernel
+launches this process made.
 """
 from __future__ import annotations
 
@@ -20,14 +26,41 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import DTYPE_CODES, HEAD_DIMS, check_tensor
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("paged_decode")
-    fn = lib.paged_decode
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _F, _F, _P],
+    "flash_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                     _P],
+}
+
+
+def _fn(name: str):
+    """The C entry ``name`` of ``csrc/<name>.cu`` (built if needed)."""
+    fn = getattr(build.load(name), name)
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _check_query(kernel: str, q: torch.Tensor, Hkv: int) -> None:
+    if not q.is_cuda:
+        raise ValueError(f"{kernel} launches a CUDA kernel; "
+                         f"use ops.{kernel} for CPU tensors")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if q.shape[1] % Hkv:
+        raise ValueError(f"{q.shape[1]} query heads do not group over {Hkv} "
+                         "KV heads")
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -40,18 +73,10 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     [B, n_pages] int32; lens/start: [B] int32.  fp32 or bf16 (q and pools
     alike), D in ``HEAD_DIMS``.  Returns [B, Hq, D] in q's dtype.
     """
-    if not q.is_cuda:
-        raise ValueError("paged_decode launches a CUDA kernel; "
-                         "use ops.paged_decode for CPU tensors")
-    B, Hq, D = q.shape
     P, Hkv, page, _ = k_pages.shape
+    _check_query("paged_decode", q, Hkv)
+    B, Hq, D = q.shape
     n_pages = block_table.shape[1]
-    if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"unsupported dtype {q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    if Hq % Hkv:
-        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
     dev = q.device
     check_tensor("q", q, dev, q.dtype, (B, Hq, D))
     check_tensor("k_pages", k_pages, dev, q.dtype, (P, Hkv, page, D))
@@ -59,14 +84,12 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     check_tensor("block_table", block_table, dev, torch.int32, (B, n_pages))
     check_tensor("lens", lens, dev, torch.int32, (B,))
     check_tensor("start", start, dev, torch.int32, (B,))
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _check_aligned(k_pages=k_pages, v_pages=v_pages)
     out = torch.empty_like(q)
     if B == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().paged_decode(
+    err = _fn("paged_decode")(
         DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lens.data_ptr(),
         start.data_ptr(), out.data_ptr(), B, Hq, Hkv, page, D, n_pages,
@@ -79,3 +102,44 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode.launches = 0
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lens: torch.Tensor, start: torch.Tensor, softcap: float,
+                 scale: float) -> torch.Tensor:
+    """Launch the dense decode kernel on CUDA tensors.
+
+    q: [B, Hq, D]; k/v: [B, S, Hkv, D] (S >= 1); lens/start: [B] int32 —
+    position ``t`` is attended iff ``start <= t < min(len, S)``.  fp32 or
+    bf16 (q and caches alike), D in ``HEAD_DIMS``.  Returns [B, Hq, D] in
+    q's dtype, zeros where ``len == 0``.
+    """
+    _check_query("flash_decode", q, k.shape[2])
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if S < 1:
+        raise ValueError("flash_decode needs a cache of at least one "
+                         "position")
+    dev = q.device
+    check_tensor("q", q, dev, q.dtype, (B, Hq, D))
+    check_tensor("k", k, dev, q.dtype, (B, S, Hkv, D))
+    check_tensor("v", v, dev, q.dtype, (B, S, Hkv, D))
+    check_tensor("lens", lens, dev, torch.int32, (B,))
+    check_tensor("start", start, dev, torch.int32, (B,))
+    _check_aligned(k=k, v=v)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _fn("flash_decode")(
+        DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        lens.data_ptr(), start.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
+        float(softcap), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -17,13 +17,15 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
-                    window: int = 0) -> torch.Tensor:
-    """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]."""
+                    window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]; query row
+    i at position ``q_offset + i`` (a prefill chunk after ``q_offset``
+    resident tokens)."""
     if q.is_cuda:
         return _fa.flash_attention(q, k, v, causal=causal, softcap=softcap,
-                                   window=window)
+                                   window=window, q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
-                                   window=window)
+                                   window=window, q_offset=q_offset)
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -41,6 +43,17 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                                   start, softcap, scale)
 
 
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lens: torch.Tensor, start: torch.Tensor, *,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """q [B, Hq, D]; dense caches k/v [B, S, Hkv, D]; lens/start [B] ->
+    [B, Hq, D] over positions [start, len), scores scaled by 1/sqrt(D)."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.is_cuda:
+        return _fd.flash_decode(q, k, v, lens, start, softcap, scale)
+    return ref.flash_decode_plain(q, k, v, lens, start, softcap, scale)
+
+
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               B_: torch.Tensor, C_: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,11 +68,13 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"paged_decode": _fd.paged_decode.launches,
+            "flash_decode": _fd.flash_decode.launches,
             "flash_attention": _fa.flash_attention.launches,
             "ssd_chunk": _ssd.ssd_chunk.launches}
 
 
 def reset_launch_counts() -> None:
     _fd.paged_decode.launches = 0
+    _fd.flash_decode.launches = 0
     _fa.flash_attention.launches = 0
     _ssd.ssd_chunk.launches = 0

@@ -2,14 +2,18 @@
 
 ``flash_attention_ref``, ``flash_decode_ref``, ``flash_decode_paged_ref``,
 ``ssd_chunk_ref`` and ``ssd_reference`` are the port's copies of the JAX
-package's oracles, with the same signatures and layouts.
-``paged_decode_plain`` is the plain version of the paged-decode kernel
-itself: it reads the kernel-native pool ``[P, Hkv, page, D]`` and returns
-zeros where ``len == 0``, as the kernel does (``flash_decode_paged_ref``
-returns the mean of V there, because its softmax over an all-masked row is
-uniform).  ``ssd_chunk_plain`` is the plain version of the SSD chunk
-kernel: it takes B/C per group, as the kernel does, where ``ssd_chunk_ref``
-takes them already broadcast to heads.
+package's oracles, with the same signatures and layouts;
+``flash_attention_ref`` also takes a ``q_offset`` (query row i at position
+q_offset + i), which the prefill kernel takes for chunked prefill.
+``paged_decode_plain`` and ``flash_decode_plain`` are the plain versions of
+the paged and dense decode kernels themselves: the first reads the
+kernel-native pool ``[P, Hkv, page, D]``, both take a per-sequence
+``start`` and return zeros where ``len == 0``, as the kernels do
+(``flash_decode_ref`` and ``flash_decode_paged_ref`` return the mean of V
+there, because their softmax over an all-masked row is uniform).
+``ssd_chunk_plain`` is the plain version of the SSD chunk kernel: it takes
+B/C per group, as the kernel does, where ``ssd_chunk_ref`` takes them
+already broadcast to heads.
 """
 from __future__ import annotations
 
@@ -25,8 +29,11 @@ def _expand(k: torch.Tensor, Hq: int) -> torch.Tensor:
     return torch.repeat_interleave(k, rep, dim=2)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0):
-    """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D]."""
+def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
+                        q_offset=0):
+    """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D]; query
+    row i sits at position ``q_offset + i`` for the causal and window
+    masks."""
     B, Sq, Hq, D = q.shape
     Sk = k.shape[1]
     k = _expand(k, Hq)
@@ -34,7 +41,7 @@ def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (D ** 0.5)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    qp = torch.arange(Sq, device=q.device)[:, None]
+    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Sk, device=q.device)[None, :]
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -86,17 +93,15 @@ def gather_pages_dense(k_pages, v_pages, block_table):
     return k, v
 
 
-def paged_decode_plain(q, k_pages, v_pages, block_table, lens, start,
-                       softcap: float, scale: float):
-    """Plain version of the paged-decode kernel.
+def flash_decode_plain(q, k, v, lens, start, softcap: float,
+                       scale: float):
+    """Plain version of the dense decode kernel.
 
-    q: [B, Hq, D]; k_pages/v_pages: [P, Hkv, page, D] (kernel-native);
-    block_table: [B, n_pages] int32; lens/start: [B] int32 — position ``t``
-    is attended iff ``start <= t < len``.  fp32 softmax; rows with
+    q: [B, Hq, D]; k/v: [B, S, Hkv, D]; lens/start: [B] int32 — position
+    ``t`` is attended iff ``start <= t < len``.  fp32 softmax; rows with
     ``len == 0`` are zero.  Returns [B, Hq, D] in q's dtype.
     """
-    B, Hq, D = q.shape
-    k, v = gather_pages_dense(k_pages, v_pages, block_table)
+    Hq = q.shape[1]
     k = _expand(k, Hq)
     v = _expand(v, Hq)
     s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
@@ -109,6 +114,19 @@ def paged_decode_plain(q, k_pages, v_pages, block_table, lens, start,
     out = torch.einsum("bhk,bkhd->bhd", p, v.float())
     out = torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
     return out.to(q.dtype)
+
+
+def paged_decode_plain(q, k_pages, v_pages, block_table, lens, start,
+                       softcap: float, scale: float):
+    """Plain version of the paged-decode kernel.
+
+    q: [B, Hq, D]; k_pages/v_pages: [P, Hkv, page, D] (kernel-native);
+    block_table: [B, n_pages] int32; lens/start: [B] int32 — position ``t``
+    is attended iff ``start <= t < len``.  fp32 softmax; rows with
+    ``len == 0`` are zero.  Returns [B, Hq, D] in q's dtype.
+    """
+    k, v = gather_pages_dense(k_pages, v_pages, block_table)
+    return flash_decode_plain(q, k, v, lens, start, softcap, scale)
 
 
 def ssd_chunk_ref(x, dt, A, B_, C_):

@@ -12,6 +12,9 @@ Entry points:
   forward(params, cfg, tokens)                 -> logits [B, S, Vpad]
   prefill(params, cfg, tokens)                 -> (logits [B, Vpad],
                                                    PrefillCache)
+  prefill_chunk(params, cfg, tokens, k, v, table, start, n_valid, trash)
+      -> logits [B, Vpad] at position start + n_valid - 1
+  decode_step(params, cfg, tokens, cache)      -> (logits, DecodeCache)
   decode_step_paged(params, cfg, tokens, st)   -> (logits, state)
   decode_loop_paged(params, cfg, tokens, st, horizon)
       -> ([B, horizon] tokens on the device, state)
@@ -41,6 +44,19 @@ class PrefillCache:
     v: torch.Tensor | None
     ssm: torch.Tensor | None    # [L, B, H, P, N] fp32 final SSM state
     conv: torch.Tensor | None   # [L, B, W - 1, conv_ch] last conv inputs
+
+
+@dataclasses.dataclass
+class DecodeCache:
+    """A dense decode cache (the engine's ``decode_mode="dense"``): per
+    layer, each sequence's K/V at positions [0, S) (None where the
+    architecture has no such state).  ``decode_step`` writes all four in
+    place."""
+    k: torch.Tensor | None      # [L, B, S, Hkv, D] contiguous
+    v: torch.Tensor | None
+    ssm: torch.Tensor | None    # [L, B, H, P, N] fp32
+    conv: torch.Tensor | None   # [L, B, W - 1, conv_ch]
+    pos: torch.Tensor           # [B] int32 tokens already in the cache
 
 
 @dataclasses.dataclass
@@ -266,9 +282,79 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
     return logits, PrefillCache(*stacked)
 
 
+def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, block_table: torch.Tensor,
+                  start: int, n_valid: int, trash_page: int) -> torch.Tensor:
+    """One *chunk* of a paged prefill: positions ``start + [0, C)``.
+
+    tokens [B, C] int32, every sequence at the same ``start``; only the
+    first ``n_valid`` positions are real (the bucketed tail writes to
+    ``trash_page``).  Each layer writes the chunk's K/V into the pools
+    k/v [L, P, Hkv, page, D] in place and attends to the earlier chunks
+    through ``block_table`` [B, n_pages] (pages covering ``start + C``).
+    Returns the logits at position ``start + n_valid - 1`` [B, Vpad] fp32.
+    Models with SSM layers raise, as in the JAX package: the SSD scan has
+    no per-position state to resume a bucketed chunk from.
+    """
+    check_supported(cfg)
+    if cfg.has_ssm:
+        raise NotImplementedError(
+            "chunked prefill supports attention-only models")
+    x = embed_inputs(params, cfg, tokens)
+    for layer in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], layer)
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        mix = attn_lib.prefill_chunk_attention(
+            h, bp["attn"], cfg, k[layer], v[layer], block_table, start,
+            n_valid, trash_page, cfg.local_is_local(layer))
+        x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
+    return lm_logits(params, cfg, x[:, n_valid - 1:n_valid])[:, 0]
+
+
 # --------------------------------------------------------------------------
-# Paged decode.
+# Decode.
 # --------------------------------------------------------------------------
+
+
+def _decode_core(params, cfg: ModelConfig, tokens: torch.Tensor, attend,
+                 ssm: torch.Tensor | None, conv: torch.Tensor | None):
+    """The decode-step body shared by the dense and paged caches: embed,
+    the layers, logits.  ``attend(h, p, layer)`` is one layer's attention;
+    the SSM rows ssm/conv [L, B, ...] are updated in place.
+    Returns logits [B, Vpad] fp32."""
+    check_supported(cfg)
+    x = embed_inputs(params, cfg, tokens[:, None])
+    for layer in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], layer)
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        attn_out = ssm_out = None
+        if cfg.has_attn:
+            attn_out = attend(h, bp["attn"], layer)
+        if cfg.has_ssm:
+            ssm_out, new_state, new_conv = ssm_lib.ssm_decode_step(
+                h, bp["ssm"], cfg, ssm[layer], conv[layer])
+            ssm[layer] = new_state
+            conv[layer] = new_conv
+        mix = _combine(attn_out, ssm_out, bp, cfg)
+        x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
+    return lm_logits(params, cfg, x)[:, 0]
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: DecodeCache):
+    """One token for every sequence against a dense cache.
+
+    tokens [B] int32.  Each layer writes its new K/V at ``cache.pos`` and
+    its SSM rows in place, then attends to [start, pos + 1).
+    Returns (logits [B, Vpad] fp32, cache with pos + 1).
+    """
+    def attend(h, p, layer):
+        return attn_lib.decode_attention(
+            h, p, cfg, cache.k[layer], cache.v[layer], cache.pos,
+            cfg.local_is_local(layer))
+
+    logits = _decode_core(params, cfg, tokens, attend, cache.ssm, cache.conv)
+    return logits, dataclasses.replace(cache, pos=cache.pos + 1)
 
 
 def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -280,24 +366,12 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     layer's state and conv window rows are updated in place.
     Returns (logits [B, Vpad] fp32, state with lens + 1).
     """
-    check_supported(cfg)
-    x = embed_inputs(params, cfg, tokens[:, None])
-    for layer in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], layer)
-        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        attn_out = ssm_out = None
-        if cfg.has_attn:
-            attn_out = attn_lib.paged_decode_attention(
-                h, bp["attn"], cfg, state.k[layer], state.v[layer],
-                state.block_table, state.lens, cfg.local_is_local(layer))
-        if cfg.has_ssm:
-            ssm_out, new_state, new_conv = ssm_lib.ssm_decode_step(
-                h, bp["ssm"], cfg, state.ssm[layer], state.conv[layer])
-            state.ssm[layer] = new_state
-            state.conv[layer] = new_conv
-        mix = _combine(attn_out, ssm_out, bp, cfg)
-        x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
-    logits = lm_logits(params, cfg, x)[:, 0]
+    def attend(h, p, layer):
+        return attn_lib.paged_decode_attention(
+            h, p, cfg, state.k[layer], state.v[layer], state.block_table,
+            state.lens, cfg.local_is_local(layer))
+
+    logits = _decode_core(params, cfg, tokens, attend, state.ssm, state.conv)
     return logits, dataclasses.replace(state, lens=state.lens + 1)
 
 

@@ -6,6 +6,15 @@ paged pool (grouped by prompt length, so RoPE positions need no padding),
 then step decode over the active set; finished sequences free their pages
 immediately.  Prefill and decode interleave within a step.
 
+Chunked prefill (``prefill_chunk_tokens``, Sarathi-style): a prompt longer
+than the chunk streams into its pages chunk by chunk, one bounded token
+budget per step shared round-robin over every mid-prefill sequence (each
+share floored at a quarter of the budget); each chunk forward writes its
+K/V into the pages and attends to the earlier chunks through the block
+table (``models.prefill_chunk``, the prefill kernel with a query offset).
+The decode batch keeps stepping meanwhile, one token per step while any
+chunk is in flight.
+
 Decode is device-resident: ``models.decode_loop_paged`` runs up to
 ``decode_horizon`` steps — paged attention through the hand-written kernel,
 the K/V token write, sampling — with the tokens kept on the device, and
@@ -30,10 +39,16 @@ back, with padded rows on the trash row.  As in the JAX package, chunked
 prefill and the prefix cache are attention-only (the SSD scan has no
 per-position state to resume from).
 
-Not ported yet (ROADMAP.md): chunked prefill, the prefix cache,
-export/import and migration, SLO shedding, telemetry, ``decode_mode=
-"dense"`` and meshes.  ``load_stats()`` returns every key of the frozen
-schema, with 0 for those features.
+``decode_mode="dense"`` is the JAX package's dense-gather baseline: each
+step copies the batch's live K/V out of the pages into a dense cache
+(``PagedKVCache.gather_dense``), runs one ``models.decode_step`` through
+the dense decode kernel, writes the new token back into the pages and
+reads the sampled tokens back at once (horizon 1; as in the JAX package
+this path counts no ``decode_syncs``).
+
+Not ported yet (ROADMAP.md): the prefix cache, export/import and
+migration, SLO shedding, telemetry and meshes.  ``load_stats()`` returns
+every key of the frozen schema, with 0 for those features.
 """
 from __future__ import annotations
 
@@ -43,7 +58,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models import PagedDecodeState, decode_loop_paged, prefill
+from repro_torch.models import (DecodeCache, PagedDecodeState,
+                                decode_loop_paged, decode_step, prefill,
+                                prefill_chunk)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import check_supported
 from repro_torch.models.sampling import sample
@@ -102,16 +119,32 @@ class ServingEngine:
                  block_size: int = 16, max_seqs: int = 8,
                  dtype=torch.float32, greedy: bool = True, seed: int = 0,
                  max_blocks_per_seq: int | None = None,
-                 decode_horizon: int = 1, device="cuda"):
+                 decode_horizon: int = 1, decode_mode: str = "paged",
+                 prefill_chunk_tokens: int | None = None, device="cuda"):
         """``params`` must already live on ``device``; ``dtype`` is the KV
-        pool's dtype.  Runs on CUDA unless ``device="cpu"`` is passed."""
+        pool's dtype.  Runs on CUDA unless ``device="cpu"`` is passed.
+        ``decode_mode`` is "paged" or "dense" (horizon 1 only);
+        ``prefill_chunk_tokens`` turns on chunked prefill for prompts
+        longer than it (ignored for models with SSM layers)."""
         check_supported(cfg)
+        if decode_mode not in ("paged", "dense"):
+            raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
+        if decode_horizon > 1 and decode_mode != "paged":
+            raise ValueError("decode_horizon > 1 needs decode_mode='paged'")
+        # chunked prefill resumes mid-prompt; the SSD scan has no
+        # per-position state to resume from, so SSM archs prefill one-shot
+        if prefill_chunk_tokens is not None and cfg.has_ssm:
+            prefill_chunk_tokens = None
+        if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
+            raise ValueError("prefill_chunk_tokens must be >= 1")
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
+        self.decode_mode = decode_mode
         self.decode_horizon = decode_horizon
+        self.prefill_chunk_tokens = prefill_chunk_tokens
         if max_blocks_per_seq is None:
             max_blocks_per_seq = cfg.max_seq_len // block_size
         self.cache = PagedKVCache.create(
@@ -133,7 +166,11 @@ class ServingEngine:
         self._sample_step = 0
         # one increment per decode device->host sync (one per horizon)
         self.decode_syncs = 0
+        # dispatched horizon histogram {h: count} + the last dispatched h
         self.horizon_counts: dict[int, int] = {}
+        self.last_horizon = 0
+        # chunked-prefill round-robin rotation pointer
+        self._chunk_rr = 0
 
     # -- submission ------------------------------------------------------------
 
@@ -254,6 +291,52 @@ class ServingEngine:
                 r.generated.append(int(first[i]))
                 self.tokens_out += 1
 
+    def _advance_chunked(self) -> None:
+        """Spread this step's chunk-token budget over all mid-prefill
+        sequences, round-robin from a start slot that rotates every step.
+
+        Each slot's share is the budget left over the slots still to serve
+        this step, floored at a quarter of the budget (so at most four
+        sequences advance per step and no chunk forward is tiny); a short
+        remainder leaves its unused share to the slots behind it.  A chunk
+        runs at a power-of-two bucket of its length; the final chunk's
+        logits give the request its first token.
+        """
+        slots = sorted(s for s, r in self.active.items() if r.prefilling)
+        if not slots:
+            return
+        rot = self._chunk_rr % len(slots)
+        self._chunk_rr += 1
+        order = slots[rot:] + slots[:rot]
+        chunk = self.prefill_chunk_tokens
+        budget = chunk
+        floor = max(1, chunk // 4)
+        bs = self.cache.block_size
+        for idx, slot in enumerate(order):
+            if budget <= 0:
+                break
+            share = max(floor, budget // (len(order) - idx))
+            r = self.active[slot]
+            start = r.prefill_pos
+            n_valid = min(share, budget, len(r.prompt) - start)
+            buf = np.zeros((1, _pow2_bucket(n_valid, chunk)), np.int32)
+            buf[0, :n_valid] = r.prompt[start:start + n_valid]
+            need = (start + n_valid + bs - 1) // bs
+            n_pages = _pow2_bucket(need, self.cache.max_blocks_per_seq)
+            logits = prefill_chunk(
+                self.params, self.cfg, torch.from_numpy(buf).to(self.device),
+                self.cache.k, self.cache.v,
+                self.cache.block_table_dev[slot:slot + 1, :n_pages], start,
+                n_valid, self.cache.pool.trash_page)
+            self.prefill_tokens += n_valid
+            budget -= n_valid
+            r.prefill_pos = start + n_valid
+            if not r.prefilling:              # the final chunk: token 1
+                first = self._pick(logits)
+                r.t_first = time.monotonic()
+                r.generated.append(int(first[0]))
+                self.tokens_out += 1
+
     def _pick(self, logits: torch.Tensor) -> np.ndarray:
         if self.greedy:
             return sample(logits, self.cfg).cpu().numpy()
@@ -265,7 +348,8 @@ class ServingEngine:
     def _safe_horizon(self, slots: list[int], event: bool) -> int:
         """How many decode steps the next dispatch may take:
         ``min(decode_horizon, min remaining max_new_tokens)``, 1 on a step
-        with a scheduling event (an admission), floored to a power of two."""
+        with a scheduling event (an admission or a chunk in flight),
+        floored to a power of two."""
         H = self.decode_horizon
         if H <= 1 or event:
             return 1
@@ -303,6 +387,7 @@ class ServingEngine:
         step0 = self._sample_step
         self._sample_step += horizon
         self.horizon_counts[horizon] = self.horizon_counts.get(horizon, 0) + 1
+        self.last_horizon = horizon
         cache = self.cache
         has_ssm = cache.ssm is not None
         state = PagedDecodeState(
@@ -334,6 +419,43 @@ class ServingEngine:
                 int(t) for t in toks[i, :pending.horizon])
             self.tokens_out += pending.horizon
 
+    def _run_decode_dense(self, slots: list[int]) -> None:
+        """The dense-gather decode (the JAX package's A/B baseline): one
+        step over the slots through a dense copy of their K/V, synced at
+        once."""
+        slots = np.array(sorted(slots), np.int64)
+        cache = self.cache
+        dev = self.device
+        lens = cache.seq_lens[slots].copy()
+        slot_t = torch.from_numpy(slots).to(dev)
+        pos = torch.from_numpy(lens).to(dev)
+        k = v = None
+        if self.cfg.has_attn:
+            k, v, _ = cache.gather_dense(slots, int(lens.max()) + 1)
+        has_ssm = cache.ssm is not None
+        dc = DecodeCache(
+            k=k, v=v,
+            # gathers copy the batch's rows; the step updates the copies
+            ssm=cache.ssm[:, slot_t] if has_ssm else None,
+            conv=cache.conv[:, slot_t] if has_ssm else None, pos=pos)
+        last = torch.tensor([self.active[int(s)].generated[-1]
+                             for s in slots], dtype=torch.int32, device=dev)
+        logits, _ = decode_step(self.params, self.cfg, last, dc)
+        toks = self._pick(logits)
+        # persist the new K/V token and SSM rows
+        updates = [cache.extend_for(int(s), 1) for s in slots]
+        cache.apply_table_updates([u for u in updates if u is not None])
+        if self.cfg.has_attn:
+            rows = torch.arange(len(slots), device=dev)
+            cache.write_token(slots, dc.k[:, rows, pos.long()],
+                              dc.v[:, rows, pos.long()], lens)
+        if has_ssm:
+            cache.ssm[:, slot_t] = dc.ssm
+            cache.conv[:, slot_t] = dc.conv
+        for i, s in enumerate(slots):
+            self.active[int(s)].generated.append(int(toks[i]))
+            self.tokens_out += 1
+
     def _retire(self) -> list[EngineRequest]:
         done = []
         for s in list(self.active):
@@ -348,20 +470,35 @@ class ServingEngine:
     # -- main loop ---------------------------------------------------------------
 
     def step_async(self) -> PendingDecode | None:
-        """The host half of one scheduler iteration: admission, prefill and
-        the decode dispatch, but not the decode sync.  Returns the pending
-        decode (None when nothing decoded) for ``finish_step``.
+        """The host half of one scheduler iteration: admission, prefill, the
+        chunked-prefill advance and the decode dispatch, but not the paged
+        decode's sync.  Returns the pending decode (None when nothing
+        decoded, or when the dense mode already synced) for
+        ``finish_step``.
 
         Sequences already active decode on a step that admits new prompts
-        (newly admitted requests get their first token from prefill)."""
+        (newly admitted requests get their first token from prefill).  With
+        ``prefill_chunk_tokens`` set, prompts longer than it advance chunk
+        by chunk; while any does, the horizon collapses to 1."""
         self.steps += 1
         decode_slots = [s for s, r in self.active.items() if not r.prefilling]
         admitted = self._admit()
-        if admitted:
-            self._run_prefill(admitted)
+        chunk = self.prefill_chunk_tokens
+        oneshot = [r for r in admitted
+                   if chunk is None or len(r.prompt) <= chunk]
+        if oneshot:
+            self._run_prefill(oneshot)
+        # taken before the advance: a prefill that completes this step is
+        # still an event (its sequence joins decode next step)
+        chunking = any(r.prefilling for r in self.active.values())
+        if chunk is not None:
+            self._advance_chunked()
         if decode_slots:
-            h = self._safe_horizon(decode_slots, bool(admitted))
-            return self._dispatch_decode(decode_slots, h)
+            if self.decode_mode == "paged":
+                h = self._safe_horizon(decode_slots,
+                                       bool(admitted) or chunking)
+                return self._dispatch_decode(decode_slots, h)
+            self._run_decode_dense(decode_slots)
         return None
 
     def finish_step(self, pending: PendingDecode | None

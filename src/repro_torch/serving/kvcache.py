@@ -28,7 +28,10 @@ slot used to pad decode batches to bucket sizes.
 Block ids and tables mean the same thing as in the JAX package.  Where the
 JAX package replaces its pool arrays functionally, this port writes the
 pool and mirror tensors in place (``index_put_`` / slice assignment).
-Prefix sharing, migration and the copy primitives are not ported yet.
+``gather_dense`` and ``write_token`` serve the engine's dense decode mode:
+they copy the batch's live K/V out of the pages into a dense cache and the
+step's new token back.  Prefix sharing, migration and the copy primitives
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -264,3 +267,42 @@ class PagedKVCache:
                            device=self.device)
         self.k[:, idx] = kb.to(self.k.dtype)
         self.v[:, idx] = vb.to(self.v.dtype)
+
+    def write_token(self, slots: np.ndarray, k_new: torch.Tensor,
+                    v_new: torch.Tensor, positions: np.ndarray) -> None:
+        """k_new/v_new: [L, B, Hkv, D], one token per slot, written at
+        ``positions`` [B] into the slots' pages in place."""
+        bs = self.block_size
+        dev = self.device
+        blk = torch.as_tensor(self.block_table[slots, positions // bs],
+                              dtype=torch.long, device=dev)
+        off = torch.as_tensor(positions % bs, dtype=torch.long, device=dev)
+        L, _, Hkv, _ = k_new.shape
+        # pool [L, P, Hkv, block, D]; the index broadcasts to [B, L, Hkv]
+        idx = (torch.arange(L, device=dev)[None, :, None], blk[:, None, None],
+               torch.arange(Hkv, device=dev)[None, None, :],
+               off[:, None, None])
+        self.k.index_put_(idx, k_new.transpose(0, 1).to(self.k.dtype))
+        self.v.index_put_(idx, v_new.transpose(0, 1).to(self.v.dtype))
+
+    def gather_dense(self, slots: np.ndarray, max_len: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The slots' positions [0, max_len) copied out of their pages into
+        contiguous dense caches [L, B, max_len, Hkv, D] (one gather per
+        pool), and their lengths [B].  Positions past a slot's allocated
+        pages read whatever block its host table row names there; they lie
+        at or past the slot's length, where decode masks them."""
+        bs = self.block_size
+        dev = self.device
+        n_blocks = (max_len + bs - 1) // bs
+        table = torch.as_tensor(self.block_table[slots, :n_blocks],
+                                dtype=torch.long, device=dev)   # [B, n]
+        pos = torch.arange(max_len, device=dev)
+        L, _, Hkv, _, _ = self.k.shape
+        idx = (torch.arange(L, device=dev)[:, None, None, None],
+               table[:, pos // bs][None, :, :, None],
+               torch.arange(Hkv, device=dev)[None, None, None, :],
+               (pos % bs)[None, None, :, None])
+        lens = torch.as_tensor(self.seq_lens[slots], dtype=torch.int32,
+                               device=dev)
+        return self.k[idx], self.v[idx], lens

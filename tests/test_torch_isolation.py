@@ -15,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py",
-        ROOT / "tools" / "conv_rounding.py"]
+        ROOT / "tools" / "conv_rounding.py",
+        ROOT / "tools" / "profile_modes.py"]
 
 
 def _imported_roots(path):

@@ -49,6 +49,40 @@ def paged_inputs(seed, B, Hq, Hkv, D, page, lens, *, window=0,
     return q, kp, vp, table, lens, start
 
 
+DENSE_CASES = [
+    # name, B, S, Hq, Hkv, D, lens, softcap, window
+    ("group2", 3, 40, 4, 2, 32, [5, 17, 40], 0.0, 0),
+    ("ragged-s", 2, 100, 4, 1, 64, [37, 100], 0.0, 0),
+    ("softcap-window", 3, 64, 4, 2, 32, [10, 37, 64], 30.0, 12),
+    ("hymba-group5", 2, 77, 25, 5, 64, [20, 77], 0.0, 0),
+    ("gemma2-d256", 2, 130, 8, 4, 256, [61, 130], 50.0, 64),
+]
+DENSE_IDS = [c[0] for c in DENSE_CASES]
+
+
+def dense_inputs(seed, B, S, Hq, Hkv, D, lens, *, window=0):
+    """numpy q [B,Hq,D], dense caches k/v [B,S,Hkv,D], lens and start
+    (the last ``window`` positions when ``window`` > 0)."""
+    r = np.random.RandomState(seed)
+    lens = np.asarray(lens, np.int32)
+    q = (r.randn(B, Hq, D) * 0.5).astype(np.float32)
+    k = (r.randn(B, S, Hkv, D) * 0.5).astype(np.float32)
+    v = (r.randn(B, S, Hkv, D) * 0.5).astype(np.float32)
+    start = (np.maximum(lens - window, 0) if window
+             else np.zeros_like(lens)).astype(np.int32)
+    return q, k, v, lens, start
+
+
+# a prefill chunk after resident tokens:
+# name, B, C (queries), offset, Hq, Hkv, D, softcap, window
+CHUNK_CASES = [
+    ("smoke", 1, 24, 40, 4, 2, 32, 0.0, 0),
+    ("smoke-window", 2, 16, 50, 4, 2, 32, 50.0, 20),
+    ("ragged-hymba", 1, 40, 77, 25, 5, 64, 0.0, 0),
+]
+CHUNK_IDS = [c[0] for c in CHUNK_CASES]
+
+
 def flash_inputs(seed, B, Sq, Sk, Hq, Hkv, D):
     r = np.random.RandomState(seed)
     q = (r.randn(B, Sq, Hq, D) * 0.5).astype(np.float32)
@@ -173,6 +207,53 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, Hq,
     assert tfa.flash_attention.launches == before + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=cap,
                                    window=win)
+    kernel_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,S,Hq,Hkv,D,lens,cap,win", DENSE_CASES + [
+    ("len0", 2, 24, 4, 2, 32, [0, 21], 0.0, 0),
+    ("yi-9b", 8, 2048, 32, 4, 128, [1, 15, 16, 17, 300, 1000, 1500, 2048],
+     0.0, 0),
+    ("gemma2-2b", 4, 1030, 8, 4, 256, [3, 64, 517, 1030], 50.0, 61),
+    ("hymba-1.5b", 8, 979, 25, 5, 64, [1, 15, 16, 17, 300, 600, 900, 979],
+     0.0, 0),
+], ids=DENSE_IDS + ["len0", "yi-9b", "gemma2-2b", "hymba-1.5b"])
+def test_flash_decode_kernel_matches_plain(cuda, dtype, name, B, S, Hq, Hkv,
+                                           D, lens, cap, win):
+    q, k, v, ln, st = to_torch(
+        *dense_inputs(16, B, S, Hq, Hkv, D, lens, window=win), device=cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = tfd.flash_decode.launches
+    got = tfd.flash_decode(q, k, v, ln, st, cap, 1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + 1
+    want = ref.flash_decode_plain(q, k, v, ln, st, cap, 1.0 / D ** 0.5)
+    kernel_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,C,off,Hq,Hkv,D,cap,win", CHUNK_CASES + [
+    ("yi-9b", 1, 256, 512, 32, 4, 128, 0.0, 0),
+    ("yi-9b-window", 1, 256, 512, 32, 4, 128, 0.0, 100),
+    ("gemma2-2b", 1, 256, 512, 8, 4, 256, 50.0, 300),
+], ids=CHUNK_IDS + ["yi-9b", "yi-9b-window", "gemma2-2b"])
+def test_flash_attention_q_offset_kernel_matches_plain(cuda, dtype, name, B,
+                                                       C, off, Hq, Hkv, D,
+                                                       cap, win):
+    """A chunk of C queries at positions off + [0, C) over the off + C
+    keys before and in it."""
+    q, k, v = (t.to(dtype) for t in to_torch(
+        *flash_inputs(17, B, C, off + C, Hq, Hkv, D), device=cuda))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, softcap=cap, window=win,
+                              q_offset=off)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, softcap=cap, window=win,
+                                   q_offset=off)
     kernel_close(got, want, dtype)
 
 

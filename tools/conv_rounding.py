@@ -75,13 +75,13 @@ def main() -> int:
         params = init_params(cfg, seed=0, dtype=torch.bfloat16,
                              device="cuda")
         prompts = cs.full_width_prompts(cfg)
-        cs.serve(cfg, params, prompts[:1], 4, 8, "cuda",
+        cs.serve(cfg, params, prompts[:1], 4, "cuda", **cs.PAGED,
                  **cs.FULL_WIDTH_ENGINE)                  # warm-up
         for name in order:
             ssm.causal_conv = variants[name]
             try:
-                fin, _, wall = cs.serve(cfg, params, prompts, 32, 8, "cuda",
-                                        **cs.FULL_WIDTH_ENGINE)
+                fin, _, wall = cs.serve(cfg, params, prompts, 32, "cuda",
+                                        **cs.PAGED, **cs.FULL_WIDTH_ENGINE)
                 per_req = [cs.teacher_forced_agreement(
                     cfg, params, prompts[r], fin[r].generated)
                     for r in sorted(fin)]
