@@ -7,12 +7,17 @@ file; it exits non-zero without them.  Phases, in order (any failure exits
 non-zero before the result lines):
 
   1. the card's name and power limit, the CUDA version; TF32 off;
-  2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
+  2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
+     and print registers and spills; count the tensor-core instructions
+     (``HMMA``, from ``cuobjdump -sass``) of each prefill instantiation and
+     fail if the bf16 ones have none;
   3. hold each kernel against its plain PyTorch version on the card, fp32
      (absolute 1e-4; the SSD chunk kernel 1e-4 of each output row's
      largest value) and bf16 (1e-2 of each output row's largest value), at
      smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m),
-     the prefill kernel also at a chunk's query offset;
+     the prefill kernel also at a chunk's query offset, the dense decode
+     kernel also split over many CTAs and, at fixed split counts, against
+     the plain split-and-combine;
   4. greedy decoding: the smoke configs give the same tokens on the card
      and the CPU in every engine mode (paged at decode_horizon 1 and 8,
      the dense mode, chunked prefill); 2-layer full-width yi-9b, hymba-1.5b and
@@ -33,7 +38,7 @@ non-zero before the result lines):
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
      computing the same function; each timed kernel's output is checked
-     again.
+     again; the dense decode row also gives its split count and CTAs.
 
 The last three lines are the card line, one JSON object with the kernel
 table (one row per kernel and timed run) and ``{"ok": true, "device":
@@ -168,6 +173,23 @@ def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return float(np.median(times))
 
 
+def hmma_counts(build) -> dict[str, int]:
+    """{kernel function: HMMA instructions in its SASS} for the prefill
+    library, from ``cuobjdump -sass``."""
+    text = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass",
+         str(build.lib_path("flash_attention"))],
+        check=True, capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 # --------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions.
 # --------------------------------------------------------------------------
@@ -240,6 +262,9 @@ def check_prefill(gen, fa, ref) -> None:
         ("noncausal", 2, 100, 200, 4, 2, 64, False, 0.0, 0),
         ("hymba-200", 4, 200, 200, 25, 5, 64, True, 0.0, 0),
         ("hymba-1024", 2, 1024, 1024, 25, 5, 64, True, 0.0, 0),
+        ("d32-group8", 2, 77, 77, 8, 1, 32, True, 0.0, 0),
+        ("d128-ragged", 2, 65, 129, 16, 2, 128, False, 30.0, 0),
+        ("d256-ragged", 1, 99, 99, 8, 4, 256, True, 50.0, 40),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Sq, Sk, Hq, Hkv, D, causal, cap, win in cases:
@@ -313,6 +338,11 @@ def check_dense(gen, fd, ref) -> None:
         ("gemma2", 4, 1030, 8, 4, 256, [3, 64, 517, 1030], 50.0, 61),
         ("hymba", 8, 979, 25, 5, 64,
          [1, 15, 16, 17, 300, 600, 900, 979], 0.0, 0),
+        # one sequence: many splits, a window that starts deep in the cache
+        ("batch1-long", 1, 4000, 32, 4, 128, [4000], 0.0, 0),
+        ("batch1-len1", 1, 4000, 32, 4, 128, [1], 0.0, 0),
+        ("batch1-window", 1, 4000, 32, 4, 128, [3001], 0.0, 1000),
+        ("batch2-gemma2", 2, 2048, 8, 4, 256, [2048, 1030], 50.0, 61),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, S, Hq, Hkv, D, lens, cap, win in cases:
@@ -328,6 +358,29 @@ def check_dense(gen, fd, ref) -> None:
                 f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"flash_decode {name} {dtype} disagrees")
+
+
+def check_split(gen, fd, ref) -> None:
+    """The dense decode kernel at fixed split counts (40 is more than any
+    row's live tiles: empty splits) against the plain split-and-combine,
+    through the wrapper's private entry that takes ``n_split``."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, ln, st = dense_inputs(gen, 3, 1000, 32, 4, 128,
+                                       [1000, 517, 0], dtype, window=300)
+        scale = 1.0 / 128 ** 0.5
+        for n_split in (1, 2, 5, 40):
+            got = fd._launch(q, k[0], v[0], ln, st, 30.0, scale, n_split)
+            torch.cuda.synchronize()
+            want = ref.flash_decode_split_plain(q, k[0], v[0], ln, st, 30.0,
+                                                scale, n_split)
+            err, rel, ok = agreement(got, want, dtype)
+            ok = ok and not got[2].float().any()
+            log(f"  flash_decode n_split={n_split:<3d} {str(dtype):14s} "
+                f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
+                f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"flash_decode n_split={n_split} {dtype} "
+                                 "disagrees with the plain split")
 
 
 def ssd_inputs(gen, B, Nc, Q, H, P, N, G):
@@ -707,8 +760,11 @@ def time_dense(gen, fd, ref, run):
     # the library call's own distance from the plain version, for the
     # record (it rounds in bf16 where it likes)
     _, lib_rel, _ = row_rel(library(0)[:, :, 0], want)
+    fd.flash_decode.last_n_split = 0
     ms = time_ms(lambda i: fd.flash_decode(q, k[i], v[i], ln, st, 0.0,
                                            scale), inner=rotations)
+    # the split count the wrapper handed the kernel in the timed calls
+    splits = fd.flash_decode.last_n_split
     plain = time_ms(lambda i: ref.flash_decode_plain(
         q, k[i], v[i], ln, st, 0.0, scale), inner=rotations)
     lib = time_ms(library, inner=rotations)
@@ -721,7 +777,8 @@ def time_dense(gen, fd, ref, run):
                 nbytes / HBM_BYTES_PER_S * 1e3,
                 flops / BF16_FLOPS_PER_S * 1e3, lib,
                 f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} lens={lens} bf16",
-                library_max_row_rel_err=lib_rel)
+                library_max_row_rel_err=lib_rel, splits=splits,
+                ctas=B * Hkv * splits)
 
 
 def time_chunk(gen, fa, ref, run):
@@ -831,15 +888,29 @@ def main() -> int:
     log(f"[2] built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.monotonic() - t0:.1f} s")
     for name, text in reports.items():
+        fn, spills = "?", ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                regs = line.split(":", 1)[1].strip()
+                log(f"    {name}: {regs}; {spills} [{fn}]")
+    hmma = hmma_counts(build)
+    for fn, n in sorted(hmma.items()):
+        log(f"    flash_attention SASS: {n:5d} HMMA in {fn}")
+    bf16 = {fn: n for fn, n in hmma.items() if "flash_attention_bf16" in fn}
+    if len(bf16) != len(build.HEAD_DIMS) or not all(bf16.values()):
+        raise SystemExit(f"the bf16 prefill kernels do not all run on the "
+                         f"tensor cores: HMMA counts {bf16}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     log("[3] kernels vs plain versions")
     check_paged(gen, fd, ref)
     check_dense(gen, fd, ref)
+    check_split(gen, fd, ref)
     check_prefill(gen, fa, ref)
     check_chunk(gen, fa, ref)
     check_ssd(gen, ssd, ref)
@@ -867,8 +938,9 @@ def main() -> int:
         log(f"  {r['name']} ({r['model']}, {r['run']} run): kernel_ms "
             f"{r['ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
             f"  plain_ms {r['plain_ms']:.4f}  library_ms {lib}  launches "
-            f"{r['launches']} ({r['launches_per_request']:.1f}/request)  "
-            f"[{r['shape']}]")
+            f"{r['launches']} ({r['launches_per_request']:.1f}/request)"
+            + (f"  splits {r['splits']} ({r['ctas']} CTAs)"
+               if "splits" in r else "") + f"  [{r['shape']}]")
     log(f"total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

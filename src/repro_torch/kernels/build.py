@@ -32,15 +32,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``) on PATH or under
+    ``CUDA_HOME`` (default ``/usr/local/cuda``)."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
+    path = Path(home) / "bin" / name
     if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
-                           "(set CUDA_HOME or put nvcc on PATH)")
+        raise RuntimeError(f"{name} not found: the CUDA kernels cannot be "
+                           "built (set CUDA_HOME or put nvcc on PATH)")
     return str(path)
 
 
@@ -67,7 +69,7 @@ def build_all() -> dict[str, str]:
     todo = [s for s in sources() if not (out_dir / f"{s.stem}.so").exists()]
     if not todo:
         return {}
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     procs = []
     for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
@@ -89,11 +91,16 @@ def build_all() -> dict[str, str]:
     return reports
 
 
+def lib_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    return _build_dir() / f"{name}.so"
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
     lib = _loaded.get(name)
     if lib is None:
-        path = _build_dir() / f"{name}.so"
+        path = lib_path(name)
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))

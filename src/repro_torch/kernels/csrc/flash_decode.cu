@@ -15,14 +15,27 @@
 //
 // What bounds it on an H100: bytes.  Each live K/V row must cross device
 // memory once (2 * D * sizeof(T) per KV head per position) for ~group FMAs
-// per element, far below the card's ~295 operations per byte.  The design
-// is the paged kernel's: one CTA per (sequence, KV head) serves all `group`
-// query heads, so each live row is read once per KV head; it walks the
-// positions in 32-row tiles through `decode_group` (decode_group.cuh), the
-// loop the paged kernel runs over pages.  Tiles wholly before `start` or
-// at or past `len` are never read.  No split across tiles and no
-// copy/compute overlap yet: at small batch few CTAs are in flight (B * Hkv
-// of them), which later work (split-K, cp.async/TMA) addresses.
+// per element, far below the card's ~295 operations per byte.  One CTA per
+// (sequence, KV head) serves all `group` query heads, so each live row is
+// read once per KV head; it walks 32-position tiles through `decode_group`
+// (decode_group.cuh), the loop the paged kernel runs over pages.  At small
+// batch B * Hkv CTAs leave most of the 132 SMs idle and each walks ~30
+// tiles in a row, so the positions are also split: the grid is (B, Hkv,
+// n_split), and each row's own live tiles, from the tile that holds
+// `start` to the one that holds min(len, S) - 1, are dealt out evenly:
+// split s of a row with n live tiles takes tiles [s * n / n_split,
+// (s + 1) * n / n_split) of them (floor division), so a short row or one
+// whose window starts late still spreads over all the splits it can fill
+// (empty splits only where n < n_split).  Each split writes its fp32
+// partial (m, l, acc) to a scratch buffer; a second kernel, launched from
+// the same C entry,
+// rescales and sums each row's partials into the output (zeros where no
+// split attended anything).  A second launch rather than a last-CTA combine
+// behind an atomic counter: it needs no counter to zero before each call,
+// adds a few microseconds at most, and sums the splits in a fixed order.
+// The wrapper picks n_split from the batch, the cache length and the SM
+// count (`flash_decode.split_count`); with one split the loop writes the
+// output itself and the combine is not launched.
 #include "decode_group.cuh"
 
 namespace repro_torch {
@@ -39,61 +52,137 @@ struct DenseRows {
   }
 };
 
-template <typename T>
+// part: fp32 [m: B*Hq*n_split | l: B*Hq*n_split | acc: B*Hq*n_split*D],
+// row (b * Hq + h) * n_split + s; nullptr when n_split == 1.
+template <typename T, int D>
 __global__ void __launch_bounds__(kDecodeThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lens,
                     const int* __restrict__ starts, T* __restrict__ out,
-                    int S, int Hq, int Hkv, int D, float softcap,
-                    float scale) {
+                    float* __restrict__ part, int S, int Hq, int Hkv,
+                    float softcap, float scale) {
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_split = gridDim.z;
   const int G = Hq / Hkv;
   // the group's query heads kvh * G .. kvh * G + G - 1 are contiguous
-  const int64_t qo = (static_cast<int64_t>(b) * Hq + kvh * G) * D;
+  const int64_t head0 = static_cast<int64_t>(b) * Hq + kvh * G;
   const int64_t row_stride = static_cast<int64_t>(Hkv) * D;
   const DenseRows rows{static_cast<int64_t>(b) * S * row_stride +
                            static_cast<int64_t>(kvh) * D,
                        row_stride};
   const int limit = min(lens[b], S);
-  decode_group<T>(q + qo, k, v, out + qo, rows, G, D, kTile, starts[b],
-                  limit, softcap, scale);
+  const int start = starts[b];
+  // this row's live tiles [first, live_end), dealt out evenly
+  const int live_end = limit > 0 ? (limit - 1) / kTile + 1 : 0;
+  const int first = min(max(start, 0) / kTile, live_end);
+  const int n_live = live_end - first;
+  const int j_begin = first + split * n_live / n_split;
+  const int j_end = first + (split + 1) * n_live / n_split;
+  DecodePartial pt{nullptr, nullptr, nullptr, 0};
+  if (part != nullptr) {
+    const int64_t n_rows = static_cast<int64_t>(gridDim.x) * Hq * n_split;
+    const int64_t r = head0 * n_split + split;
+    pt = DecodePartial{part + r, part + n_rows + r,
+                       part + 2 * n_rows + r * D, n_split};
+  }
+  decode_group<T, D>(q + head0 * D, k, v, rows, G, kTile, start, limit,
+                     j_begin, j_end, softcap, scale, out + head0 * D, pt);
+}
+
+// One CTA per output row (b, h): out = sum_s e^(m_s - M) acc_s /
+// sum_s e^(m_s - M) l_s over the splits that attended something.
+template <typename T>
+__global__ void __launch_bounds__(kDecodeThreads)
+combine_splits_kernel(const float* __restrict__ part, T* __restrict__ out,
+                      int n_split, int D) {
+  const int64_t row = blockIdx.x;
+  const int64_t n_rows = static_cast<int64_t>(gridDim.x) * n_split;
+  const float* m = part + row * n_split;
+  const float* l = part + n_rows + row * n_split;
+  const float* acc = part + 2 * n_rows + row * n_split * D;
+  float M = -INFINITY;
+  for (int s = 0; s < n_split; ++s) M = fmaxf(M, m[s]);
+  float L = 0.f;
+  for (int s = 0; s < n_split; ++s)
+    if (m[s] > -INFINITY) L += expf(m[s] - M) * l[s];
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float o = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      if (m[s] > -INFINITY) o += expf(m[s] - M) * acc[s * D + d];
+    out[row * D + d] = from_f<T>(L > 0.f ? o / L : 0.f);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const int* lens,
+           const int* starts, void* out, int B, int S, int Hq, int Hkv,
+           int n_split, float* part, float softcap, float scale,
+           cudaStream_t stream) {
+  const size_t smem = decode_smem_bytes<T, D>(Hq / Hkv, kTile);
+  cudaError_t err = allow_smem(flash_decode_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_kernel<T, D>
+      <<<dim3(B, Hkv, n_split), kDecodeThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lens, starts, static_cast<T*>(out),
+          n_split > 1 ? part : nullptr, S, Hq, Hkv, softcap, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  combine_splits_kernel<T><<<B * Hq, kDecodeThreads, 0, stream>>>(
+      part, static_cast<T*>(out), n_split, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* lens,
-           const int* starts, void* out, int B, int S, int Hq, int Hkv,
-           int D, float softcap, float scale, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<T>(Hq / Hkv, kTile, D);
-  cudaError_t err = allow_smem(flash_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_kernel<T><<<dim3(B, Hkv), kDecodeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lens, starts, static_cast<T*>(out), S, Hq,
-      Hkv, D, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
+int dispatch_d(const void* q, const void* k, const void* v, const int* lens,
+               const int* starts, void* out, int B, int S, int Hq, int Hkv,
+               int D, int n_split, float* part, float softcap, float scale,
+               cudaStream_t s) {
+  switch (D) {
+    case 32:
+      return launch<T, 32>(q, k, v, lens, starts, out, B, S, Hq, Hkv,
+                           n_split, part, softcap, scale, s);
+    case 64:
+      return launch<T, 64>(q, k, v, lens, starts, out, B, S, Hq, Hkv,
+                           n_split, part, softcap, scale, s);
+    case 128:
+      return launch<T, 128>(q, k, v, lens, starts, out, B, S, Hq, Hkv,
+                            n_split, part, softcap, scale, s);
+    case 256:
+      return launch<T, 256>(q, k, v, lens, starts, out, B, S, Hq, Hkv,
+                            n_split, part, softcap, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // q [B, Hq, D]; k/v [B, S, Hkv, D]; lens/starts [B]; out [B, Hq, D].  All
-// contiguous, on one device, K and V 16-byte aligned.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// contiguous, on one device, K and V 16-byte aligned.  n_split >= 1
+// position splits; part: fp32 scratch of B * Hq * n_split * (D + 2)
+// floats (unused, may be null, when n_split == 1).  Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int flash_decode(int dtype, const void* q, const void* k,
                             const void* v, const void* lens,
                             const void* starts, void* out, int B, int S,
-                            int Hq, int Hkv, int D, float softcap,
-                            float scale, void* stream) {
+                            int Hq, int Hkv, int D, int n_split, void* part,
+                            float softcap, float scale, void* stream) {
   using namespace repro_torch;
   const int* ln = static_cast<const int*>(lens);
   const int* sb = static_cast<const int*>(starts);
+  float* pt = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_split < 1 || (n_split > 1 && pt == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
-    return launch<float>(q, k, v, ln, sb, out, B, S, Hq, Hkv, D, softcap,
-                         scale, s);
+    return dispatch_d<float>(q, k, v, ln, sb, out, B, S, Hq, Hkv, D, n_split,
+                             pt, softcap, scale, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, ln, sb, out, B, S, Hq, Hkv, D,
-                                 softcap, scale, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, ln, sb, out, B, S, Hq, Hkv, D,
+                                     n_split, pt, softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

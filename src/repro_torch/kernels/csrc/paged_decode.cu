@@ -13,14 +13,15 @@
 // per byte is ~group FMAs, far below the card's ~295 operations per byte.
 // The design therefore reads every page once per KV head rather than once
 // per query head: one CTA per (sequence, KV head) serves all `group` query
-// heads, stages the page's K and V in shared memory with 16-byte loads and
-// keeps fp32 m / l / acc for its query heads in shared memory (the loop is
-// `decode_group` in decode_group.cuh, shared with the dense decode kernel;
-// here a tile is a page).  The Pallas grid (B, Hq, pages) is not carried
-// over.  This first version loads one
-// page at a time with no copy/compute overlap and no split across pages;
-// split-K for long contexts at small batch, cp.async/TMA pipelining and
-// wgmma are later work.
+// heads (the Pallas grid (B, Hq, pages) is not carried over).  The loop is
+// `decode_group` in decode_group.cuh, shared with the dense decode kernel,
+// with a page as its tile: pages are copied by 16-byte cp.async into a
+// two-stage ring, so page j + 1 loads while page j is scored, a warp
+// scores whole positions of one query head, and the fp32 softmax state and
+// P V stay on chip.  This kernel still runs the loop as one split over all
+// of a sequence's pages, so at B = 8 only B * Hkv CTAs are in flight and
+// each walks its pages in a row; splitting the pages over CTAs (as the
+// dense kernel splits positions) is the next step, then wgmma/TMA.
 #include "decode_group.cuh"
 
 namespace repro_torch {
@@ -38,15 +39,15 @@ struct PagedRows {
   }
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kDecodeThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ table,
                     const int* __restrict__ lens,
                     const int* __restrict__ starts, T* __restrict__ out,
-                    int Hq, int Hkv, int page, int D, int n_pages,
-                    float softcap, float scale) {
+                    int Hq, int Hkv, int page, int n_pages, float softcap,
+                    float scale) {
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int G = Hq / Hkv;
@@ -55,30 +56,57 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const PagedRows rows{table + static_cast<int64_t>(b) * n_pages, Hkv, kvh,
                        static_cast<int64_t>(page) * D, D};
   const int limit = min(lens[b], n_pages * page);
-  decode_group<T>(q + qo, k_pages, v_pages, out + qo, rows, G, D, page,
-                  starts[b], limit, softcap, scale);
+  const int start = starts[b];
+  const int live_end = limit > 0 ? (limit - 1) / page + 1 : 0;
+  decode_group<T, D>(q + qo, k_pages, v_pages, rows, G, page, start, limit,
+                     start / page, live_end, softcap, scale, out + qo,
+                     DecodePartial{nullptr, nullptr, nullptr, 0});
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const int* table, const int* lens, const int* starts, void* out,
+           int B, int Hq, int Hkv, int page, int n_pages, float softcap,
+           float scale, cudaStream_t stream) {
+  const size_t smem = decode_smem_bytes<T, D>(Hq / Hkv, page);
+  cudaError_t err = allow_smem(paged_decode_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  paged_decode_kernel<T, D><<<dim3(B, Hkv), kDecodeThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), table, lens, starts,
+      static_cast<T*>(out), Hq, Hkv, page, n_pages, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const int* table, const int* lens, const int* starts, void* out,
-           int B, int Hq, int Hkv, int page, int D, int n_pages,
-           float softcap, float scale, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<T>(Hq / Hkv, page, D);
-  cudaError_t err = allow_smem(paged_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  paged_decode_kernel<T><<<dim3(B, Hkv), kDecodeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), table, lens, starts,
-      static_cast<T*>(out), Hq, Hkv, page, D, n_pages, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
+int dispatch_d(const void* q, const void* k_pages, const void* v_pages,
+               const int* table, const int* lens, const int* starts,
+               void* out, int B, int Hq, int Hkv, int page, int D,
+               int n_pages, float softcap, float scale, cudaStream_t s) {
+  switch (D) {
+    case 32:
+      return launch<T, 32>(q, k_pages, v_pages, table, lens, starts, out, B,
+                           Hq, Hkv, page, n_pages, softcap, scale, s);
+    case 64:
+      return launch<T, 64>(q, k_pages, v_pages, table, lens, starts, out, B,
+                           Hq, Hkv, page, n_pages, softcap, scale, s);
+    case 128:
+      return launch<T, 128>(q, k_pages, v_pages, table, lens, starts, out, B,
+                            Hq, Hkv, page, n_pages, softcap, scale, s);
+    case 256:
+      return launch<T, 256>(q, k_pages, v_pages, table, lens, starts, out, B,
+                            Hq, Hkv, page, n_pages, softcap, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // q [B, Hq, D]; k_pages/v_pages [P, Hkv, page, D]; table [B, n_pages];
-// lens/starts [B]; out [B, Hq, D].  All contiguous, on one device.
+// lens/starts [B]; out [B, Hq, D].  All contiguous, on one device, pools
+// 16-byte aligned.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int paged_decode(int dtype, const void* q, const void* k_pages,
                             const void* v_pages, const void* table,
@@ -92,10 +120,11 @@ extern "C" int paged_decode(int dtype, const void* q, const void* k_pages,
   const int* sb = static_cast<const int*>(starts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch<float>(q, k_pages, v_pages, tb, ln, sb, out, B, Hq, Hkv,
-                         page, D, n_pages, softcap, scale, s);
+    return dispatch_d<float>(q, k_pages, v_pages, tb, ln, sb, out, B, Hq,
+                             Hkv, page, D, n_pages, softcap, scale, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, sb, out, B, Hq,
-                                 Hkv, page, D, n_pages, softcap, scale, s);
+    return dispatch_d<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, sb, out, B,
+                                     Hq, Hkv, page, D, n_pages, softcap,
+                                     scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

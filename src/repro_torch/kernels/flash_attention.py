@@ -1,13 +1,17 @@
 """Causal prefill attention: the wrapper around ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``_kernel``/``flash_attention`` of the JAX
-package.  GQA is resolved inside the kernel (query head h reads KV head
-h // group) and ragged Sq / Sk are masked there, so nothing is padded or
-expanded here.  ``q_offset`` places query row i at position q_offset + i
-for the causal and window masks: a prefill chunk attends to the resident
-tokens before it and to itself.  Its plain version is
-``ref.flash_attention_ref``; ``ops.flash_attention`` picks between them by
-the tensors' device.
+package.  In bf16, the serving dtype, the kernel runs on the tensor cores
+(``mma.sync`` m16n8k16, fp32 accumulation; K/V tiles kept bf16 in shared
+memory behind a two-stage ``cp.async`` ring); P is rounded to bf16 before
+P·V, as the JAX package's ``full_attention`` rounds it.  fp32 runs the
+first, CUDA-core version, for the card's fp32 parity checks.  GQA is
+resolved inside the kernel (query head h reads KV head h // group) and
+ragged Sq / Sk are masked there, so nothing is padded or expanded here.
+``q_offset`` places query row i at position q_offset + i for the causal
+and window masks: a prefill chunk attends to the resident tokens before it
+and to itself.  Its plain version is ``ref.flash_attention_ref``;
+``ops.flash_attention`` picks between them by the tensors' device.
 
 ``flash_attention.launches`` counts the kernel launches this process made.
 """
@@ -57,6 +61,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_tensor("q", q, dev, q.dtype, (B, Sq, Hq, D))
     check_tensor("k", k, dev, q.dtype, (B, Sk, Hkv, D))
     check_tensor("v", v, dev, q.dtype, (B, Sk, Hkv, D))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     scale = 1.0 / (D ** 0.5)
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:

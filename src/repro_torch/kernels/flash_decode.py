@@ -6,19 +6,28 @@
 ``flash_decode`` replaces ``_decode_kernel``/``flash_decode``, the same
 attention over a dense per-sequence cache.  Both kernels run one CTA per
 (sequence, KV head) serving all of the group's query heads through one
-shared loop (``csrc/decode_group.cuh``), so every live K/V row crosses
-device memory once per KV head; they are bound by those bytes (see the
-notes at the top of the CUDA sources).  Their plain versions are
-``ref.paged_decode_plain`` and ``ref.flash_decode_plain``;
+shared loop (``csrc/decode_group.cuh``: a two-stage ``cp.async`` ring of
+K/V tiles, a warp per query head scoring whole positions), so every live
+K/V row crosses device memory once per KV head; they are bound by those
+bytes (see the notes at the top of the CUDA sources).  The dense kernel
+also splits each (sequence, KV head) over ``n_split`` ranges of whole
+32-position tiles, one CTA each (each row's live tiles dealt out evenly),
+and combines the splits' fp32 partials in a second launch from the same C
+entry; ``split_count`` picks ``n_split`` so that a small batch still fills
+the card.  The paged kernel runs one split.  Their plain versions are
+``ref.paged_decode_plain`` and ``ref.flash_decode_plain``
+(``ref.flash_decode_split_plain`` repeats the split and combine);
 ``ops.paged_decode`` and ``ops.flash_decode`` pick between kernel and
 plain version by the tensors' device.
 
-``paged_decode.launches`` and ``flash_decode.launches`` count the kernel
-launches this process made.
+``paged_decode.launches`` and ``flash_decode.launches`` count the wrapper
+calls that launched their kernel (one each, whatever the split);
+``flash_decode.last_n_split`` is the split count of the last launch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,9 +39,36 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _F, _F, _P],
-    "flash_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                     _P],
+    "flash_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                     _F, _F, _P],
 }
+# positions per tile of the dense kernel (kTile in csrc/flash_decode.cu)
+TILE = 32
+
+
+def split_count(B: int, Hkv: int, max_len: int, tile: int,
+                sm_count: int) -> int:
+    """Position splits per (sequence, KV head) for the dense kernel.
+
+    Aims at about two CTAs per SM (B * Hkv * n_split ~ 2 * sm_count), never
+    more splits than the ``ceil(max_len / tile)`` live tiles, and one split
+    once B * Hkv CTAs already fill the card twice.  The count is trimmed to
+    the fewest splits that give the longest row the same tiles per split,
+    so no CTA is added that does not shorten the slowest split.
+    """
+    tiles = max(1, -(-max_len // tile))
+    ctas = max(1, B * Hkv)
+    if ctas >= 2 * sm_count:
+        return 1
+    want = min(tiles, -(-2 * sm_count // ctas))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (cached)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _fn(name: str):
@@ -111,9 +147,23 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: [B, Hq, D]; k/v: [B, S, Hkv, D] (S >= 1); lens/start: [B] int32 —
     position ``t`` is attended iff ``start <= t < min(len, S)``.  fp32 or
-    bf16 (q and caches alike), D in ``HEAD_DIMS``.  Returns [B, Hq, D] in
-    q's dtype, zeros where ``len == 0``.
+    bf16 (q and caches alike), D in ``HEAD_DIMS``.  Splits each (sequence,
+    KV head) over ``split_count`` position ranges for this batch, S and
+    card.  Returns [B, Hq, D] in q's dtype, zeros where ``len == 0``.
     """
+    _check_query("flash_decode", q, k.shape[2])
+    n_split = split_count(q.shape[0], k.shape[2], k.shape[1], TILE,
+                          sm_count(q.device))
+    return _launch(q, k, v, lens, start, softcap, scale, n_split)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lens: torch.Tensor, start: torch.Tensor, softcap: float,
+            scale: float, n_split: int) -> torch.Tensor:
+    """``flash_decode`` at a given ``n_split``; the checks at fixed split
+    counts call it directly.  Counts the launch on ``flash_decode.launches``
+    and keeps the split count it passed to the kernel in
+    ``flash_decode.last_n_split`` (the grid is (B, Hkv, n_split))."""
     _check_query("flash_decode", q, k.shape[2])
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -127,19 +177,27 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_tensor("lens", lens, dev, torch.int32, (B,))
     check_tensor("start", start, dev, torch.int32, (B,))
     _check_aligned(k=k, v=v)
+    if n_split < 1:
+        raise ValueError(f"n_split {n_split} < 1")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    # the splits' fp32 partials: m and l [B, Hq, n_split], acc [.., D]
+    part = (torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32,
+                        device=dev) if n_split > 1 else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn("flash_decode")(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lens.data_ptr(), start.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
+        int(n_split), None if part is None else part.data_ptr(),
         float(softcap), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
     flash_decode.launches += 1
+    flash_decode.last_n_split = int(n_split)
     return out
 
 
 flash_decode.launches = 0
+flash_decode.last_n_split = 0

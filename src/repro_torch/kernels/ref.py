@@ -11,6 +11,9 @@ kernel-native pool ``[P, Hkv, page, D]``, both take a per-sequence
 ``start`` and return zeros where ``len == 0``, as the kernels do
 (``flash_decode_ref`` and ``flash_decode_paged_ref`` return the mean of V
 there, because their softmax over an all-masked row is uniform).
+``flash_decode_split_plain`` repeats the dense kernel's split over
+positions (``split_ranges``) and its combine step (the same function as
+``flash_decode_plain``, summed in the kernel's order of splits).
 ``ssd_chunk_plain`` is the plain version of the SSD chunk kernel: it takes
 B/C per group, as the kernel does, where ``ssd_chunk_ref`` takes them
 already broadcast to heads.
@@ -113,6 +116,71 @@ def flash_decode_plain(q, k, v, lens, start, softcap: float,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", p, v.float())
     out = torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def split_ranges(lens, start, S: int, n_split: int, tile: int = 32):
+    """The positions each split of the dense decode kernel walks.
+
+    Row b's live tiles run from the tile that holds ``max(start, 0)`` to
+    the one that holds ``min(len, S) - 1``; with n of them, split s takes
+    tiles ``[s * n // n_split, (s + 1) * n // n_split)`` of that run, so
+    the live work is dealt out evenly and a split is empty only where
+    ``n < n_split``.  Returns (lo, hi): [B, n_split] int64 position
+    bounds, ``lo == hi`` for an empty split.
+    """
+    limit = torch.clamp(lens.long(), max=S)
+    live_end = torch.where(limit > 0, (limit - 1) // tile + 1,
+                           torch.zeros_like(limit))
+    first = torch.minimum(torch.clamp(start.long(), min=0) // tile,
+                          live_end)
+    n = (live_end - first)[:, None]
+    s = torch.arange(n_split, device=lens.device)[None, :]
+    lo = (first[:, None] + s * n // n_split) * tile
+    hi = (first[:, None] + (s + 1) * n // n_split) * tile
+    return lo, hi
+
+
+def flash_decode_split_plain(q, k, v, lens, start, softcap: float,
+                             scale: float, n_split: int, tile: int = 32):
+    """Plain version of the dense decode kernel's split and combine.
+
+    Each row's live tiles are dealt out over ``n_split`` splits as
+    ``split_ranges`` says; split s attends the positions of its range
+    inside ``[start, min(len, S))`` and keeps an fp32 partial
+    ``(m, l, acc)`` (``m = -inf``, ``l = 0`` where it attends nothing); the
+    combine rescales each by ``exp(m - max m)`` and divides the summed acc
+    by the summed l, zeros where no split attended anything (``len ==
+    0``).  Same arguments as ``flash_decode_plain``.
+    """
+    Hq = q.shape[1]
+    S = k.shape[1]
+    k = _expand(k, Hq)
+    v = _expand(v, Hq).float()
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    ok = (pos < lens[:, None, None]) & (pos >= start[:, None, None])
+    lo, hi = split_ranges(lens, start, S, n_split, tile)
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        own = (ok & (pos >= lo[:, i, None, None])
+               & (pos < hi[:, i, None, None]))
+        m = torch.where(own, s, torch.full_like(s, -torch.inf)).amax(-1)
+        p = torch.where(own, torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhk,bkhd->bhd", p, v))
+    m = torch.stack(ms)                                   # [n, B, Hq]
+    top = m.amax(0)
+    w = torch.where(m > -torch.inf, torch.exp(m - top), torch.zeros_like(m))
+    l_sum = (w * torch.stack(ls)).sum(0)
+    acc = (w[..., None] * torch.stack(accs)).sum(0)
+    out = torch.where(l_sum[..., None] > 0,
+                      acc / torch.clamp(l_sum, min=1e-30)[..., None],
+                      torch.zeros_like(acc))
     return out.to(q.dtype)
 
 

@@ -73,6 +73,27 @@ def dense_inputs(seed, B, S, Hq, Hkv, D, lens, *, window=0):
     return q, k, v, lens, start
 
 
+# the dense decode kernel split over many CTAs: one sequence over a long
+# cache, lens of 1 and S and off the 32-position tile, and a start inside
+# a split and past whole splits (gemma2's window);
+# name, B, S, Hq, Hkv, D, lens, starts
+SPLIT_CASES = [
+    ("batch1-long", 1, 4000, 32, 4, 128, [4000], [0]),
+    ("batch1-len1", 1, 4000, 32, 4, 128, [1], [0]),
+    ("ragged-lens-group8", 3, 1000, 8, 1, 64, [1, 333, 1000], [0, 0, 0]),
+    ("start-inside-split", 2, 2048, 25, 5, 64, [2000, 1500], [700, 1300]),
+    ("start-past-splits", 2, 2048, 8, 4, 256, [2048, 1030], [1900, 969]),
+    ("group1-len0", 3, 300, 4, 4, 32, [0, 300, 45], [0, 0, 7]),
+]
+SPLIT_IDS = [c[0] for c in SPLIT_CASES]
+
+
+def split_inputs(seed, B, S, Hq, Hkv, D, lens, starts):
+    """numpy q [B,Hq,D], dense caches k/v [B,S,Hkv,D], lens and starts."""
+    q, k, v, lens, _ = dense_inputs(seed, B, S, Hq, Hkv, D, lens)
+    return q, k, v, lens, np.asarray(starts, np.int32)
+
+
 # a prefill chunk after resident tokens:
 # name, B, C (queries), offset, Hq, Hkv, D, softcap, window
 CHUNK_CASES = [
@@ -230,6 +251,85 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, name, B, S, Hq, Hkv,
     torch.cuda.synchronize()
     assert tfd.flash_decode.launches == before + 1
     want = ref.flash_decode_plain(q, k, v, ln, st, cap, 1.0 / D ** 0.5)
+    kernel_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,S,Hq,Hkv,D,lens,starts", SPLIT_CASES,
+                         ids=SPLIT_IDS)
+def test_flash_decode_kernel_many_splits_matches_plain(cuda, dtype, name, B,
+                                                       S, Hq, Hkv, D, lens,
+                                                       starts):
+    """The split the wrapper picks for a small batch (many CTAs per
+    sequence) against the unsplit plain version."""
+    q, k, v, ln, st = to_torch(
+        *split_inputs(21, B, S, Hq, Hkv, D, lens, starts), device=cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    splits = tfd.split_count(B, Hkv, S, tfd.TILE, tfd.sm_count(cuda))
+    assert splits > 1
+    before = tfd.flash_decode.launches
+    got = tfd.flash_decode(q, k, v, ln, st, 0.0, 1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + 1
+    assert tfd.flash_decode.last_n_split == splits
+    want = ref.flash_decode_plain(q, k, v, ln, st, 0.0, 1.0 / D ** 0.5)
+    kernel_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_split", [1, 2, 5, 40])
+def test_flash_decode_kernel_fixed_split_matches_split_plain(cuda, dtype,
+                                                             n_split):
+    """A fixed n_split, through the wrapper's private entry (40 is more
+    than any row's live tiles: empty splits), against the plain
+    split-and-combine."""
+    q, k, v, ln, st = to_torch(
+        *split_inputs(22, 3, 1000, 8, 2, 128, [1000, 517, 0], [0, 250, 0]),
+        device=cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = tfd.flash_decode.launches
+    got = tfd._launch(q, k, v, ln, st, 30.0, 1.0 / 128 ** 0.5, n_split)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + 1
+    assert tfd.flash_decode.last_n_split == n_split
+    want = ref.flash_decode_split_plain(q, k, v, ln, st, 30.0,
+                                        1.0 / 128 ** 0.5, n_split)
+    kernel_close(got, want, dtype)
+    assert not got[2].float().any()
+
+
+# the prefill kernel at every head dim, Sq and Sk off the 64-row tile, with
+# softcap, window, query offset and groups 5 and 8;
+# B, Sq, Sk, q_offset, Hq, Hkv, D, causal, softcap, window
+PREFILL_EDGE_CASES = [
+    (2, 77, 77, 0, 8, 1, 32, True, 0.0, 0),
+    (1, 100, 250, 150, 25, 5, 64, True, 0.0, 0),
+    (1, 130, 330, 200, 32, 4, 128, True, 0.0, 50),
+    (1, 99, 99, 0, 8, 4, 256, True, 50.0, 40),
+    (2, 65, 129, 0, 16, 2, 128, False, 30.0, 0),
+    (1, 70, 170, 100, 10, 2, 256, True, 0.0, 0),
+    (1, 1, 45, 44, 40, 8, 64, True, 0.0, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,off,Hq,Hkv,D,causal,cap,win",
+                         PREFILL_EDGE_CASES)
+def test_flash_attention_kernel_edges_match_plain(cuda, dtype, B, Sq, Sk, off,
+                                                  Hq, Hkv, D, causal, cap,
+                                                  win):
+    q, k, v = (t.to(dtype) for t in to_torch(
+        *flash_inputs(23, B, Sq, Sk, Hq, Hkv, D), device=cuda))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, softcap=cap,
+                              window=win, q_offset=off)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=cap,
+                                   window=win, q_offset=off)
     kernel_close(got, want, dtype)
 
 

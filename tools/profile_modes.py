@@ -31,8 +31,8 @@ ROOT = os.path.dirname(HERE)
 # device-time groups, by a substring of the kernel's name (first match)
 GROUPS = (
     ("B1 paged_decode", ("paged_decode_kernel",)),
-    ("B3 flash_decode", ("flash_decode_kernel",)),
-    ("B2 flash_attention", ("flash_attention_kernel",)),
+    ("B3 flash_decode", ("flash_decode_kernel", "combine_splits_kernel")),
+    ("B2 flash_attention", ("flash_attention_bf16", "flash_attention_f32")),
     ("B4 ssd_chunk", ("ssd_",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
     ("indexing and copies", ("index", "gather", "scatter", "Memcpy",
