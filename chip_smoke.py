@@ -9,15 +9,17 @@ non-zero before the result lines):
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
      and print registers and spills; count the tensor-core instructions
-     (``HMMA``, from ``cuobjdump -sass``) of each prefill instantiation and
-     fail if the bf16 ones have none;
+     (``HMMA``, from ``cuobjdump -sass``) of each prefill and SSD chunk
+     instantiation and fail if the bf16 prefill ones or the SSD chunk one
+     the served models use (P = 64) have none;
   3. hold each kernel against its plain PyTorch version on the card, fp32
      (absolute 1e-4; the SSD chunk kernel 1e-4 of each output row's
      largest value) and bf16 (1e-2 of each output row's largest value), at
      smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m),
-     the prefill kernel also at a chunk's query offset, the dense decode
-     kernel also split over many CTAs and, at fixed split counts, against
-     the plain split-and-combine;
+     the prefill kernel also at a chunk's query offset, both decode
+     kernels also split over many CTAs and, at fixed split counts, against
+     the plain split-and-combine, the SSD chunk kernel also at ragged
+     state widths, long chunks and unaligned inputs;
   4. greedy decoding: the smoke configs give the same tokens on the card
      and the CPU in every engine mode (paged at decode_horizon 1 and 8,
      the dense mode, chunked prefill); 2-layer full-width yi-9b, hymba-1.5b and
@@ -37,8 +39,11 @@ non-zero before the result lines):
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
-     computing the same function; each timed kernel's output is checked
-     again; the dense decode row also gives its split count and CTAs.
+     computing the same function, and again as the same 10 calls replayed
+     from a CUDA graph (``device_ms``: no host work between the kernels,
+     so a kernel faster than its wrapper's host code shows its own time);
+     each timed kernel's output is checked again; the decode rows also
+     give their split counts and CTAs, as the wrappers launched them.
 
 The last three lines are the card line, one JSON object with the kernel
 table (one row per kernel and timed run) and ``{"ok": true, "device":
@@ -173,12 +178,41 @@ def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def hmma_counts(build) -> dict[str, int]:
-    """{kernel function: HMMA instructions in its SASS} for the prefill
-    library, from ``cuobjdump -sass``."""
+def graph_ms(fn, reps: int = 20, inner: int = 10) -> float:
+    """The device time of one call: ``inner`` calls captured in a CUDA
+    graph, the median over ``reps`` replays (CUDA events) divided by
+    ``inner``.  A replay launches the calls' kernels with no host code
+    between them, so a kernel faster than its wrapper's host work reads
+    its own time here, where ``time_ms`` reads the host's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)                       # warm up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(inner):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return float(np.median(times))
+
+
+def hmma_counts(build, lib: str) -> dict[str, int]:
+    """{kernel function: HMMA instructions in its SASS} for the library
+    built from ``csrc/<lib>.cu``, from ``cuobjdump -sass``."""
     text = subprocess.run(
-        [build.cuda_tool("cuobjdump"), "-sass",
-         str(build.lib_path("flash_attention"))],
+        [build.cuda_tool("cuobjdump"), "-sass", str(build.lib_path(lib))],
         check=True, capture_output=True, text=True).stdout
     counts, fn = {}, None
     for line in text.splitlines():
@@ -248,6 +282,44 @@ def check_paged(gen, fd, ref) -> None:
                 f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"paged_decode {name} {dtype} disagrees")
+
+
+def check_paged_split(gen, fd, ref) -> None:
+    """The paged decode kernel at fixed split counts (70 is more than any
+    row's live pages: empty splits) against the plain split-and-combine,
+    through the wrapper's private entry that takes ``n_split``: a window,
+    a trash-page row, rows of 1, 15, 16 and 17 tokens and ``len == 0``
+    (whose row must be zero)."""
+    cases = [
+        # name, B, Hq, Hkv, D, lens, softcap, window, trash rows
+        ("yi-9b", 6, 32, 4, 128, [1000, 517, 0, 17, 16, 1], 30.0, 300,
+         (1,)),
+        ("hymba", 5, 25, 5, 64, [15, 0, 700, 16, 1], 0.0, 0, (2,)),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, Hq, Hkv, D, lens, cap, win, trash in cases:
+            q, kp, vp, tb, ln, st = paged_inputs(
+                gen, B, Hq, Hkv, D, 16, lens, dtype, window=win,
+                trash_rows=trash)
+            scale = 1.0 / D ** 0.5
+            zero = [i for i, n in enumerate(lens) if n == 0]
+            for n_split in (1, 2, 5, 70):
+                got = fd._launch_paged(q, kp, vp, tb, ln, st, cap, scale,
+                                       n_split)
+                torch.cuda.synchronize()
+                want = ref.paged_decode_split_plain(q, kp, vp, tb, ln, st,
+                                                    cap, scale, n_split)
+                err, rel, ok = agreement(got, want, dtype)
+                ok = (ok and fd.paged_decode.last_n_split == n_split
+                      and not got[zero].float().any())
+                log(f"  paged_decode {name} n_split={n_split:<3d} "
+                    f"{str(dtype):14s} max_abs_err={err:.3e} "
+                    f"max_row_rel_err={rel:.3e} {tol_text(dtype)} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"paged_decode {name} n_split={n_split} "
+                                     f"{dtype} disagrees with the plain "
+                                     "split")
 
 
 def check_prefill(gen, fa, ref) -> None:
@@ -393,6 +465,15 @@ def ssd_inputs(gen, B, Nc, Q, H, P, N, G):
     return x, dt, A, Bm, Cm
 
 
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def check_ssd(gen, ssd, ref) -> None:
     cases = [
         # name, B, Nc, Q, H, P, N, G
@@ -403,9 +484,19 @@ def check_ssd(gen, ssd, ref) -> None:
         ("mamba2-q195", 2, 1, 195, 32, 64, 128, 1),
         ("hymba", 1, 4, 256, 25, 64, 16, 1),
         ("hymba-batch", 3, 2, 256, 25, 64, 16, 1),
+        # chunks longer than 256 and P = 128
+        ("q300", 1, 2, 300, 6, 64, 128, 2),
+        ("q1024", 1, 1, 1024, 4, 128, 64, 1),
+        # B/C rows off 16 bytes: 4-byte staging (N % 4 != 0)
+        ("ragged-n13", 1, 2, 130, 8, 32, 13, 2),
+        ("n200-p128", 1, 1, 256, 4, 128, 200, 1),
+        ("p16-n256", 1, 2, 77, 4, 16, 256, 1),
     ]
     for name, B, Nc, Q, H, P, N, G in cases:
         x, dt, A, Bm, Cm = ssd_inputs(gen, B, Nc, Q, H, P, N, G)
+        if name == "ragged-n13":
+            # and every input 4 bytes past a 16-byte boundary
+            x, dt, A, Bm, Cm = (unaligned(t) for t in (x, dt, A, Bm, Cm))
         y, S = ssd.ssd_chunk(x, dt, A, Bm, Cm)
         torch.cuda.synchronize()
         y_want, S_want = ref.ssd_chunk_plain(x, dt, A, Bm, Cm)
@@ -684,8 +775,13 @@ def time_paged(gen, fd, ref, run):
     if not ok:
         raise SystemExit(f"paged_decode disagrees at the timing shape: "
                          f"max_row_rel_err {rel:.3e}")
+    fd.paged_decode.last_n_split = 0
     ms = time_ms(lambda i: fd.paged_decode(q, kp, vp, tables[i], ln, st, 0.0,
                                            scale), inner=rotations)
+    # the split count the wrapper handed the kernel in the timed calls
+    splits = fd.paged_decode.last_n_split
+    device = graph_ms(lambda i: fd.paged_decode(q, kp, vp, tables[i], ln, st,
+                                                0.0, scale), inner=rotations)
     plain = time_ms(lambda i: ref.paged_decode_plain(
         q, kp, vp, tables[i], ln, st, 0.0, scale), inner=rotations)
     tokens = sum(lens)
@@ -696,8 +792,9 @@ def time_paged(gen, fd, ref, run):
     return _row("paged_decode", run, err, rel, ms, plain,
                 nbytes / HBM_BYTES_PER_S * 1e3,
                 flops / BF16_FLOPS_PER_S * 1e3, None,
-                f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} lens={lens} "
-                f"bf16")
+                f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} "
+                f"n_pages={n_pages} lens={lens} bf16", splits=splits,
+                ctas=B * Hkv * splits, device_ms=device)
 
 
 def time_prefill(gen, fa, ref, run):
@@ -714,6 +811,7 @@ def time_prefill(gen, fa, ref, run):
         raise SystemExit(f"flash_attention disagrees at the timing shape: "
                          f"max_row_rel_err {rel:.3e}")
     ms = time_ms(lambda i: fa.flash_attention(q, k, v))
+    device = graph_ms(lambda i: fa.flash_attention(q, k, v))
     plain = time_ms(lambda i: ref.flash_attention_ref(q, k, v))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
@@ -724,7 +822,8 @@ def time_prefill(gen, fa, ref, run):
     return _row("flash_attention", run, err, rel, ms,
                 plain, nbytes / HBM_BYTES_PER_S * 1e3,
                 flops / BF16_FLOPS_PER_S * 1e3, lib,
-                f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16")
+                f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16",
+                device_ms=device)
 
 
 def time_dense(gen, fd, ref, run):
@@ -765,6 +864,8 @@ def time_dense(gen, fd, ref, run):
                                            scale), inner=rotations)
     # the split count the wrapper handed the kernel in the timed calls
     splits = fd.flash_decode.last_n_split
+    device = graph_ms(lambda i: fd.flash_decode(q, k[i], v[i], ln, st, 0.0,
+                                                scale), inner=rotations)
     plain = time_ms(lambda i: ref.flash_decode_plain(
         q, k[i], v[i], ln, st, 0.0, scale), inner=rotations)
     lib = time_ms(library, inner=rotations)
@@ -778,7 +879,7 @@ def time_dense(gen, fd, ref, run):
                 flops / BF16_FLOPS_PER_S * 1e3, lib,
                 f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} lens={lens} bf16",
                 library_max_row_rel_err=lib_rel, splits=splits,
-                ctas=B * Hkv * splits)
+                ctas=B * Hkv * splits, device_ms=device)
 
 
 def time_chunk(gen, fa, ref, run):
@@ -799,6 +900,7 @@ def time_chunk(gen, fa, ref, run):
         raise SystemExit(f"flash_attention disagrees at the chunk shape: "
                          f"max_row_rel_err {rel:.3e}")
     ms = time_ms(lambda i: fa.flash_attention(q, k, v, q_offset=off))
+    device = graph_ms(lambda i: fa.flash_attention(q, k, v, q_offset=off))
     plain = time_ms(lambda i: ref.flash_attention_ref(q, k, v,
                                                       q_offset=off))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -813,7 +915,7 @@ def time_chunk(gen, fa, ref, run):
                 nbytes / HBM_BYTES_PER_S * 1e3,
                 flops / BF16_FLOPS_PER_S * 1e3, lib,
                 f"B={B} C={C} q_offset={off} Sk={off + C} Hq={Hq} Hkv={Hkv} "
-                f"D={D} causal bf16")
+                f"D={D} causal bf16", device_ms=device)
 
 
 def time_ssd(gen, ssd, ref, run):
@@ -823,9 +925,11 @@ def time_ssd(gen, ssd, ref, run):
     right after the conv wrote them.  Bound: each input read and each
     output written once; operations C.B once per group and causal pair,
     score @ (dt x) and the state product once per head, at the card's
-    tensor-core rate for fp32 inputs (TF32).  The same operations at the
-    fp32 rate outside the tensor cores, the units this kernel uses, are
-    reported beside it as ``bound_ms_fp32_cuda_cores``."""
+    tensor-core rate for fp32 inputs (TF32).  Beside it: the same
+    operations at the fp32 rate outside the tensor cores, where the kernel
+    ran before it moved onto them (``bound_ms_fp32_cuda_cores``), and the
+    three TF32 products its 3xTF32 issues for each
+    (``bound_ms_3xtf32``)."""
     cfg = run["cfg"]
     L = max(run["lens"])
     Q = min(cfg.ssm_chunk, L)
@@ -843,6 +947,7 @@ def time_ssd(gen, ssd, ref, run):
             raise SystemExit(f"ssd_chunk disagrees at the timing shape: "
                              f"max_row_rel_err {r:.3e}")
     ms = time_ms(lambda i: ssd.ssd_chunk(x, dt, A, Bm, Cm))
+    device = graph_ms(lambda i: ssd.ssd_chunk(x, dt, A, Bm, Cm))
     plain = time_ms(lambda i: ref.ssd_chunk_plain(x, dt, A, Bm, Cm))
     chunks = B * Nc
     pairs = Q * (Q + 1) // 2
@@ -856,8 +961,11 @@ def time_ssd(gen, ssd, ref, run):
     return _row("ssd_chunk", run, err, rel, ms, plain, t_bytes,
                 flops / TF32_FLOPS_PER_S * 1e3, None,
                 f"B={B} Nc={Nc} Q={Q} H={H} P={P} N={N} G={G} (L={L}) fp32",
+                device_ms=device,
                 bound_ms_fp32_cuda_cores=max(
-                    t_bytes, flops / FP32_FLOPS_PER_S * 1e3))
+                    t_bytes, flops / FP32_FLOPS_PER_S * 1e3),
+                bound_ms_3xtf32=max(
+                    t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3))
 
 
 def main() -> int:
@@ -897,18 +1005,29 @@ def main() -> int:
             elif "registers" in line:
                 regs = line.split(":", 1)[1].strip()
                 log(f"    {name}: {regs}; {spills} [{fn}]")
-    hmma = hmma_counts(build)
+    hmma = hmma_counts(build, "flash_attention")
     for fn, n in sorted(hmma.items()):
         log(f"    flash_attention SASS: {n:5d} HMMA in {fn}")
     bf16 = {fn: n for fn, n in hmma.items() if "flash_attention_bf16" in fn}
     if len(bf16) != len(build.HEAD_DIMS) or not all(bf16.values()):
         raise SystemExit(f"the bf16 prefill kernels do not all run on the "
                          f"tensor cores: HMMA counts {bf16}")
+    hmma = hmma_counts(build, "ssd_chunk")
+    for fn, n in sorted(hmma.items()):
+        log(f"    ssd_chunk SASS: {n:5d} HMMA in {fn}")
+    # the instantiations for the served models' SSM head dim (P = 64),
+    # one for each head block size
+    served = {fn: n for fn, n in hmma.items()
+              if "ssd_chunk_kernelILi64E" in fn}
+    if not served or not all(served.values()):
+        raise SystemExit(f"the SSD chunk kernel at P = 64 does not run on "
+                         f"the tensor cores: HMMA counts {served}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     log("[3] kernels vs plain versions")
     check_paged(gen, fd, ref)
+    check_paged_split(gen, fd, ref)
     check_dense(gen, fd, ref)
     check_split(gen, fd, ref)
     check_prefill(gen, fa, ref)
@@ -924,7 +1043,8 @@ def main() -> int:
             f"({', '.join(v.name for v in variants)})")
         runs += phase_full_width(ops, arch, variants)
 
-    log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls)")
+    log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls, "
+        "back to back and replayed from a CUDA graph)")
     timers = {"paged_decode": lambda run: time_paged(gen, fd, ref, run),
               "flash_decode": lambda run: time_dense(gen, fd, ref, run),
               "flash_attention": lambda run: time_prefill(gen, fa, ref, run),
@@ -936,7 +1056,8 @@ def main() -> int:
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {r['name']} ({r['model']}, {r['run']} run): kernel_ms "
-            f"{r['ms']:.4f}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})"
+            f"{r['ms']:.4f} (graph replay {r['device_ms']:.4f})  bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})"
             f"  plain_ms {r['plain_ms']:.4f}  library_ms {lib}  launches "
             f"{r['launches']} ({r['launches_per_request']:.1f}/request)"
             + (f"  splits {r['splits']} ({r['ctas']} CTAs)"

@@ -1,5 +1,7 @@
 // The decode inner loop shared by the paged (paged_decode.cu) and dense
-// (flash_decode.cu) decode kernels.
+// (flash_decode.cu) decode kernels, and what both need to split a row's
+// positions over several CTAs: the dealing of tiles to splits, the
+// partial each split writes, and the combine kernel.
 //
 // One CTA serves one (sequence, KV head) and all `G` query heads of its
 // group, so every live K/V row crosses device memory once per KV head, not
@@ -29,8 +31,8 @@
 // The result goes either straight to the G output rows (acc / l; zeros
 // where nothing was attended, e.g. len == 0), or, when the caller splits
 // the positions over several CTAs, as the split's fp32 partials (m, l,
-// acc), which a combine step rescales and sums.  An empty split writes
-// m = -inf, l = 0.
+// acc), which `combine_splits_kernel` rescales and sums.  An empty split
+// writes m = -inf, l = 0.
 //
 // The two callers differ only in where a tile's rows live, which the
 // `Rows` policy says: `tile_base(j)` is the element offset of tile j's first
@@ -56,6 +58,75 @@ struct DecodePartial {
   float* acc;
   int stride;
 };
+
+// The live tiles of split `split` of `n_split` of one row: the row's live
+// tiles run from the tile that holds max(start, 0) to the one that holds
+// limit - 1; with n of them, split s takes [s * n / n_split,
+// (s + 1) * n / n_split) of that run (floor division), so a short row or
+// one whose window starts late still spreads over every split it can
+// fill, and a split is empty only where n < n_split.
+__device__ __forceinline__ void split_tiles(int start, int limit, int tile,
+                                            int split, int n_split,
+                                            int& j_begin, int& j_end) {
+  const int live_end = limit > 0 ? (limit - 1) / tile + 1 : 0;
+  const int first = min(max(start, 0) / tile, live_end);
+  const int n_live = live_end - first;
+  j_begin = first + split * n_live / n_split;
+  j_end = first + (split + 1) * n_live / n_split;
+}
+
+// The partial of split `split` of the G heads from output row `head0` on
+// (head0 = b * Hq + first head), in the fp32 scratch
+// [m: rows * n_split | l: rows * n_split | acc: rows * n_split * D],
+// row (b * Hq + h) * n_split + s, rows = B * Hq.  No split (part ==
+// nullptr): write the output rows.
+__device__ __forceinline__ DecodePartial split_partial(float* part,
+                                                       int64_t rows,
+                                                       int64_t head0,
+                                                       int split,
+                                                       int n_split, int D) {
+  if (part == nullptr) return DecodePartial{nullptr, nullptr, nullptr, 0};
+  const int64_t n = rows * n_split;
+  const int64_t r = head0 * n_split + split;
+  return DecodePartial{part + r, part + n + r, part + 2 * n + r * D,
+                       n_split};
+}
+
+// One CTA per output row (b, h): out = sum_s e^(m_s - M) acc_s /
+// sum_s e^(m_s - M) l_s over the splits that attended something, summed
+// in the order of the splits; zeros where none did.
+template <typename T>
+__global__ void __launch_bounds__(kDecodeThreads)
+combine_splits_kernel(const float* __restrict__ part, T* __restrict__ out,
+                      int n_split, int D) {
+  const int64_t row = blockIdx.x;
+  const int64_t n_rows = static_cast<int64_t>(gridDim.x) * n_split;
+  const float* m = part + row * n_split;
+  const float* l = part + n_rows + row * n_split;
+  const float* acc = part + 2 * n_rows + row * n_split * D;
+  float M = -INFINITY;
+  for (int s = 0; s < n_split; ++s) M = fmaxf(M, m[s]);
+  float L = 0.f;
+  for (int s = 0; s < n_split; ++s)
+    if (m[s] > -INFINITY) L += expf(m[s] - M) * l[s];
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float o = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      if (m[s] > -INFINITY) o += expf(m[s] - M) * acc[s * D + d];
+    out[row * D + d] = from_f<T>(L > 0.f ? o / L : 0.f);
+  }
+}
+
+// After a split launch: combine the `rows` output rows' partials.  Returns
+// cudaGetLastError() after the launch.
+template <typename T>
+inline int launch_combine(const float* part, void* out, int64_t rows,
+                          int n_split, int D, cudaStream_t stream) {
+  combine_splits_kernel<T><<<static_cast<unsigned>(rows), kDecodeThreads, 0,
+                             stream>>>(part, static_cast<T*>(out), n_split,
+                                       D);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Shared memory the loop needs: K and V tiles in the storage type, two
 // stages each, then fp32 q (rows of D + 4), acc, P and the per-head

@@ -24,13 +24,14 @@
 // n_split), and each row's own live tiles, from the tile that holds
 // `start` to the one that holds min(len, S) - 1, are dealt out evenly:
 // split s of a row with n live tiles takes tiles [s * n / n_split,
-// (s + 1) * n / n_split) of them (floor division), so a short row or one
-// whose window starts late still spreads over all the splits it can fill
-// (empty splits only where n < n_split).  Each split writes its fp32
-// partial (m, l, acc) to a scratch buffer; a second kernel, launched from
-// the same C entry,
-// rescales and sums each row's partials into the output (zeros where no
-// split attended anything).  A second launch rather than a last-CTA combine
+// (s + 1) * n / n_split) of them (floor division, `split_tiles`), so a
+// short row or one whose window starts late still spreads over all the
+// splits it can fill (empty splits only where n < n_split).  Each split
+// writes its fp32 partial (m, l, acc) to a scratch buffer; a second
+// kernel, `combine_splits_kernel` (decode_group.cuh, shared with the paged
+// kernel), launched from the same C entry, rescales and sums each row's
+// partials into the output (zeros where no split attended anything).  A
+// second launch rather than a last-CTA combine
 // behind an atomic counter: it needs no counter to zero before each call,
 // adds a few microseconds at most, and sums the splits in a fixed order.
 // The wrapper picks n_split from the batch, the cache length and the SM
@@ -74,45 +75,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        row_stride};
   const int limit = min(lens[b], S);
   const int start = starts[b];
-  // this row's live tiles [first, live_end), dealt out evenly
-  const int live_end = limit > 0 ? (limit - 1) / kTile + 1 : 0;
-  const int first = min(max(start, 0) / kTile, live_end);
-  const int n_live = live_end - first;
-  const int j_begin = first + split * n_live / n_split;
-  const int j_end = first + (split + 1) * n_live / n_split;
-  DecodePartial pt{nullptr, nullptr, nullptr, 0};
-  if (part != nullptr) {
-    const int64_t n_rows = static_cast<int64_t>(gridDim.x) * Hq * n_split;
-    const int64_t r = head0 * n_split + split;
-    pt = DecodePartial{part + r, part + n_rows + r,
-                       part + 2 * n_rows + r * D, n_split};
-  }
+  int j_begin, j_end;
+  split_tiles(start, limit, kTile, split, n_split, j_begin, j_end);
+  const DecodePartial pt = split_partial(
+      part, static_cast<int64_t>(gridDim.x) * Hq, head0, split, n_split, D);
   decode_group<T, D>(q + head0 * D, k, v, rows, G, kTile, start, limit,
                      j_begin, j_end, softcap, scale, out + head0 * D, pt);
-}
-
-// One CTA per output row (b, h): out = sum_s e^(m_s - M) acc_s /
-// sum_s e^(m_s - M) l_s over the splits that attended something.
-template <typename T>
-__global__ void __launch_bounds__(kDecodeThreads)
-combine_splits_kernel(const float* __restrict__ part, T* __restrict__ out,
-                      int n_split, int D) {
-  const int64_t row = blockIdx.x;
-  const int64_t n_rows = static_cast<int64_t>(gridDim.x) * n_split;
-  const float* m = part + row * n_split;
-  const float* l = part + n_rows + row * n_split;
-  const float* acc = part + 2 * n_rows + row * n_split * D;
-  float M = -INFINITY;
-  for (int s = 0; s < n_split; ++s) M = fmaxf(M, m[s]);
-  float L = 0.f;
-  for (int s = 0; s < n_split; ++s)
-    if (m[s] > -INFINITY) L += expf(m[s] - M) * l[s];
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float o = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      if (m[s] > -INFINITY) o += expf(m[s] - M) * acc[s * D + d];
-    out[row * D + d] = from_f<T>(L > 0.f ? o / L : 0.f);
-  }
 }
 
 template <typename T, int D>
@@ -130,9 +98,8 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
           n_split > 1 ? part : nullptr, S, Hq, Hkv, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  combine_splits_kernel<T><<<B * Hq, kDecodeThreads, 0, stream>>>(
-      part, static_cast<T*>(out), n_split, D);
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine<T>(part, out, static_cast<int64_t>(B) * Hq, n_split,
+                           D, stream);
 }
 
 template <typename T>

@@ -9,20 +9,23 @@ attention over a dense per-sequence cache.  Both kernels run one CTA per
 shared loop (``csrc/decode_group.cuh``: a two-stage ``cp.async`` ring of
 K/V tiles, a warp per query head scoring whole positions), so every live
 K/V row crosses device memory once per KV head; they are bound by those
-bytes (see the notes at the top of the CUDA sources).  The dense kernel
-also splits each (sequence, KV head) over ``n_split`` ranges of whole
-32-position tiles, one CTA each (each row's live tiles dealt out evenly),
-and combines the splits' fp32 partials in a second launch from the same C
-entry; ``split_count`` picks ``n_split`` so that a small batch still fills
-the card.  The paged kernel runs one split.  Their plain versions are
-``ref.paged_decode_plain`` and ``ref.flash_decode_plain``
-(``ref.flash_decode_split_plain`` repeats the split and combine);
-``ops.paged_decode`` and ``ops.flash_decode`` pick between kernel and
-plain version by the tensors' device.
+bytes (see the notes at the top of the CUDA sources).  Both also split
+each (sequence, KV head) over ``n_split`` ranges of whole tiles (16-token
+pages for the paged kernel, 32-position tiles for the dense one), one CTA
+each, each row's live tiles dealt out evenly, and combine the splits'
+fp32 partials in a second launch from the same C entry (one combine
+kernel for both, in ``decode_group.cuh``); ``split_count`` picks
+``n_split`` so that a small batch still fills the card.  Their plain
+versions are ``ref.paged_decode_plain`` and ``ref.flash_decode_plain``
+(``ref.paged_decode_split_plain`` and ``ref.flash_decode_split_plain``
+repeat the split and combine); ``ops.paged_decode`` and
+``ops.flash_decode`` pick between kernel and plain version by the
+tensors' device.
 
 ``paged_decode.launches`` and ``flash_decode.launches`` count the wrapper
 calls that launched their kernel (one each, whatever the split);
-``flash_decode.last_n_split`` is the split count of the last launch.
+``paged_decode.last_n_split`` and ``flash_decode.last_n_split`` are the
+split counts of their last launches.
 """
 from __future__ import annotations
 
@@ -38,17 +41,19 @@ from repro_torch.kernels.build import DTYPE_CODES, HEAD_DIMS, check_tensor
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _F, _F, _P],
+                     _I, _P, _F, _F, _P],
     "flash_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                      _F, _F, _P],
 }
-# positions per tile of the dense kernel (kTile in csrc/flash_decode.cu)
+# positions per tile of the dense kernel (kTile in csrc/flash_decode.cu);
+# the paged kernel's tile is one page
 TILE = 32
 
 
 def split_count(B: int, Hkv: int, max_len: int, tile: int,
                 sm_count: int) -> int:
-    """Position splits per (sequence, KV head) for the dense kernel.
+    """Splits per (sequence, KV head) for a decode kernel whose rows
+    hold at most ``max_len`` positions in tiles of ``tile``.
 
     Aims at about two CTAs per SM (B * Hkv * n_split ~ 2 * sm_count), never
     more splits than the ``ceil(max_len / tile)`` live tiles, and one split
@@ -107,8 +112,26 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
     q: [B, Hq, D]; k_pages/v_pages: [P, Hkv, page, D]; block_table:
     [B, n_pages] int32; lens/start: [B] int32.  fp32 or bf16 (q and pools
-    alike), D in ``HEAD_DIMS``.  Returns [B, Hq, D] in q's dtype.
+    alike), D in ``HEAD_DIMS``.  Splits each (sequence, KV head) over
+    ``split_count`` page ranges for this batch, table width and card.
+    Returns [B, Hq, D] in q's dtype, zeros where ``len == 0``.
     """
+    _check_query("paged_decode", q, k_pages.shape[1])
+    page, n_pages = k_pages.shape[2], block_table.shape[1]
+    n_split = split_count(q.shape[0], k_pages.shape[1], n_pages * page, page,
+                          sm_count(q.device))
+    return _launch_paged(q, k_pages, v_pages, block_table, lens, start,
+                         softcap, scale, n_split)
+
+
+def _launch_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                  v_pages: torch.Tensor, block_table: torch.Tensor,
+                  lens: torch.Tensor, start: torch.Tensor, softcap: float,
+                  scale: float, n_split: int) -> torch.Tensor:
+    """``paged_decode`` at a given ``n_split``; the checks at fixed split
+    counts call it directly.  Counts the launch on ``paged_decode.launches``
+    and keeps the split count it passed to the kernel in
+    ``paged_decode.last_n_split`` (the grid is (B, Hkv, n_split))."""
     P, Hkv, page, _ = k_pages.shape
     _check_query("paged_decode", q, Hkv)
     B, Hq, D = q.shape
@@ -121,23 +144,38 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     check_tensor("lens", lens, dev, torch.int32, (B,))
     check_tensor("start", start, dev, torch.int32, (B,))
     _check_aligned(k_pages=k_pages, v_pages=v_pages)
+    if n_split < 1:
+        raise ValueError(f"n_split {n_split} < 1")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    part = _partials(B, Hq, D, n_split, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn("paged_decode")(
         DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lens.data_ptr(),
         start.data_ptr(), out.data_ptr(), B, Hq, Hkv, page, D, n_pages,
+        int(n_split), None if part is None else part.data_ptr(),
         float(softcap), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
                            f"{err}")
     paged_decode.launches += 1
+    paged_decode.last_n_split = int(n_split)
     return out
 
 
+def _partials(B: int, Hq: int, D: int, n_split: int, dev):
+    """The splits' fp32 scratch, m and l [B, Hq, n_split] then acc
+    [.., D]; None for one split."""
+    if n_split == 1:
+        return None
+    return torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32,
+                       device=dev)
+
+
 paged_decode.launches = 0
+paged_decode.last_n_split = 0
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,9 +220,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    # the splits' fp32 partials: m and l [B, Hq, n_split], acc [.., D]
-    part = (torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32,
-                        device=dev) if n_split > 1 else None)
+    part = _partials(B, Hq, D, n_split, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn("flash_decode")(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -13,7 +13,9 @@ kernel-native pool ``[P, Hkv, page, D]``, both take a per-sequence
 there, because their softmax over an all-masked row is uniform).
 ``flash_decode_split_plain`` repeats the dense kernel's split over
 positions (``split_ranges``) and its combine step (the same function as
-``flash_decode_plain``, summed in the kernel's order of splits).
+``flash_decode_plain``, summed in the kernel's order of splits);
+``paged_decode_split_plain`` does the same for the paged kernel, whose
+tile is a page.
 ``ssd_chunk_plain`` is the plain version of the SSD chunk kernel: it takes
 B/C per group, as the kernel does, where ``ssd_chunk_ref`` takes them
 already broadcast to heads.
@@ -195,6 +197,21 @@ def paged_decode_plain(q, k_pages, v_pages, block_table, lens, start,
     """
     k, v = gather_pages_dense(k_pages, v_pages, block_table)
     return flash_decode_plain(q, k, v, lens, start, softcap, scale)
+
+
+def paged_decode_split_plain(q, k_pages, v_pages, block_table, lens, start,
+                             softcap: float, scale: float, n_split: int):
+    """Plain version of the paged-decode kernel's split and combine.
+
+    The pages are gathered into a dense cache of ``n_pages * page``
+    positions (``gather_pages_dense``) and each row's live pages dealt out
+    over ``n_split`` splits, a page being the tile
+    (``flash_decode_split_plain`` with ``tile = page``).  Same arguments as
+    ``paged_decode_plain``.
+    """
+    k, v = gather_pages_dense(k_pages, v_pages, block_table)
+    return flash_decode_split_plain(q, k, v, lens, start, softcap, scale,
+                                    n_split, tile=k_pages.shape[2])
 
 
 def ssd_chunk_ref(x, dt, A, B_, C_):

@@ -15,6 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py",
+        ROOT / "tools" / "b1_b4_variants.py",
         ROOT / "tools" / "b2_rounding.py",
         ROOT / "tools" / "conv_rounding.py",
         ROOT / "tools" / "profile_modes.py"]

@@ -207,6 +207,69 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, name, B, Hq, Hkv, D,
     kernel_close(got, want, dtype)
 
 
+# the paged kernel split over pages at the served shapes: B = 8 mid-way
+# through decode on a 64-page table (yi-9b's and hymba's heads) and one
+# long sequence; name, B, Hq, Hkv, D, lens, n_pages
+PAGED_SPLIT_SHAPES = [
+    ("yi-9b", 8, 32, 4, 128, [336, 512, 700, 979, 963, 480, 820, 640], 64),
+    ("hymba-1.5b", 8, 25, 5, 64, [336, 512, 700, 979, 963, 480, 820, 640],
+     64),
+    ("batch1-long", 1, 32, 4, 128, [2000], 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,Hq,Hkv,D,lens,n_pages", PAGED_SPLIT_SHAPES,
+                         ids=[c[0] for c in PAGED_SPLIT_SHAPES])
+def test_paged_decode_kernel_many_splits_matches_plain(cuda, dtype, name, B,
+                                                       Hq, Hkv, D, lens,
+                                                       n_pages):
+    """The split the wrapper picks from the table's width (more than one,
+    at least one CTA per SM) against the unsplit plain version."""
+    q, kp, vp, live, ln, st = to_torch(
+        *paged_inputs(25, B, Hq, Hkv, D, 16, lens), device=cuda)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    # a table as wide as the engine's power-of-two bucket, its tail on
+    # page 0
+    tb = torch.zeros((B, n_pages), dtype=torch.int32, device=cuda)
+    tb[:, :live.shape[1]] = live
+    splits = tfd.split_count(B, Hkv, n_pages * 16, 16, tfd.sm_count(cuda))
+    assert splits > 1 and B * Hkv * splits >= tfd.sm_count(cuda)
+    before = tfd.paged_decode.launches
+    got = tfd.paged_decode(q, kp, vp, tb, ln, st, 0.0, 1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    assert tfd.paged_decode.launches == before + 1
+    assert tfd.paged_decode.last_n_split == splits
+    want = ref.paged_decode_plain(q, kp, vp, tb, ln, st, 0.0, 1.0 / D ** 0.5)
+    kernel_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_split", [1, 2, 5, 40])
+def test_paged_decode_kernel_fixed_split_matches_split_plain(cuda, dtype,
+                                                             n_split):
+    """A fixed n_split, through the wrapper's private entry (40 is more
+    than any row's live pages: empty splits), against the plain
+    split-and-combine: a window, a trash-page row, rows of 1, 15, 16 and
+    17 tokens and len == 0, whose row is zero."""
+    q, kp, vp, tb, ln, st = to_torch(
+        *paged_inputs(24, 7, 8, 2, 128, 16, [300, 17, 0, 16, 15, 1, 250],
+                      window=100, trash_rows=(1,)), device=cuda)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = tfd.paged_decode.launches
+    got = tfd._launch_paged(q, kp, vp, tb, ln, st, 30.0, 1.0 / 128 ** 0.5,
+                            n_split)
+    torch.cuda.synchronize()
+    assert tfd.paged_decode.launches == before + 1
+    assert tfd.paged_decode.last_n_split == n_split
+    want = ref.paged_decode_split_plain(q, kp, vp, tb, ln, st, 30.0,
+                                        1.0 / 128 ** 0.5, n_split)
+    kernel_close(got, want, dtype)
+    assert not got[2].float().any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,cap,win", [
@@ -357,14 +420,33 @@ def test_flash_attention_q_offset_kernel_matches_plain(cuda, dtype, name, B,
     kernel_close(got, want, dtype)
 
 
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary (the wrapper's checks accept it)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,B,Nc,Q,H,P,N,G", SSD_CASES + [
     ("mamba2", 1, 4, 256, 32, 64, 128, 1),
     ("hymba", 1, 4, 256, 25, 64, 16, 1),
-], ids=SSD_IDS + ["mamba2", "hymba"])
+    ("q300-groups2", 1, 2, 300, 6, 64, 128, 2),
+    ("q1024-p128", 1, 1, 1024, 4, 128, 64, 1),
+    ("ragged-n13", 1, 2, 130, 8, 32, 13, 2),
+    ("n200-p128", 1, 1, 256, 4, 128, 200, 1),
+    ("unaligned", 1, 2, 100, 4, 64, 16, 1),
+], ids=SSD_IDS + ["mamba2", "hymba", "q300-groups2", "q1024-p128",
+                  "ragged-n13", "n200-p128", "unaligned"])
 def test_ssd_chunk_kernel_matches_plain(cuda, name, B, Nc, Q, H, P, N, G):
+    """Beyond the served shapes: Q > 256, P = 128, state widths off the
+    4-float row (4-byte staging) and inputs off a 16-byte boundary."""
     x, dt, A, Bm, Cm = to_torch(*ssd_inputs(13, B, Nc, Q, H, P, N, G),
                                 device=cuda)
+    if name == "unaligned":
+        x, dt, A, Bm, Cm = (unaligned(t) for t in (x, dt, A, Bm, Cm))
     before = tssd.ssd_chunk.launches
     y, S = tssd.ssd_chunk(x, dt, A, Bm, Cm)
     torch.cuda.synchronize()

@@ -10,8 +10,9 @@ mode, chunked prefill in 256-token budgets), each after an unprofiled
 warm-up, under ``torch.profiler`` with CUDA activity.  For each run it
 prints the wall time, the mean TTFT, the device's busy time (the sum of
 every kernel's and copy's device time) and idle share (1 - busy / wall),
-the device time by group (the four hand-written kernels, cuBLAS matrix
-products, indexing copies, the rest) and the ten kernels that took the
+the device time by group (the four hand-written kernels and the decode
+kernels' split combine, cuBLAS matrix products, indexing copies, the
+rest) and the ten kernels that took the
 most device time.  The last line is one JSON object with the card and
 every reading.
 """
@@ -28,10 +29,13 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
-# device-time groups, by a substring of the kernel's name (first match)
+# device-time groups, by a substring of the kernel's name (first match);
+# the split combine serves B1 and B3 alike: in the paged and chunked runs
+# it is B1's, in the dense run B3's
 GROUPS = (
     ("B1 paged_decode", ("paged_decode_kernel",)),
-    ("B3 flash_decode", ("flash_decode_kernel", "combine_splits_kernel")),
+    ("B3 flash_decode", ("flash_decode_kernel",)),
+    ("B1/B3 split combine", ("combine_splits_kernel",)),
     ("B2 flash_attention", ("flash_attention_bf16", "flash_attention_f32")),
     ("B4 ssd_chunk", ("ssd_",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
