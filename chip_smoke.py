@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
-file; it exits non-zero without them.  Phases, in order (any failure exits
-non-zero before the result lines):
+file; it exits non-zero without them.  Phases, in order (a failure exits
+non-zero before the result lines; a failed check of phase 5's "migrate"
+runs is reported, and exits non-zero, after phase 6 has run and printed
+its table):
 
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
@@ -19,13 +21,19 @@ non-zero before the result lines):
      the prefill kernel also at a chunk's query offset, both decode
      kernels also split over many CTAs and, at fixed split counts, against
      the plain split-and-combine, the SSD chunk kernel also at ragged
-     state widths, long chunks and unaligned inputs;
+     state widths, long chunks and unaligned inputs, and causal to the
+     bit (a row's output is the same whatever rows follow it);
   4. greedy decoding: the smoke configs give the same tokens on the card
      and the CPU in every engine mode (paged at decode_horizon 1 and 8,
      the dense mode, chunked prefill); 2-layer full-width yi-9b, hymba-1.5b and
      mamba2-370m (fp32) give the same tokens in every mode (chunked prefill
      in 64-token chunks; ignored by the SSM models) and agree with a
-     teacher-forced forward;
+     teacher-forced forward; on both, requests served two steps, exported
+     and migrated (page handoff in one shared pool, a copy into another
+     pool, a relayout into a pool of half-size pages, re-prefill; mamba2
+     has no pages to re-lay out) finish with the same tokens as the same
+     engine's uninterrupted run, the smoke configs on the card and on the
+     CPU;
   5. the served models at full width, one after another: yi-9b (48
      layers) three times on the same weights (paged decode, the dense
      decode mode, chunked prefill in 256-token budgets), hymba-1.5b (32)
@@ -35,7 +43,22 @@ non-zero before the result lines):
      every kernel on that run's path must have launched (and the dense run
      no paged decode, the chunked run the prefill kernel more than once per
      layer and request); at least 90 % of the generated tokens must equal a
-     teacher-forced forward's argmax;
+     teacher-forced forward's argmax; then, on the same weights, the
+     "migrate" runs: yi-9b by handoff, copy, relayout and re-prefill,
+     hymba-1.5b by handoff, copy and re-prefill.  The paged job's source
+     serves until every request has 8 tokens, ``migrate_batch`` moves all
+     8 requests and the destination finishes the 32 tokens.  Each run must
+     meet the report's exact counts (all 8 by the path, the pages held,
+     no recompute, or recompute = prompt + generated = the destination's
+     prefill tokens), the launches from the import on (no prefill or SSD
+     chunk kernel after a page move; the paged decode kernel after it; the
+     prefill kernel, and for hymba the SSD chunk kernel, on re-prefill),
+     bit-equal K/V right after a copy or relayout, no page or reservation
+     left after ``release_all``, and the 90 % agreement; that run warms
+     the path up, and the stall (export until the pages are resident, and
+     until every request's next token) is the median of 3 rounds on one
+     more serve of the job, each a move to the destination, a step there
+     and a move back;
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
@@ -116,6 +139,14 @@ FULL_WIDTH = (
 )
 # phase 6's chunk shape: 256 queries after 512 resident tokens
 CHUNK, CHUNK_OFFSET = 256, 512
+# phase 5's migrate runs: the restore paths each model takes, after its
+# variants, on the same weights
+MIGRATE = {"yi-9b": ("handoff", "copy", "relayout", "reprefill"),
+           "hymba-1.5b": ("handoff", "copy", "reprefill")}
+# the migrate run's source serves until every request has this many
+# tokens; the stall is the median of STALL_ROUNDS rounds after the checked
+# run, which warms the path up
+MIGRATE_AFTER, STALL_ROUNDS = 8, 3
 
 
 def log(*args) -> None:
@@ -508,6 +539,22 @@ def check_ssd(gen, ssd, ref) -> None:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"ssd_chunk {name} {out} disagrees")
+    # causal to the bit: a row's y does not move with the rows after it,
+    # zeros (a prefill's padded last chunk) or the tokens that follow
+    for name, H, P, N, n in (("hymba", 25, 64, 16, 203),
+                             ("mamba2", 32, 64, 128, 77)):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, 1, 1, 256, H, P, N, 1)
+        cut = [t.clone() for t in (x, dt, Bm, Cm)]
+        for t in cut:
+            t[:, :, n:] = 0
+        y, _ = ssd.ssd_chunk(x, dt, A, Bm, Cm)
+        y_cut, _ = ssd.ssd_chunk(cut[0], cut[1], A, cut[2], cut[3])
+        same = torch.equal(y[:, :, :n], y_cut[:, :, :n])
+        log(f"  ssd_chunk {name:12s} rows < {n} bit-equal with zeros or "
+            f"tokens after them: {same}")
+        if not same:
+            raise SystemExit(f"ssd_chunk {name}: a row's y moves with the "
+                             "rows after it")
 
 
 # --------------------------------------------------------------------------
@@ -551,6 +598,123 @@ def teacher_forced_agreement(cfg, params, prompt, generated) -> float:
     return float(np.mean(pred == np.asarray(generated)))
 
 
+# the restore paths of ``migration.migrate_batch``: handoff within one
+# shared pool, a copy into another pool, a relayout into a pool of half
+# the page size, and re-prefill from token state
+MIGRATION_PATHS = ("handoff", "copy", "relayout", "reprefill")
+
+
+def migration_engines(cfg, params, device, path, **engine_kw):
+    """(source, destination) engines for one restore path: one shared pool
+    (handoff), two pools of the same geometry (copy, re-prefill), or a
+    destination pool of half-size pages, twice as many (relayout)."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kvcache import BlockPool
+    kw = dict(engine_kw)
+    n, bs = kw.pop("num_blocks"), kw.pop("block_size")
+    mbps = kw.pop("max_blocks_per_seq", cfg.max_seq_len // bs)
+    dtype = kw.get("dtype", torch.float32)
+    src_pool = BlockPool(cfg, n, bs, dtype, device)
+    if path == "handoff":
+        dst_pool, dst_mbps = src_pool, mbps
+    elif path == "relayout":
+        dst_pool = BlockPool(cfg, 2 * n, bs // 2, dtype, device)
+        dst_mbps = 2 * mbps
+    else:
+        dst_pool, dst_mbps = BlockPool(cfg, n, bs, dtype, device), mbps
+    src = ServingEngine(cfg, params, block_size=bs, pool=src_pool,
+                        max_blocks_per_seq=mbps, device=device, **kw)
+    dst = ServingEngine(cfg, params, block_size=dst_pool.block_size,
+                        pool=dst_pool, max_blocks_per_seq=dst_mbps,
+                        device=device, **kw)
+    return src, dst
+
+
+def serve_part_way(eng, jobs: dict, *, steps=None, after=None) -> dict:
+    """Submit ``jobs`` ({rid: (prompt, new tokens)}) to ``eng`` and step it
+    ``steps`` times, or until nothing waits and every request in flight
+    has ``after`` tokens.  Returns the streams that finished meanwhile, by
+    rid."""
+    for rid, (prompt, n) in jobs.items():
+        eng.submit(rid, prompt, n)
+    fin, k = {}, 0
+    while (k < steps if steps is not None else
+           eng.waiting or any(len(r.generated) < after
+                              for r in eng.active.values())):
+        fin.update({r.rid: r.generated for r in eng.step()})
+        k += 1
+    return fin
+
+
+# one ``move_inflight``: the report, the pages the snapshots held, the
+# tokens a re-prefill of all of them recomputes, the perf_counter at the
+# export and the stall in s
+Moved = collections.namedtuple("Moved", "report pages recompute t0 stall")
+
+
+def move_inflight(src, dst, path) -> Moved:
+    """Export what ``src`` has in flight (with its pages, or as token state
+    for re-prefill), release the source and restore the snapshots on
+    ``dst`` with ``migrate_batch``.  The stall runs from the export until
+    the pages are resident on the card."""
+    from repro_torch.serving.migration import migrate_batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps = src.export_inflight(release=(path == "reprefill"))
+    src.release_all()
+    pages = sum(len(s.blocks) for s in snaps if s.blocks is not None)
+    recompute = sum(len(s.prompt) + len(s.generated) for s in snaps)
+    report = migrate_batch(dst, snaps)
+    torch.cuda.synchronize()
+    return Moved(report, pages, recompute, t0, time.perf_counter() - t0)
+
+
+def kv_in_flight(eng) -> dict:
+    """Each in-flight request's K/V gathered from ``eng``'s pages, by rid
+    ({} for an attention-free pool)."""
+    from repro_torch.serving.kvcache import gather_tokens
+    c = eng.cache
+    if c.pool.k is None:
+        return {}
+    return {r.rid: gather_tokens(c.pool, c.seq_blocks[s], int(c.seq_lens[s]))
+            for s, r in eng.active.items()}
+
+
+def serve_migrated(cfg, params, prompts, new_tokens, device, path,
+                   **engine_kw):
+    """The prompts served two steps on a source engine, moved by
+    ``move_inflight`` and finished on a destination engine: (streams by
+    rid, the migration report)."""
+    src, dst = migration_engines(cfg, params, device, path, **engine_kw)
+    fin = serve_part_way(src, {rid: (p, new_tokens)
+                               for rid, p in enumerate(prompts)}, steps=2)
+    report = move_inflight(src, dst, path).report
+    fin.update({r.rid: r.generated for r in dst.run_to_completion()})
+    return fin, report
+
+
+def check_migrated_streams(name, cfg, params, prompts, new_tokens, device,
+                           want, **engine_kw) -> None:
+    """Each restore path's migrated streams equal ``want``, the same
+    engine's uninterrupted streams (an attention-free model has no pages
+    to re-lay out)."""
+    for path in MIGRATION_PATHS:
+        if path == "relayout" and not cfg.has_attn:
+            continue
+        got, rep = serve_migrated(cfg, params, prompts, new_tokens, device,
+                                  path, **engine_kw)
+        ok = got == want
+        log(f"  {name} migrate {path:9s} on {device}: handoff "
+            f"{rep.handoff} copied {rep.copied} reprefilled "
+            f"{rep.reprefilled} requeued {rep.requeued} pages "
+            f"{rep.pages_handoff + rep.pages_copied} recompute "
+            f"{rep.recompute_tokens}; equal to the uninterrupted stream "
+            f"{ok}")
+        if not ok:
+            raise SystemExit(f"{name}: the stream migrated by {path} on "
+                             f"{device} differs from the uninterrupted one")
+
+
 # phase 4's engine modes: paged decode at horizons 1 and 8, the dense
 # decode mode, and chunked prefill (8-token chunks on the smoke configs;
 # the SSM models ignore it and prefill one-shot)
@@ -591,6 +755,10 @@ def phase_greedy() -> None:
         if not all(same.values()) or not across:
             raise SystemExit(f"{cfg.name}: greedy tokens differ between "
                              "the card and the CPU or between modes")
+        for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            check_migrated_streams(cfg.name, cfg, params, prompts, 12, dev,
+                                   runs[dev, "H=8"][0], **smoke_engine,
+                                   **SMOKE_MODES["H=8"])
 
     full_modes = dict(SMOKE_MODES, chunked=dict(decode_horizon=8,
                                                  prefill_chunk_tokens=64))
@@ -601,11 +769,11 @@ def phase_greedy() -> None:
         prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                    for n in (17, 40, 64, 100)]
         out = {}
+        engine_kw = dict(dtype=torch.float32, num_blocks=256, block_size=16,
+                         max_seqs=4, max_blocks_per_seq=16)
         for mode, kw in full_modes.items():
             fin, eng, _ = serve(cfg, params, prompts, 16, "cuda",
-                                dtype=torch.float32, num_blocks=256,
-                                block_size=16, max_seqs=4,
-                                max_blocks_per_seq=16, **kw)
+                                **engine_kw, **kw)
             out[mode] = {r: fin[r].generated for r in fin}
         same = {m: out[m] == out["H=1"] for m in full_modes}
         agree = min(teacher_forced_agreement(cfg, params, prompts[r],
@@ -617,6 +785,9 @@ def phase_greedy() -> None:
         if not all(same.values()) or agree < 1.0:
             raise SystemExit(f"{arch}: full-width 2-layer greedy check "
                              "failed")
+        check_migrated_streams(f"{arch} 2-layer", cfg, params, prompts, 16,
+                               "cuda", out["H=1"], **engine_kw,
+                               **full_modes["H=8"])
         del params
         torch.cuda.empty_cache()
 
@@ -641,10 +812,12 @@ def full_width_prompts(cfg) -> list:
             for n in lens]
 
 
-def phase_full_width(ops, arch: str, variants: tuple) -> list[dict]:
+def phase_full_width(ops, arch: str, variants: tuple,
+                     failures: list) -> list[dict]:
     """Serve 8 requests with ``arch`` at full width, once per variant, on
     one set of weights; the launch counters are set to 0 just before each
-    run and read just after it."""
+    run and read just after it.  Then the migrate runs on the same
+    weights, whose failed checks go to ``failures``."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count
     cfg = get_config(arch)
@@ -714,10 +887,152 @@ def phase_full_width(ops, arch: str, variants: tuple) -> list[dict]:
                              "teacher-forced forward")
         runs.append({"arch": arch, "variant": var, "cfg": cfg,
                      "counts": counts, "n_req": len(fin),
-                     "lens": [int(x) for x in lens]})
+                     "lens": [int(x) for x in lens],
+                     "streams": {r: fin[r].generated for r in fin}})
+    for path in MIGRATE.get(arch, ()):
+        failures += phase_migrate(ops, cfg, params, prompts, path,
+                                  runs[0]["streams"])
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     return runs
+
+
+def _until_next_token(dst, had: dict) -> None:
+    """Step ``dst`` until each rid of ``had`` ({rid: tokens it had}) has
+    emitted one more token."""
+    done = {}
+    while True:
+        live = {r.rid: r for r in list(dst.active.values()) + dst.waiting}
+        live.update(done)
+        if all(len(live[rid].generated) > n for rid, n in had.items()):
+            return
+        done.update({r.rid: r for r in dst.step()})
+
+
+def _in_flight(eng) -> dict:
+    """{rid: tokens generated} of every request ``eng`` holds."""
+    return {r.rid: len(r.generated)
+            for r in list(eng.active.values()) + eng.waiting}
+
+
+def phase_migrate(ops, cfg, params, prompts, path, paged_streams
+                  ) -> list[str]:
+    """The phase-5 job migrated part-way by one restore path at full width:
+    the source serves until every request has MIGRATE_AFTER tokens, then
+    ``move_inflight`` moves all 8 to the destination, which finishes the
+    32 tokens.  Checks the report's exact counts, the launches on the
+    destination from the import on, the bytes of every moved sequence
+    right after the move, the teacher-forced agreement and that no page or
+    reservation leaks; that run warms the path up.  Then times the stall
+    over STALL_ROUNDS rounds on one more serve of the job: each moves the
+    requests to the destination, steps it until every request emitted its
+    next token, and moves them back untimed.  Returns the checks that
+    failed."""
+    arch = cfg.name
+    t_start = time.monotonic()
+    src, dst = migration_engines(cfg, params, "cuda", path,
+                                 **FULL_WIDTH_ENGINE, **PAGED)
+    pools = list({id(e.cache.pool): e.cache.pool for e in (src, dst)}
+                 .values())
+    n_req = len(prompts)
+    serve_part_way(src, {i: (p, 32) for i, p in enumerate(prompts)},
+                   after=MIGRATE_AFTER)
+    # the bytes: each sequence's K/V gathered from its source pages before
+    # the export equals the same gathered from its destination pages after
+    # the move, before any step (re-prefill moves no pages)
+    before = {} if path == "reprefill" else kv_in_flight(src)
+    ops.reset_launch_counts()
+    moved = move_inflight(src, dst, path)
+    report = moved.report
+    after = kv_in_flight(dst)
+    same_bytes = sorted(after) == sorted(before) and all(
+        all(torch.equal(a, b) for a, b in zip(before[r], after[r]))
+        for r in before)
+    del before, after
+    fin = {r.rid: r for r in dst.run_to_completion()}
+    counts = ops.launch_counts()
+    if path == "reprefill":
+        exact = (report.reprefilled == report.migrated == n_req
+                 and report.recompute_tokens == moved.recompute
+                 == dst.prefill_tokens)
+        want = {"flash_attention": cfg.has_attn, "ssd_chunk": cfg.has_ssm}
+        launched = all(counts[k] > 0 for k, on in want.items() if on)
+    else:
+        by_path = report.handoff if path == "handoff" else report.copied
+        exact = (by_path == report.migrated == n_req
+                 and report.recompute_tokens == 0
+                 and dst.prefill_tokens == 0
+                 and (path != "handoff"
+                      or report.pages_handoff == moved.pages))
+        launched = (counts["flash_attention"] == counts["ssd_chunk"] == 0
+                    and counts["paged_decode"] > 0)
+    streams = {r: fin[r].generated for r in fin}
+    full = (sorted(streams) == list(range(n_req))
+            and all(len(t) == 32 for t in streams.values()))
+    per_req = [teacher_forced_agreement(cfg, params, prompts[r], streams[r])
+               for r in sorted(streams)] if full else [0.0]
+    agree = float(np.mean(per_req))
+    log(f"  [migrate {path}] {arch}: handoff {report.handoff} copied "
+        f"{report.copied} reprefilled {report.reprefilled} pages_handoff "
+        f"{report.pages_handoff} pages_copied {report.pages_copied} "
+        f"recompute_tokens {report.recompute_tokens} (pages held "
+        f"{moved.pages}, prompt + generated {moved.recompute}); "
+        f"destination prefill_tokens {dst.prefill_tokens}; exact counts "
+        f"{exact}")
+    log(f"  [migrate {path}] launches on the destination from the import: "
+        f"{counts}; as required {launched}; bytes equal after the move "
+        f"{same_bytes}")
+    log(f"  [migrate {path}] teacher-forced agreement (bf16, all {n_req} "
+        f"requests) {agree:.4f}, min {min(per_req):.4f}; limit "
+        f"{MIN_TEACHER_FORCED}; streams equal to the uninterrupted paged "
+        f"run {streams == paged_streams}")
+    failed = []
+    if not (exact and launched and same_bytes and full):
+        failed.append(f"{arch} migrate {path}: a check failed (exact counts "
+                      f"{exact}, launches {launched}, bytes {same_bytes}, "
+                      f"32 tokens each {full})")
+    if agree < MIN_TEACHER_FORCED:
+        failed.append(f"{arch} migrate {path}: decode agrees with the "
+                      f"teacher-forced forward on {agree:.4f} of the "
+                      f"tokens, under {MIN_TEACHER_FORCED}")
+    # one horizon more a round, so that every round's destination
+    # dispatches a full horizon first, as the checked run's does
+    new_tokens = 32 + STALL_ROUNDS * PAGED["decode_horizon"]
+    serve_part_way(src, {100 + i: (p, new_tokens)
+                         for i, p in enumerate(prompts)},
+                   after=MIGRATE_AFTER)
+    stalls, nexts, sizes = [], [], []
+    for _ in range(STALL_ROUNDS):
+        had = _in_flight(src)
+        moved = move_inflight(src, dst, path)
+        _until_next_token(dst, had)
+        torch.cuda.synchronize()
+        nexts.append((time.perf_counter() - moved.t0) * 1e3)
+        # a re-prefill's pages are resident once it emitted the next token
+        stalls.append(nexts[-1] if path == "reprefill"
+                      else moved.stall * 1e3)
+        sizes.append(moved.pages if path != "reprefill"
+                     else moved.recompute)
+        move_inflight(dst, src, path)
+    log(f"  [migrate {path}] {arch} stall: stall_ms median "
+        f"{float(np.median(stalls)):.3f} next_token_ms median "
+        f"{float(np.median(nexts)):.3f} over {STALL_ROUNDS} rounds after "
+        f"the checked run (stall {[round(x, 3) for x in stalls]}, next "
+        f"token {[round(x, 3) for x in nexts]}); {len(had)} requests, "
+        + (f"recompute tokens {sizes}" if path == "reprefill"
+           else f"pages {sizes}"))
+    src.release_all()
+    dst.release_all()
+    leak_free = all(p.allocator.n_free == p.num_blocks and p.reserved == 0
+                    for p in pools)
+    log(f"  [migrate {path}] pools full and unreserved after release_all "
+        f"{leak_free}; the path's checks and rounds took "
+        f"{time.monotonic() - t_start:.1f} s")
+    if not leak_free:
+        failed.append(f"{arch} migrate {path}: pages or reservations "
+                      "leaked")
+    return failed
 
 
 # --------------------------------------------------------------------------
@@ -1037,11 +1352,11 @@ def main() -> int:
     log("[4] greedy decoding")
     phase_greedy()
 
-    runs = []
+    runs, failures = [], []
     for i, (arch, variants) in enumerate(FULL_WIDTH):
         log(f"[5.{i + 1}] {arch} at full width "
             f"({', '.join(v.name for v in variants)})")
-        runs += phase_full_width(ops, arch, variants)
+        runs += phase_full_width(ops, arch, variants, failures)
 
     log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls, "
         "back to back and replayed from a CUDA graph)")
@@ -1065,6 +1380,12 @@ def main() -> int:
     log(f"total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
+    if failures:
+        for f in failures:
+            print(f"chip_smoke: {f}", file=sys.stderr)
+        log(f"chip_smoke: {len(failures)} migrate check(s) failed: "
+            f"{'; '.join(failures)}")
+        return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -230,7 +230,11 @@ __device__ __forceinline__ void gather_dt(const float* dtb, int H, int h0,
 
 // One warp: cs[s] = sum_{u <= s} dts[u] * a for s < Q, zeros (and zero
 // dts) on [Q, Qpad).  Each lane sums a contiguous segment, then the lanes
-// exchange their segment totals.
+// exchange their segment totals.  A segment's offset is the previous
+// lane's inclusive sum, not this lane's inclusive sum less its own total:
+// that difference rounds with the segment's later terms, so cs[s], and
+// every y row that reads it, would move with the dt of positions after s
+// (a prefill's padded tail against the real tokens that follow it).
 __device__ __forceinline__ void scan_head(float a, int Q, int Qpad,
                                           float* cs, float* dts, int lane) {
   const int seg = (Q + 31) / 32;
@@ -247,7 +251,8 @@ __device__ __forceinline__ void scan_head(float a, int Q, int Qpad,
     const float v = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += v;
   }
-  const float offset = incl - run;
+  float offset = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) offset = 0.f;
   for (int s = s0; s < s1; ++s) cs[s] += offset;
   for (int s = Q + lane; s < Qpad; s += 32) {
     cs[s] = 0.f;

@@ -46,9 +46,21 @@ the dense decode kernel, writes the new token back into the pages and
 reads the sampled tokens back at once (horizon 1; as in the JAX package
 this path counts no ``decode_syncs``).
 
-Not ported yet (ROADMAP.md): the prefix cache, export/import and
-migration, SLO shedding, telemetry and meshes.  ``load_stats()`` returns
-every key of the frozen schema, with 0 for those features.
+Replica lifecycle (``repro_torch.serving.migration`` builds on it): an
+engine may share its ``BlockPool`` with others (``pool=``, ``kv_quota=``).
+``export_inflight``/``export_request`` evict requests as
+``InflightSnapshot``s: token state only, or (``release=False``) with the
+sequence's pages, disowned from this engine's view, and a copy of its SSM
+rows.  ``import_by_pages`` adopts such a snapshot — by handoff when it
+shares the pool, else by copying or re-laying out the pages — and the
+request resumes decoding with nothing recomputed; ``import_inflight``
+resumes it by re-prefilling ``prompt + generated``.  Call export and import
+only between ``finish_step`` and the next ``step_async``: no decode may be
+in flight.
+
+Not ported yet (ROADMAP.md): the prefix cache, SLO shedding, telemetry and
+meshes.  ``load_stats()`` returns every key of the frozen schema, with 0
+for those features.
 """
 from __future__ import annotations
 
@@ -64,7 +76,8 @@ from repro_torch.models import (DecodeCache, PagedDecodeState,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import check_supported
 from repro_torch.models.sampling import sample
-from repro_torch.serving.kvcache import PagedKVCache
+from repro_torch.serving.kvcache import (BlockPool, PagedKVCache,
+                                         copy_blocks, relayout_blocks)
 
 # the frozen load_stats() key set (the JAX package's schema)
 LOAD_STATS_KEYS = frozenset({
@@ -81,18 +94,49 @@ LOAD_STATS_KEYS = frozenset({
 @dataclasses.dataclass
 class EngineRequest:
     rid: int
-    prompt: np.ndarray           # int32 [S]
+    prompt: np.ndarray           # int32 [S], the original prompt, always
     max_new_tokens: int
     slot: int = -1
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
-    prefill_pos: int = 0         # prompt tokens already in pages
+    # a resumed (migrated) request prefills prompt + generated as one context
+    ctx: np.ndarray | None = None
+    prefill_pos: int = 0         # tokens of ``prefill_tokens`` in pages
     t_submit: float | None = None
     t_first: float | None = None  # host clock when the first token was read
 
     @property
+    def prefill_tokens(self) -> np.ndarray:
+        return self.ctx if self.ctx is not None else self.prompt
+
+    @property
     def prefilling(self) -> bool:
-        return self.prefill_pos < len(self.prompt)
+        """The context is not fully in pages yet.  A re-prefilling request
+        is prefilling despite its non-empty ``generated``; an adopted one
+        starts with ``prefill_pos`` at the end."""
+        return self.prefill_pos < len(self.prefill_tokens)
+
+
+@dataclasses.dataclass
+class InflightSnapshot:
+    """One evicted request, enough to resume it on any engine.
+
+    The token fields alone serve the re-prefill restore.  A
+    ``release=False`` export of a sequence past its prefill also carries
+    its pages (which the snapshot now owns), their resident length, the
+    pool they live in and a copy of its SSM rows; such pages must end
+    adopted by an engine (``import_by_pages``) or released
+    (``migration.release_snapshot_pages``).
+    """
+    rid: int
+    prompt: np.ndarray
+    generated: list
+    max_new_tokens: int
+    blocks: list | None = None       # physical page ids, sequence order
+    seq_len: int = 0                 # tokens resident in those pages
+    pool: BlockPool | None = None    # the pool the pages live in
+    ssm: torch.Tensor | None = None  # [L, H, P, N] the sequence's SSM row
+    conv: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -114,18 +158,35 @@ def _pow2_floor(n: int) -> int:
     return 1 << (n.bit_length() - 1)
 
 
+def _canonical(device: torch.device) -> torch.device:
+    """``cuda`` and ``cuda:<current>`` name the same card."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _token_snapshot(r: EngineRequest) -> InflightSnapshot:
+    return InflightSnapshot(r.rid, r.prompt, list(r.generated),
+                            r.max_new_tokens)
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, num_blocks: int = 512,
                  block_size: int = 16, max_seqs: int = 8,
                  dtype=torch.float32, greedy: bool = True, seed: int = 0,
                  max_blocks_per_seq: int | None = None,
                  decode_horizon: int = 1, decode_mode: str = "paged",
-                 prefill_chunk_tokens: int | None = None, device="cuda"):
+                 prefill_chunk_tokens: int | None = None,
+                 pool: BlockPool | None = None, kv_quota: int | None = None,
+                 device="cuda"):
         """``params`` must already live on ``device``; ``dtype`` is the KV
         pool's dtype.  Runs on CUDA unless ``device="cpu"`` is passed.
         ``decode_mode`` is "paged" or "dense" (horizon 1 only);
         ``prefill_chunk_tokens`` turns on chunked prefill for prompts
-        longer than it (ignored for models with SSM layers)."""
+        longer than it (ignored for models with SSM layers).  ``pool``
+        shares a ``BlockPool`` with other engines (``num_blocks`` is then
+        ignored), ``kv_quota`` caps the blocks this engine may reserve in
+        it."""
         check_supported(cfg)
         if decode_mode not in ("paged", "dense"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
@@ -147,10 +208,24 @@ class ServingEngine:
         self.prefill_chunk_tokens = prefill_chunk_tokens
         if max_blocks_per_seq is None:
             max_blocks_per_seq = cfg.max_seq_len // block_size
-        self.cache = PagedKVCache.create(
-            cfg, num_blocks, block_size, max_seqs,
-            max_blocks_per_seq=max_blocks_per_seq, dtype=dtype,
-            device=self.device)
+        if pool is not None:
+            if pool.block_size != block_size:
+                raise ValueError(
+                    f"shared pool block_size {pool.block_size} != engine "
+                    f"block_size {block_size}")
+            if _canonical(pool.device) != _canonical(self.device):
+                raise ValueError(f"shared pool lives on {pool.device}, this "
+                                 f"engine on {self.device}")
+            if pool.dtype != dtype:
+                raise ValueError(f"shared pool dtype {pool.dtype} != engine "
+                                 f"dtype {dtype}")
+            self.cache = PagedKVCache.from_pool(
+                pool, max_seqs, max_blocks_per_seq, quota=kv_quota)
+        else:
+            self.cache = PagedKVCache.create(
+                cfg, num_blocks, block_size, max_seqs,
+                max_blocks_per_seq=max_blocks_per_seq, dtype=dtype,
+                device=self.device)
         self.max_seqs = max_seqs
         self.greedy = greedy
         self.seed = seed
@@ -158,8 +233,11 @@ class ServingEngine:
         self._gen.manual_seed(seed)
         self.waiting: list[EngineRequest] = []
         self.active: dict[int, EngineRequest] = {}    # slot -> request
+        self.admitting = True
         self.steps = 0
         self.tokens_out = 0
+        # tokens that went through a prefill forward (one-shot or chunked),
+        # re-prefilled contexts included; a page import adds none
         self.prefill_tokens = 0
         # global decode-step counter: step t samples from
         # step_generator(seed, t) in every horizon
@@ -176,7 +254,10 @@ class ServingEngine:
 
     def _capacity_blocks(self) -> int:
         """Blocks one sequence may ever hold on this replica."""
-        return min(self.cache.max_blocks_per_seq, self.cache.num_blocks)
+        cap = min(self.cache.max_blocks_per_seq, self.cache.num_blocks)
+        if self.cache.quota is not None:
+            cap = min(cap, self.cache.quota)
+        return cap
 
     def fits(self, ctx_len: int, new_tokens: int) -> bool:
         """Can this replica ever serve a request of this size?"""
@@ -208,6 +289,168 @@ class ServingEngine:
 
     def _free_slots(self) -> list[int]:
         return [s for s in range(self.max_seqs) if s not in self.active]
+
+    # -- replica lifecycle -------------------------------------------------------
+
+    def pause_admission(self) -> None:
+        """Stop moving waiting requests into slots (switch in progress)."""
+        self.admitting = False
+
+    def resume_admission(self) -> None:
+        self.admitting = True
+
+    def drain(self, max_steps: int | None = None) -> list[EngineRequest]:
+        """Run admission-free steps until the active set empties or
+        ``max_steps`` have run; what is still running is left for
+        ``export_inflight``.  Admission stays paused on return."""
+        self.pause_admission()
+        finished: list[EngineRequest] = []
+        steps = 0
+        while self.active and (max_steps is None or steps < max_steps):
+            finished.extend(self.step())
+            steps += 1
+        return finished
+
+    def export_inflight(self, release: bool = True
+                        ) -> list[InflightSnapshot]:
+        """Snapshot and evict every active and queued request.
+
+        ``release=True``: token state only; the pages go back to the pool
+        and a destination re-prefills ``prompt + generated``
+        (``import_inflight``).  ``release=False``: a sequence past its
+        prefill keeps its pages and a copy of its SSM rows in the snapshot,
+        for ``import_by_pages``; the caller must adopt or release them.
+        """
+        snaps = [self._snapshot_slot(slot, self.active.pop(slot), release)
+                 for slot in sorted(self.active)]
+        snaps += [_token_snapshot(r) for r in self.waiting]
+        self.waiting = []
+        return snaps
+
+    def _snapshot_slot(self, slot: int, r: EngineRequest,
+                       release: bool) -> InflightSnapshot:
+        """Snapshot one evicted active request (slot already popped): token
+        state only when ``release`` or mid-prefill (its pages go back to
+        the pool), else a snapshot that owns the slot's disowned pages."""
+        if release or r.prefilling:
+            # a mid-chunk prefix is not resumable state: drop the pages
+            self.cache.release_slot(slot)
+            return _token_snapshot(r)
+        # the slot's next occupant overwrites these rows in place: the
+        # snapshot keeps copies
+        ssm = (self.cache.ssm[:, slot].clone()
+               if self.cache.ssm is not None else None)
+        conv = (self.cache.conv[:, slot].clone()
+                if self.cache.conv is not None else None)
+        blocks, seq_len = self.cache.disown_slot(slot)
+        return InflightSnapshot(r.rid, r.prompt, list(r.generated),
+                                r.max_new_tokens, blocks=blocks,
+                                seq_len=seq_len, pool=self.cache.pool,
+                                ssm=ssm, conv=conv)
+
+    def export_request(self, rid: int, release: bool = False
+                       ) -> InflightSnapshot | None:
+        """Evict one request, leaving every other request and the
+        admission gate as they are; None if ``rid`` is not here."""
+        for slot, r in list(self.active.items()):
+            if r.rid == rid:
+                del self.active[slot]
+                return self._snapshot_slot(slot, r, release)
+        for i, r in enumerate(self.waiting):
+            if r.rid == rid:
+                return _token_snapshot(self.waiting.pop(i))
+        return None
+
+    def import_by_pages(self, snaps: list[InflightSnapshot]
+                        ) -> list[InflightSnapshot]:
+        """Adopt migrated sequences from their pages: by handoff when the
+        snapshot's pool is this engine's (only the ownership moves), else
+        by copying the pages (``copy_blocks``), or re-laying them out when
+        the page size differs (``relayout_blocks``), and releasing the
+        source's.  Adopted requests join ``active`` mid-generation.
+
+        Returns the snapshots that could not be adopted (no pages, no free
+        slot, no room); they still hold their pages, and the caller falls
+        back to ``import_inflight`` for them.
+        """
+        rejected: list[InflightSnapshot] = []
+        for s in snaps:
+            if s.blocks is None or s.pool is None or not s.generated:
+                rejected.append(s)
+                continue
+            ctx = len(s.prompt) + len(s.generated)
+            remaining = s.max_new_tokens - len(s.generated)
+            if remaining < 1:
+                raise ValueError(f"request {s.rid}: nothing left to generate")
+            free = self._free_slots()
+            # lifetime positions: resident prefix + tokens still to cache
+            total = ctx + remaining - 1
+            if not free or not self.fits(ctx, remaining):
+                rejected.append(s)
+                continue
+            cache = self.cache
+            if s.pool is cache.pool:
+                if not cache.can_adopt(len(s.blocks), total):
+                    rejected.append(s)
+                    continue
+                slot = free[0]
+                cache.adopt_slot(slot, s.blocks, s.seq_len,
+                                 total_tokens=total)
+            else:
+                if not cache.can_admit(s.seq_len, total_tokens=total):
+                    rejected.append(s)
+                    continue
+                slot = free[0]
+                cache.admit(slot, s.seq_len, total_tokens=total)
+                dst_blocks = cache.seq_blocks[slot]
+                if s.pool.k is None:
+                    pass      # attention-free: the state is the SSM rows
+                elif s.pool.block_size == cache.block_size:
+                    copy_blocks(s.pool, cache.pool, s.blocks, dst_blocks)
+                else:
+                    relayout_blocks(s.pool, cache.pool, s.blocks,
+                                    dst_blocks, s.seq_len)
+                s.pool.allocator.release(s.blocks)
+            if s.ssm is not None:
+                cache.ssm[:, slot] = s.ssm
+                cache.conv[:, slot] = s.conv
+            r = EngineRequest(s.rid, np.asarray(s.prompt, np.int32),
+                              s.max_new_tokens, slot=slot,
+                              generated=list(s.generated))
+            r.prefill_pos = len(r.prefill_tokens)   # the prefix is in pages
+            r.t_first = time.monotonic()
+            self.active[slot] = r
+            # this engine owns the pages now: a later release of the
+            # snapshot must not free them again
+            s.blocks = s.pool = s.ssm = s.conv = None
+        return rejected
+
+    def import_inflight(self, snaps: list[InflightSnapshot]) -> None:
+        """Resume migrated requests by re-prefilling ``prompt +
+        generated``; the prefill's last logits give the token a decode step
+        on the source would have given next (greedy).  A request that never
+        prefilled is submitted anew."""
+        for s in snaps:
+            if not s.generated:
+                self.submit(s.rid, s.prompt, s.max_new_tokens)
+                continue
+            remaining = s.max_new_tokens - len(s.generated)
+            if remaining < 1:
+                raise ValueError(f"request {s.rid}: nothing left to generate")
+            prompt = np.asarray(s.prompt, np.int32)
+            ctx = np.concatenate([prompt,
+                                  np.asarray(s.generated, np.int32)])
+            self._validate(len(ctx), remaining, s.rid)
+            self.waiting.append(EngineRequest(
+                s.rid, prompt, s.max_new_tokens,
+                generated=list(s.generated), ctx=ctx))
+
+    def release_all(self) -> None:
+        """Teardown: drop every request and hand every block back to the
+        (shared) pool."""
+        self.active = {}
+        self.waiting = []
+        self.cache.release_all()
 
     def load_stats(self) -> dict:
         """Occupancy snapshot; every key of ``LOAD_STATS_KEYS``."""
@@ -251,10 +494,12 @@ class ServingEngine:
     def _admit(self) -> list[EngineRequest]:
         """Move waiting requests into free slots while KV blocks remain."""
         admitted = []
+        if not self.admitting:
+            return admitted
         free = self._free_slots()
         while self.waiting and free:
             req = self.waiting[0]
-            ctx = len(req.prompt)
+            ctx = len(req.prefill_tokens)
             # reserve the lifetime footprint (prompt + decode growth)
             total = ctx + (req.max_new_tokens - len(req.generated)) - 1
             if not self.cache.can_admit(ctx, total_tokens=total):
@@ -270,10 +515,10 @@ class ServingEngine:
         # group by prompt length: same-length batches need no padding
         by_len: dict[int, list[EngineRequest]] = {}
         for r in reqs:
-            by_len.setdefault(len(r.prompt), []).append(r)
+            by_len.setdefault(len(r.prefill_tokens), []).append(r)
         for pl, group in by_len.items():
-            toks = torch.from_numpy(np.stack([r.prompt for r in group])).to(
-                self.device)
+            toks = torch.from_numpy(
+                np.stack([r.prefill_tokens for r in group])).to(self.device)
             logits, cache = prefill(self.params, self.cfg, toks)
             for i, r in enumerate(group):
                 if self.cfg.has_attn:
@@ -317,10 +562,11 @@ class ServingEngine:
                 break
             share = max(floor, budget // (len(order) - idx))
             r = self.active[slot]
+            toks = r.prefill_tokens
             start = r.prefill_pos
-            n_valid = min(share, budget, len(r.prompt) - start)
+            n_valid = min(share, budget, len(toks) - start)
             buf = np.zeros((1, _pow2_bucket(n_valid, chunk)), np.int32)
-            buf[0, :n_valid] = r.prompt[start:start + n_valid]
+            buf[0, :n_valid] = toks[start:start + n_valid]
             need = (start + n_valid + bs - 1) // bs
             n_pages = _pow2_bucket(need, self.cache.max_blocks_per_seq)
             logits = prefill_chunk(
@@ -485,7 +731,7 @@ class ServingEngine:
         admitted = self._admit()
         chunk = self.prefill_chunk_tokens
         oneshot = [r for r in admitted
-                   if chunk is None or len(r.prompt) <= chunk]
+                   if chunk is None or len(r.prefill_tokens) <= chunk]
         if oneshot:
             self._run_prefill(oneshot)
         # taken before the advance: a prefill that completes this step is

@@ -10,28 +10,41 @@ head_dim; nothing is padded.  An attention-free model (mamba2) has no K/V
 pools, but keeps the allocator and block accounting, as in the JAX
 package.
 
-Models with SSM layers also keep device rows per slot: ``ssm [L, max_seqs
-+ 1, H, P, N]`` (fp32) and ``conv [L, max_seqs + 1, W - 1, conv_ch]`` (pool
-dtype), with the trash row last.  Prefill writes a slot's rows; the decode
-loop gathers the batch's rows and scatters them back.
+A ``PagedKVCache`` is one replica's view of a pool: per-slot block tables,
+sequence lengths and, for models with SSM layers, device rows per slot:
+``ssm [L, max_seqs + 1, H, P, N]`` (fp32) and ``conv [L, max_seqs + 1,
+W - 1, conv_ch]`` (pool dtype), with the trash row last.  Prefill writes a
+slot's rows; the decode loop gathers the batch's rows and scatters them
+back.  ``create`` builds a private pool and a view over it;
+``from_pool`` attaches a view to a pool that several engines share, with a
+block ``quota`` so one view cannot starve the others.
 
-A ``PagedKVCache`` holds a pool and its per-slot block tables and
-sequence lengths.  Admission reserves a sequence's full lifetime block
-count (prompt + decode growth), so later ``extend_for`` calls draw from
-already-reserved capacity.  The host ``block_table``/``seq_lens`` (numpy)
-are the scheduler's truth; the device mirrors ``block_table_dev
-[max_seqs + 1, max_blocks_per_seq]`` (initialised to the trash page) and
-``seq_lens_dev [max_seqs + 1]`` are updated incrementally — one small
-scatter on admit / page crossing / release.  Row ``max_seqs`` is the trash
-slot used to pad decode batches to bucket sizes.
+Admission reserves a sequence's full lifetime block count (prompt + decode
+growth) against both the view's quota and the pool (``BlockPool.reserved``),
+so later ``extend_for`` calls draw from already-reserved capacity.  The
+host ``block_table``/``seq_lens`` (numpy) are the scheduler's truth; the
+device mirrors ``block_table_dev [max_seqs + 1, max_blocks_per_seq]``
+(initialised to the trash page) and ``seq_lens_dev [max_seqs + 1]`` are
+updated incrementally — one small scatter on admit / page crossing /
+release.  Row ``max_seqs`` is the trash slot used to pad decode batches to
+bucket sizes.
 
 Block ids and tables mean the same thing as in the JAX package.  Where the
 JAX package replaces its pool arrays functionally, this port writes the
-pool and mirror tensors in place (``index_put_`` / slice assignment).
+pool and mirror tensors in place (``index_put_`` / slice assignment), so
+every view of a shared pool sees every write at once.
 ``gather_dense`` and ``write_token`` serve the engine's dense decode mode:
 they copy the batch's live K/V out of the pages into a dense cache and the
-step's new token back.  Prefix sharing, migration and the copy primitives
-are not ported yet.
+step's new token back.
+
+Migration primitives (``repro_torch.serving.migration`` builds on these):
+``disown_slot`` takes a sequence out of a view's accounting without
+returning its blocks to the allocator, so a sibling view over the same pool
+can ``adopt_slot`` them — the pages do not move.  ``copy_blocks`` moves
+pages between pools of the same geometry; ``gather_tokens`` +
+``scatter_tokens`` (``relayout_blocks``) move a sequence between pools
+whose page size differs.  Without a prefix cache every page has one owner:
+there are no reference counts, shared pages or pinned blocks.
 """
 from __future__ import annotations
 
@@ -62,16 +75,24 @@ class BlockAllocator:
     def release(self, blocks: list[int]) -> None:
         self.free.extend(blocks)
 
+    @property
+    def n_free(self) -> int:
+        return len(self.free)
+
 
 class BlockPool:
     """Device K/V block pool (none for an attention-free model) +
-    allocator."""
+    allocator, shareable by several engines' cache views.
+
+    ``reserved`` counts the blocks promised to admitted sequences over all
+    views; ``PagedKVCache.n_free_blocks`` reserves against it."""
 
     def __init__(self, cfg: ModelConfig, num_blocks: int,
                  block_size: int = 16, dtype=torch.float32, device="cuda"):
         self.cfg = cfg
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.dtype = dtype
         self.device = torch.device(device)
         self.k = self.v = None
         if cfg.has_attn:
@@ -80,6 +101,7 @@ class BlockPool:
             self.k = torch.zeros(shape, dtype=dtype, device=self.device)
             self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self.allocator = BlockAllocator(num_blocks)
+        self.reserved = 0           # blocks promised to admitted sequences
 
     @property
     def trash_page(self) -> int:
@@ -99,6 +121,7 @@ class PagedKVCache:
     block_table_dev: torch.Tensor  # device [max_seqs + 1, max_blocks_per_seq]
     seq_lens_dev: torch.Tensor     # device [max_seqs + 1]
     seq_blocks: dict            # slot -> list[int]
+    quota: int | None = None    # shared pool: this view's block budget
     used_blocks: int = 0
     reserved_blocks: int = 0    # admitted sequences' lifetime reservations
     seq_reserved: dict = dataclasses.field(default_factory=dict)
@@ -110,10 +133,18 @@ class PagedKVCache:
                block_size: int = 16, max_seqs: int = 16,
                max_blocks_per_seq: int = 64, dtype=torch.float32,
                device="cuda") -> "PagedKVCache":
-        """A cache over a private pool.  A pool shared by several replica
-        views (the JAX package's ``from_pool`` and quotas) comes with the
-        cluster."""
+        """A cache over a private pool."""
         pool = BlockPool(cfg, num_blocks, block_size, dtype, device)
+        return cls.from_pool(pool, max_seqs, max_blocks_per_seq)
+
+    @classmethod
+    def from_pool(cls, pool: BlockPool, max_seqs: int,
+                  max_blocks_per_seq: int,
+                  quota: int | None = None) -> "PagedKVCache":
+        """A view over a (possibly shared) pool, with its own tables,
+        mirrors and SSM/conv rows.  ``quota`` caps the blocks this view may
+        reserve at once; None means the whole pool."""
+        cfg = pool.cfg
         # device tables start at the trash page so un-admitted / padded rows
         # read and write only the trash page
         table_dev = torch.full((max_seqs + 1, max_blocks_per_seq),
@@ -128,12 +159,13 @@ class PagedKVCache:
                                cfg.ssm_head_dim, cfg.ssm_state),
                               dtype=torch.float32, device=pool.device)
             conv = torch.zeros((L, max_seqs + 1, cfg.ssm_conv_width - 1,
-                                conv_channels(cfg)), dtype=dtype,
+                                conv_channels(cfg)), dtype=pool.dtype,
                                device=pool.device)
-        return cls(cfg, block_size, num_blocks, max_seqs, max_blocks_per_seq,
-                   pool, np.zeros((max_seqs, max_blocks_per_seq), np.int32),
+        return cls(cfg, pool.block_size, pool.num_blocks, max_seqs,
+                   max_blocks_per_seq, pool,
+                   np.zeros((max_seqs, max_blocks_per_seq), np.int32),
                    np.zeros(max_seqs, np.int32), table_dev, lens_dev, {},
-                   ssm=ssm, conv=conv)
+                   quota, ssm=ssm, conv=conv)
 
     # -- pool delegation ------------------------------------------------------
 
@@ -155,8 +187,12 @@ class PagedKVCache:
 
     @property
     def n_free_blocks(self) -> int:
-        """Blocks not yet reserved by an admitted sequence."""
-        return self.num_blocks - self.reserved_blocks
+        """Blocks this view may still reserve: the pool's unreserved
+        blocks, capped by what is left of the view's quota."""
+        n = self.pool.num_blocks - self.pool.reserved
+        if self.quota is not None:
+            n = min(n, self.quota - self.reserved_blocks)
+        return n
 
     def _blocks(self, tokens: int) -> int:
         return (tokens + self.block_size - 1) // self.block_size
@@ -176,17 +212,25 @@ class PagedKVCache:
         reserve = max(n, self._blocks(total_tokens))
         blocks = self.allocator.alloc(n)
         self.used_blocks += n
+        self._register(slot, blocks, prompt_len, reserve)
+
+    def _register(self, slot: int, blocks: list[int], seq_len: int,
+                  reserve: int) -> None:
+        """Book ``reserve`` blocks against the view and the pool and write
+        the slot's host and device table rows."""
         self.reserved_blocks += reserve
+        self.pool.reserved += reserve
         self.seq_reserved[slot] = reserve
-        self.seq_blocks[slot] = blocks
+        self.seq_blocks[slot] = list(blocks)
+        n = len(blocks)
         self.block_table[slot, :] = 0
         self.block_table[slot, :n] = blocks
-        self.seq_lens[slot] = prompt_len
+        self.seq_lens[slot] = seq_len
         # incremental device sync: one row write per admission
         row = np.full(self.max_blocks_per_seq, self.num_blocks, np.int32)
         row[:n] = blocks
         self.block_table_dev[slot] = torch.from_numpy(row).to(self.device)
-        self.seq_lens_dev[slot] = prompt_len
+        self.seq_lens_dev[slot] = seq_len
 
     def can_admit(self, prompt_len: int, total_tokens: int) -> bool:
         """Whether the lifetime reservation of a sequence of ``total_tokens``
@@ -239,14 +283,62 @@ class PagedKVCache:
             torch.tensor(vals, dtype=torch.int32, device=self.device))
 
     def release_slot(self, slot: int) -> None:
+        self.allocator.release(self._unregister(slot))
+
+    def release_all(self) -> None:
+        """Return every block this view holds to the pool (teardown)."""
+        for slot in list(self.seq_blocks):
+            self.release_slot(slot)
+
+    def _unregister(self, slot: int) -> list[int]:
+        """Take a slot out of the view's and the pool's accounting and
+        reset its table rows; returns its blocks, still allocated."""
         blocks = self.seq_blocks.pop(slot, [])
-        self.allocator.release(blocks)
         self.used_blocks -= len(blocks)
-        self.reserved_blocks -= self.seq_reserved.pop(slot, len(blocks))
+        reserve = self.seq_reserved.pop(slot, len(blocks))
+        self.reserved_blocks -= reserve
+        self.pool.reserved -= reserve
         self.seq_lens[slot] = 0
         self.block_table[slot, :] = 0
         self.block_table_dev[slot] = self.num_blocks
         self.seq_lens_dev[slot] = 0
+        return blocks
+
+    # -- ownership transfer (page handoff between views) -----------------------
+
+    def disown_slot(self, slot: int) -> tuple[list[int], int]:
+        """Take a sequence out of this view's accounting without releasing
+        its blocks to the allocator.
+
+        Returns ``(blocks, seq_len)``.  The caller now owns the pages; they
+        must end in ``adopt_slot`` on a view of the same pool or in the
+        allocator's ``release``, or the pool leaks.
+        """
+        seq_len = int(self.seq_lens[slot])
+        blocks = self.seq_blocks[slot]      # KeyError for an empty slot
+        self._unregister(slot)
+        return blocks, seq_len
+
+    def can_adopt(self, n_blocks: int, total_tokens: int) -> bool:
+        return self.n_free_blocks >= max(n_blocks,
+                                         self._blocks(total_tokens))
+
+    def adopt_slot(self, slot: int, blocks: list[int], seq_len: int,
+                   total_tokens: int | None = None) -> None:
+        """Adopt already-allocated blocks of this view's pool into a slot:
+        the inverse of ``disown_slot``.  The data stays where it is; only
+        the accounting and the (host + device) table rows move."""
+        n = len(blocks)
+        if n > self.max_blocks_per_seq:
+            raise MemoryError("adopted sequence exceeds max_blocks_per_seq")
+        total = total_tokens or seq_len
+        reserve = max(n, self._blocks(total))
+        if not self.can_adopt(n, total):
+            raise MemoryError(
+                f"cannot adopt {n} blocks (reserve {reserve}): view has "
+                f"{self.n_free_blocks} free")
+        self.used_blocks += n
+        self._register(slot, blocks, seq_len, reserve)
 
     # -- device writes ---------------------------------------------------------
 
@@ -254,19 +346,7 @@ class PagedKVCache:
                       v_seq: torch.Tensor) -> None:
         """k_seq/v_seq: [L, S, Hkv, D] from prefill; written into the
         slot's pages in place."""
-        L, S, Hkv, D = k_seq.shape
-        bs = self.block_size
-        n = (S + bs - 1) // bs
-        pad = n * bs - S
-        if pad:
-            k_seq = torch.nn.functional.pad(k_seq, (0, 0, 0, 0, 0, pad))
-            v_seq = torch.nn.functional.pad(v_seq, (0, 0, 0, 0, 0, pad))
-        kb = k_seq.reshape(L, n, bs, Hkv, D).transpose(2, 3)  # [L,n,Hkv,bs,D]
-        vb = v_seq.reshape(L, n, bs, Hkv, D).transpose(2, 3)
-        idx = torch.tensor(self.seq_blocks[slot], dtype=torch.long,
-                           device=self.device)
-        self.k[:, idx] = kb.to(self.k.dtype)
-        self.v[:, idx] = vb.to(self.v.dtype)
+        scatter_tokens(self.pool, self.seq_blocks[slot], k_seq, v_seq)
 
     def write_token(self, slots: np.ndarray, k_new: torch.Tensor,
                     v_new: torch.Tensor, positions: np.ndarray) -> None:
@@ -306,3 +386,73 @@ class PagedKVCache:
         lens = torch.as_tensor(self.seq_lens[slots], dtype=torch.int32,
                                device=dev)
         return self.k[idx], self.v[idx], lens
+
+
+# --------------------------------------------------------------------------
+# Pool-to-pool page movement (cross-pool KV migration).
+#
+# Plain tensor indexing, in place, as the JAX package computes these with
+# jnp outside any kernel.  The JAX package pads the index vectors to a
+# power of two only to bound its jit compilations; eager indexing compiles
+# nothing, so the port passes the vectors as they are.  An index on the
+# right-hand side gathers a copy, so a destination page never aliases its
+# source.
+# --------------------------------------------------------------------------
+
+
+def copy_blocks(src: BlockPool, dst: BlockPool,
+                src_blocks: list[int], dst_blocks: list[int]) -> None:
+    """Copy pages between two pools of the same geometry."""
+    if (src.block_size != dst.block_size
+            or src.k.shape[2:] != dst.k.shape[2:]):
+        raise ValueError("copy_blocks needs matching page geometry; use "
+                         "relayout_blocks")
+    if len(src_blocks) != len(dst_blocks):
+        raise ValueError("src/dst block lists differ in length")
+    if not src_blocks:
+        return
+    src_idx = torch.tensor(src_blocks, dtype=torch.long, device=src.device)
+    dst_idx = torch.tensor(dst_blocks, dtype=torch.long, device=dst.device)
+    dst.k[:, dst_idx] = src.k[:, src_idx].to(dst.k.dtype)
+    dst.v[:, dst_idx] = src.v[:, src_idx].to(dst.v.dtype)
+
+
+def gather_tokens(pool: BlockPool, blocks: list[int], seq_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sequence's K/V as dense copies [L, seq_len, Hkv, D]."""
+    idx = torch.tensor(blocks, dtype=torch.long, device=pool.device)
+    k = pool.k[:, idx]                       # [L, n, Hkv, bs, D]
+    v = pool.v[:, idx]
+    L, n, H, bs, D = k.shape
+    k = k.transpose(2, 3).reshape(L, n * bs, H, D)[:, :seq_len]
+    v = v.transpose(2, 3).reshape(L, n * bs, H, D)[:, :seq_len]
+    return k, v
+
+
+def scatter_tokens(pool: BlockPool, blocks: list[int],
+                   k_seq: torch.Tensor, v_seq: torch.Tensor) -> None:
+    """Write dense [L, S, Hkv, D] K/V into the given pages of ``pool``,
+    re-chunked to its page size."""
+    L, S, H, D = k_seq.shape
+    bs = pool.block_size
+    n = (S + bs - 1) // bs
+    if n != len(blocks):
+        raise ValueError(f"{S} tokens need {n} blocks, got {len(blocks)}")
+    pad = n * bs - S
+    if pad:
+        k_seq = torch.nn.functional.pad(k_seq, (0, 0, 0, 0, 0, pad))
+        v_seq = torch.nn.functional.pad(v_seq, (0, 0, 0, 0, 0, pad))
+    kb = k_seq.reshape(L, n, bs, H, D).transpose(2, 3)   # [L, n, H, bs, D]
+    vb = v_seq.reshape(L, n, bs, H, D).transpose(2, 3)
+    idx = torch.tensor(blocks, dtype=torch.long, device=pool.device)
+    pool.k[:, idx] = kb.to(pool.k.dtype)
+    pool.v[:, idx] = vb.to(pool.v.dtype)
+
+
+def relayout_blocks(src: BlockPool, dst: BlockPool,
+                    src_blocks: list[int], dst_blocks: list[int],
+                    seq_len: int) -> None:
+    """Move one sequence between pools whose page size differs: dense
+    gather, then re-chunked scatter, on the device."""
+    k, v = gather_tokens(src, src_blocks, seq_len)
+    scatter_tokens(dst, dst_blocks, k, v)

@@ -18,6 +18,7 @@ def _port_files():
         ROOT / "tools" / "b1_b4_variants.py",
         ROOT / "tools" / "b2_rounding.py",
         ROOT / "tools" / "conv_rounding.py",
+        ROOT / "tools" / "migrate_agreement.py",
         ROOT / "tools" / "profile_modes.py"]
 
 

@@ -7,6 +7,9 @@ This file imports no JAX, so that it runs where only the port is
 installed.  Its cases and seeded numpy inputs are shared with the CPU
 tests of the plain versions against JAX (``test_torch_kernels.py``).
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -454,3 +457,99 @@ def test_ssd_chunk_kernel_matches_plain(cuda, name, B, Nc, Q, H, P, N, G):
     y_want, S_want = ref.ssd_chunk_plain(x, dt, A, Bm, Cm)
     assert row_rel_err(y, y_want) <= ROW_RTOL_SSD
     assert row_rel_err(S, S_want) <= ROW_RTOL_SSD
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,H,P,N,n", [
+    (256, 25, 64, 16, 203),     # hymba, a prefill's last chunk
+    (256, 32, 64, 128, 77),     # mamba2
+    (100, 4, 32, 16, 9),
+], ids=["hymba", "mamba2", "ragged-q"])
+def test_ssd_chunk_kernel_rows_do_not_depend_on_later_rows(cuda, Q, H, P,
+                                                           N, n):
+    """y's first n rows are bit-equal whether the rows after them hold
+    zeros (a prefill's padded tail) or real tokens: a re-prefill of a
+    context must leave the state a longer forward computes for it."""
+    x, dt, A, Bm, Cm = to_torch(*ssd_inputs(17, 1, 1, Q, H, P, N),
+                                device=cuda)
+    cut = [t.clone() for t in (x, dt, Bm, Cm)]
+    for t in cut:
+        t[:, :, n:] = 0
+    y, _ = tssd.ssd_chunk(x, dt, A, Bm, Cm)
+    y_cut, _ = tssd.ssd_chunk(cut[0], cut[1], A, cut[2], cut[3])
+    assert torch.equal(y[:, :, :n], y_cut[:, :, :n])
+
+
+# --------------------------------------------------------------------------
+# KV migration on the card: the engine's page moves and the streams that
+# resume after them (smoke configs; the CPU parity against the JAX package
+# is ``test_torch_migration.py``).
+# --------------------------------------------------------------------------
+
+# (arch, path): every restore path of each model family; mamba2 keeps no
+# pages, so it has none to re-lay out
+MIGRATIONS = [(arch, path) for arch in ("yi-9b", "hymba-1.5b", "mamba2-370m")
+              for path in ("handoff", "copy", "relayout", "reprefill")
+              if (arch, path) != ("mamba2-370m", "relayout")]
+
+
+def _chip_smoke():
+    """``chip_smoke.py``, whose migration driver these tests share."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _migrate(device, arch, path, dtype):
+    """Serve three seeded requests two steps on a source engine, move them
+    by ``path`` (relayout: to 4-token pages) and finish on the destination.
+    Returns the migrated streams, the uninterrupted ones, the report, and
+    each request's K/V gathered from its pages just before the export and
+    just after the move ({rid: (k, v)}; handoff, copy and relayout)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cs = _chip_smoke()
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=0, dtype=dtype, device=device)
+    rng = np.random.RandomState(5)
+    jobs = {rid: (rng.randint(0, cfg.vocab_size, n).astype(np.int32), new)
+            for rid, (n, new) in enumerate(((40, 10), (13, 12), (27, 9)))}
+    ref_eng = ServingEngine(cfg, params, num_blocks=128, block_size=8,
+                            max_seqs=4, dtype=dtype, device=device)
+    for rid, (p, n) in jobs.items():
+        ref_eng.submit(rid, p, n)
+    want = {r.rid: r.generated for r in ref_eng.run_to_completion()}
+    src, dst = cs.migration_engines(cfg, params, device, path,
+                                    num_blocks=64, block_size=8, max_seqs=4,
+                                    dtype=dtype)
+    got = cs.serve_part_way(src, jobs, steps=2)
+    before = {} if path == "reprefill" else cs.kv_in_flight(src)
+    report = cs.move_inflight(src, dst, path).report
+    after = cs.kv_in_flight(dst)
+    got.update({r.rid: r.generated for r in dst.run_to_completion()})
+    return got, want, report, before, after
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["handoff", "copy", "relayout"])
+@pytest.mark.parametrize("arch", ["yi-9b", "hymba-1.5b"])
+def test_page_moves_are_bit_exact_on_the_card(cuda, arch, path):
+    _, _, report, before, after = _migrate(cuda, arch, path, torch.bfloat16)
+    assert report.migrated == 3 and report.recompute_tokens == 0
+    assert sorted(before) == sorted(after) == [0, 1, 2]
+    for rid in before:
+        for b, a in zip(before[rid], after[rid]):
+            assert b.shape == a.shape and torch.equal(b, a), rid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,path", MIGRATIONS)
+def test_migrated_stream_equals_uninterrupted_on_the_card(cuda, arch, path):
+    got, want, report, _, _ = _migrate(cuda, arch, path, torch.float32)
+    assert got == want
+    expect = {"handoff": "handoff", "copy": "copied", "relayout": "copied",
+              "reprefill": "reprefilled"}[path]
+    assert getattr(report, expect) == 3

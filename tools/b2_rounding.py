@@ -36,13 +36,27 @@ plain-bf16p's, with no scale bias beyond it, the kernel adds nothing to
 the rounding of P, and the agreement of the three variants shows how far
 roundings alone move it.  The last line is one JSON object with the card
 and every reading.
+
+    python3 tools/b2_rounding.py --seeds 8
+
+One run's agreement is one draw: it moves 0.01-0.03 with any rounding.
+With ``--seeds N`` the tool asks instead whether P's rounding moves it
+systematically.  For the weight seeds 0 .. N - 1 of hymba-1.5b (and
+0 .. N/2 - 1 of yi-9b) it serves the phase-5 job uninterrupted (paged,
+horizon 8) and migrated by re-prefill after ``chip_smoke.py``'s
+MIGRATE_AFTER tokens (its migrate run), once with each of kernel and
+plain, and prints each run's agreement, each variant's mean and least
+over the seeds, and the mean of the paired differences with its
+standard error.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -122,7 +136,81 @@ class ErrorProbe:
                 for name in self.NAMES}
 
 
+def over_seeds(cs, variants: dict, n_seeds: int) -> list[dict]:
+    """The ``--seeds`` readings: for each model and weight seed, the
+    phase-5 job's agreement uninterrupted and re-prefilled, with B2's
+    route swapped for kernel and for plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    kernel = ops.flash_attention
+    kw = dict(cs.FULL_WIDTH_ENGINE, **cs.PAGED)
+    names = ("kernel", "plain")
+    readings = []
+    for arch, seeds in (("hymba-1.5b", n_seeds), ("yi-9b", n_seeds // 2)):
+        cfg = get_config(arch)
+        prompts = cs.full_width_prompts(cfg)
+        jobs = {r: (p, 32) for r, p in enumerate(prompts)}
+        table = {}
+        for seed in range(seeds):
+            params = init_params(cfg, seed=seed, dtype=torch.bfloat16,
+                                 device="cuda")
+            for name in names:
+                ops.flash_attention = variants[name]
+                try:
+                    fin, _, _ = cs.serve(cfg, params, prompts, 32, "cuda",
+                                         **kw)
+                    streams = {"uninterrupted":
+                               {r: fin[r].generated for r in fin}}
+                    src, dst = cs.migration_engines(cfg, params, "cuda",
+                                                    "reprefill", **kw)
+                    cs.serve_part_way(src, jobs, after=cs.MIGRATE_AFTER)
+                    cs.move_inflight(src, dst, "reprefill")
+                    streams["reprefill"] = {
+                        r.rid: r.generated for r in dst.run_to_completion()}
+                    del src, dst
+                    for run, got in streams.items():
+                        agree = float(np.mean([
+                            cs.teacher_forced_agreement(
+                                cfg, params, prompts[r], got[r])
+                            for r in sorted(got)]))
+                        table[run, name, seed] = agree
+                        readings.append({"arch": arch, "seed": seed,
+                                         "run": run, "b2": name,
+                                         "agreement": agree})
+                        print(f"{arch} seed {seed} {run} B2 {name}: "
+                              f"agreement {agree:.4f}", flush=True)
+                finally:
+                    ops.flash_attention = kernel
+            del params
+            torch.cuda.empty_cache()
+        for run in ("uninterrupted", "reprefill"):
+            by = {name: np.array([table[run, name, s] for s in range(seeds)])
+                  for name in names}
+            diff = by["plain"] - by["kernel"]
+            se = float(diff.std(ddof=1) / np.sqrt(seeds)) if seeds > 1 \
+                else 0.0
+            summary = {"arch": arch, "run": run, "seeds": seeds,
+                       "plain_minus_kernel": float(diff.mean()),
+                       "stderr": se}
+            for name in names:
+                summary[f"mean_{name}"] = float(by[name].mean())
+                summary[f"min_{name}"] = float(by[name].min())
+            readings.append(summary)
+            print(f"{arch} {run} over {seeds} seeds: kernel mean "
+                  f"{summary['mean_kernel']:.4f} (least "
+                  f"{summary['min_kernel']:.4f}), plain mean "
+                  f"{summary['mean_plain']:.4f} (least "
+                  f"{summary['min_plain']:.4f}), plain - kernel "
+                  f"{diff.mean():+.4f} +- {se:.4f}", flush=True)
+    return readings
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seeds", type=int, default=0,
+                    help="the agreement over this many weight seeds instead")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("b2_rounding: no CUDA device", file=sys.stderr)
         return 1
@@ -138,6 +226,10 @@ def main() -> int:
     kernel = ops.flash_attention         # the route to B2 on the card
     variants = {"kernel": kernel, "plain": ref.flash_attention_ref,
                 "plain-bf16p": plain_bf16p}
+    if args.seeds:
+        print(json.dumps({"card": card,
+                          "readings": over_seeds(cs, variants, args.seeds)}))
+        return 0
     order = ("kernel", "plain", "plain-bf16p", "plain-bf16p", "plain",
              "kernel")
     jobs = (("yi-9b", ("paged", "chunked")), ("hymba-1.5b", ("paged",)))
