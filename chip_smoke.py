@@ -4,9 +4,9 @@
 
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; it exits non-zero without them.  Phases, in order (a failure exits
-non-zero before the result lines; a failed check of phase 5's "migrate"
-runs is reported, and exits non-zero, after phase 6 has run and printed
-its table):
+non-zero before the result lines; a failed check of phase 5's "migrate",
+"prefix" or "evict" runs is reported, and exits non-zero, after phase 6
+has run and printed its table):
 
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
@@ -25,10 +25,14 @@ its table):
      bit (a row's output is the same whatever rows follow it);
   4. greedy decoding: the smoke configs give the same tokens on the card
      and the CPU in every engine mode (paged at decode_horizon 1 and 8,
-     the dense mode, chunked prefill); 2-layer full-width yi-9b, hymba-1.5b and
-     mamba2-370m (fp32) give the same tokens in every mode (chunked prefill
-     in 64-token chunks; ignored by the SSM models) and agree with a
-     teacher-forced forward; on both, requests served two steps, exported
+     the dense mode, chunked prefill, the prefix cache); 2-layer full-width
+     yi-9b, hymba-1.5b and mamba2-370m (fp32) give the same tokens in every
+     mode (chunked prefill in 64-token chunks; chunks and the cache are
+     ignored by the SSM models) and agree with a teacher-forced forward; on
+     both, a shared-template job (a template, unique tails and a retry of
+     the first prompt) gives the same tokens with the prefix cache on and
+     off, and hits on every request after the first where the model has
+     no SSM layers; on both, requests served two steps, exported
      and migrated (page handoff in one shared pool, a copy into another
      pool, a relayout into a pool of half-size pages, re-prefill; mamba2
      has no pages to re-lay out) finish with the same tokens as the same
@@ -58,7 +62,20 @@ its table):
      the path up, and the stall (export until the pages are resident, and
      until every request's next token) is the median of 3 rounds on one
      more serve of the job, each a move to the destination, a step there
-     and a move back;
+     and a move back; then, on the same yi-9b weights, the "prefix" runs:
+     a 768-token template, 7 requests of it and a unique 64-token tail and
+     a retry of request 0, 32 new tokens each, request 0 alone to its
+     first token and then the rest, served with the cache off and on; the
+     prefill tokens, hits, misses, hit tokens and prefill-kernel launches
+     must equal the counts derived from the prompts (on: some at a query
+     offset), request 0's published pages must be unchanged by the hits,
+     every block free or held by the index alone after retirement, and
+     the 90 % agreement must hold; last the "evict" run: two 768-token
+     templates served A, B, A, B through one slot and a 60-page pool, each
+     revisit prefilling 1 token, each restored page bit-equal to its
+     gather before eviction, whole pages moved, no block lost, and the
+     host tier's time a page for an eviction and a restore beside a plain
+     pinned copy of the same bytes;
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
@@ -147,6 +164,19 @@ MIGRATE = {"yi-9b": ("handoff", "copy", "relayout", "reprefill"),
 # tokens; the stall is the median of STALL_ROUNDS rounds after the checked
 # run, which warms the path up
 MIGRATE_AFTER, STALL_ROUNDS = 8, 3
+# phase 5's prefix-cache runs, after the migrate runs on the same weights:
+# the "prefix" job (a 768-token template, 7 requests of it and a unique
+# 64-token tail, then a retry of request 0; 32 new tokens each) and the
+# "evict" job (two 768-token templates served A, B, A, B through one slot
+# and a pool of EVICT_BLOCKS pages, so each visit evicts the other
+# template's cold pages to the host tier and the next restores them)
+PREFIX_MODELS = ("yi-9b",)
+PREFIX_JOB = dict(template=768, tail=64, n=8, new_tokens=32)
+EVICT_JOB = dict(template=768, visits=4, new_tokens=8)
+EVICT_BLOCKS = 60
+# the host tier's rates: HOST_ROUNDS rounds of HOST_PAGES evictions, then
+# as many restores, beside a plain pinned copy of the same bytes
+HOST_PAGES, HOST_ROUNDS = 32, 3
 
 
 def log(*args) -> None:
@@ -716,14 +746,101 @@ def check_migrated_streams(name, cfg, params, prompts, new_tokens, device,
 
 
 # phase 4's engine modes: paged decode at horizons 1 and 8, the dense
-# decode mode, and chunked prefill (8-token chunks on the smoke configs;
-# the SSM models ignore it and prefill one-shot)
+# decode mode, chunked prefill (8-token chunks on the smoke configs) and
+# the prefix cache (the SSM models ignore the last two: they prefill
+# one-shot and cache nothing)
 SMOKE_MODES = {
     "H=1": dict(decode_horizon=1),
     "H=8": dict(decode_horizon=8),
     "dense": dict(decode_mode="dense"),
     "chunked": dict(decode_horizon=8, prefill_chunk_tokens=8),
+    "prefix": dict(decode_horizon=8, prefix_cache=True),
 }
+
+
+def prefix_prompts(cfg, seed: int, template: int, tail: int, n: int
+                   ) -> list:
+    """A shared-template job: ``n - 1`` prompts of one ``template``-token
+    template and a unique ``tail``-token tail, then request 0's prompt
+    again (a retry: the cache covers it whole, so it diverges inside its
+    last page by copy-on-write)."""
+    rng = np.random.RandomState(seed)
+    shared = rng.randint(0, cfg.vocab_size, template).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(0, cfg.vocab_size, tail)
+                               .astype(np.int32)]) for _ in range(n - 1)]
+    return prompts + [prompts[0].copy()]
+
+
+def prefix_counts(cfg, prompts, block_size: int) -> dict:
+    """What the prefix cache must count on a ``prefix_prompts`` job served
+    as ``serve_prefix_job`` serves it, from the prompts: request 0 misses
+    and prefills whole; each tail request attaches the template's full
+    pages and prefills the rest; the retry attaches all but its last token.
+    ``b2_forwards`` is the prefill forwards with the cache off (request 0,
+    then the rest in one group) and on (one a request)."""
+    n, total = len(prompts), len(prompts[0])
+    shared = 0
+    while (shared < total and prompts[0][shared] == prompts[1][shared]):
+        shared += 1
+    page_hit = shared // block_size * block_size
+    tails = n - 2
+    return dict(prefill_off=n * total,
+                prefill_on=total + tails * (total - page_hit) + 1,
+                hits=n - 1, misses=1,
+                hit_tokens=tails * page_hit + total - 1,
+                b2_forwards_off=2, b2_forwards_on=n)
+
+
+def serve_prefix_job(cfg, params, prompts, new_tokens, device,
+                     after_first=None, **engine_kw):
+    """Serve a shared-template job: request 0 alone until its first token
+    (its pages are then in the index), then the others together;
+    ``after_first(engine)`` is called in between.  Returns the finished
+    requests by rid, the engine and the wall in s."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, device=device, **engine_kw)
+    t0 = time.monotonic()
+    eng.submit(0, prompts[0], new_tokens)
+    fin = {r.rid: r for r in eng.step()}
+    if after_first is not None:
+        after_first(eng)
+    for rid, p in enumerate(prompts[1:], 1):
+        eng.submit(rid, p, new_tokens)
+    fin.update({r.rid: r for r in eng.run_to_completion()})
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return fin, eng, time.monotonic() - t0
+
+
+def check_prefix_streams(name, cfg, params, device, prompts, new_tokens,
+                         **engine_kw) -> dict:
+    """A shared-template job gives the same streams with the prefix cache
+    on and off; for an attention-only model the cache must hit every
+    request after the first.  Returns the streams."""
+    t0 = time.monotonic()
+    out = {}
+    for cache in (False, True):
+        fin, eng, _ = serve_prefix_job(cfg, params, prompts, new_tokens,
+                                       device, prefix_cache=cache,
+                                       **engine_kw)
+        out[cache] = ({r: fin[r].generated for r in fin},
+                      eng.load_stats())
+    stats = out[True][1]
+    cached = cfg.has_attn and not cfg.has_ssm
+    hits_ok = (stats["prefix_hits"] == len(prompts) - 1
+               and stats["prefill_tokens"] < out[False][1]["prefill_tokens"]
+               if cached else stats["prefix_hits"] == 0)
+    log(f"  {name} shared-template job on {device}: cache on == off "
+        f"{out[True][0] == out[False][0]}; prefill_tokens "
+        f"{out[False][1]['prefill_tokens']} -> {stats['prefill_tokens']}, "
+        f"hits {stats['prefix_hits']} misses {stats['prefix_misses']} "
+        f"hit_tokens {stats['prefix_hit_tokens']} "
+        f"({time.monotonic() - t0:.1f} s)")
+    if out[True][0] != out[False][0] or not hits_ok:
+        raise SystemExit(f"{name}: the shared-template job on {device} "
+                         "differs with the prefix cache on, or it did not "
+                         "hit as it must")
+    return out[True][0]
 
 
 def phase_greedy() -> None:
@@ -745,6 +862,13 @@ def phase_greedy() -> None:
                                     **smoke_engine, **kw)
                 runs[dev, mode] = ({r: fin[r].generated for r in fin},
                                    eng.decode_syncs)
+        shared = {dev: check_prefix_streams(
+            cfg.name, cfg, params, dev, prefix_prompts(cfg, 4, 24, 8, 6),
+            12, **smoke_engine, **SMOKE_MODES["H=8"])
+            for dev, params in (("cpu", p_cpu), ("cuda", p_gpu))}
+        if shared["cuda"] != shared["cpu"]:
+            raise SystemExit(f"{cfg.name}: the shared-template job's tokens "
+                             "differ between the card and the CPU")
         same = {m: runs["cuda", m][0] == runs["cpu", m][0]
                 for m in SMOKE_MODES}
         across = all(v[0] == runs["cpu", "H=1"][0] for v in runs.values())
@@ -785,6 +909,16 @@ def phase_greedy() -> None:
         if not all(same.values()) or agree < 1.0:
             raise SystemExit(f"{arch}: full-width 2-layer greedy check "
                              "failed")
+        job = prefix_prompts(cfg, 5, 48, 16, 4)
+        shared = check_prefix_streams(f"{arch} 2-layer", cfg, params, "cuda",
+                                      job, 16, **engine_kw,
+                                      **full_modes["H=8"])
+        agree = min(teacher_forced_agreement(cfg, params, job[r], shared[r])
+                    for r in shared)
+        if agree < 1.0:
+            raise SystemExit(f"{arch}: the 2-layer shared-template job "
+                             f"disagrees with the teacher-forced forward "
+                             f"({agree:.3f})")
         check_migrated_streams(f"{arch} 2-layer", cfg, params, prompts, 16,
                                "cuda", out["H=1"], **engine_kw,
                                **full_modes["H=8"])
@@ -892,6 +1026,10 @@ def phase_full_width(ops, arch: str, variants: tuple,
     for path in MIGRATE.get(arch, ()):
         failures += phase_migrate(ops, cfg, params, prompts, path,
                                   runs[0]["streams"])
+        torch.cuda.empty_cache()
+    if arch in PREFIX_MODELS:
+        failures += phase_prefix(ops, cfg, params)
+        failures += phase_evict(ops, cfg, params)
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -1032,6 +1170,249 @@ def phase_migrate(ops, cfg, params, prompts, path, paged_streams
     if not leak_free:
         failed.append(f"{arch} migrate {path}: pages or reservations "
                       "leaked")
+    return failed
+
+
+def index_held(pc) -> list:
+    """The blocks the prefix index holds on the device."""
+    return [e.block for e in pc.index.values() if e.block is not None]
+
+
+def phase_prefix(ops, cfg, params) -> list[str]:
+    """The "prefix" job at full width, served with the cache off and then
+    on (``serve_prefix_job``): the exact counts ``prefix_counts`` derives
+    from the prompts, the prefill kernel's launches (one per layer and
+    forward, some at a query offset on the cache-on run), the teacher-
+    forced agreement, the pages request 0 published unchanged by the hits
+    that prefilled and decoded over them, and every block free or held by
+    the index alone after retirement.  Returns the checks that failed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.kvcache import gather_tokens
+    t_start = time.monotonic()
+    job = PREFIX_JOB
+    prompts = prefix_prompts(cfg, 2, job["template"], job["tail"], job["n"])
+    bs = FULL_WIDTH_ENGINE["block_size"]
+    want = prefix_counts(cfg, prompts, bs)
+    L = cfg.n_layers
+    failed, streams, published = [], {}, {}
+
+    def keep_published(eng):
+        # request 0's pages as the index holds them after its prefill
+        pool = eng.cache.pool
+        published.update({k: gather_tokens(pool, [e.block], bs)
+                          for k, e in eng.prefix_cache.index.items()})
+
+    for cache in (False, True):
+        name = "on" if cache else "off"
+        ops.reset_launch_counts()
+        fin, eng, wall = serve_prefix_job(
+            cfg, params, prompts, job["new_tokens"], "cuda",
+            after_first=keep_published if cache else None,
+            prefix_cache=cache, **FULL_WIDTH_ENGINE, **PAGED)
+        counts = ops.launch_counts()
+        offset = fa.flash_attention.offset_launches
+        stats = eng.load_stats()
+        streams[cache] = {r: fin[r].generated for r in fin}
+        ttft = [fin[r].t_first - fin[r].t_submit for r in range(1, job["n"])]
+        _, decode_rate = serving_times(fin, wall)
+        exact = (stats["prefill_tokens"] == want[f"prefill_{name}"]
+                 and counts["flash_attention"]
+                 == want[f"b2_forwards_{name}"] * L)
+        if cache:
+            exact = (exact and stats["prefix_hits"] == want["hits"]
+                     and stats["prefix_misses"] == want["misses"]
+                     and stats["prefix_hit_tokens"] == want["hit_tokens"]
+                     and offset > 0)
+        log(f"  [prefix {name}] {len(prompts)} requests of "
+            f"{len(prompts[0])} tokens (template {job['template']}, the "
+            f"last a retry of request 0), {job['new_tokens']} new tokens "
+            f"each: prefill_tokens {stats['prefill_tokens']} (want "
+            f"{want[f'prefill_{name}']}), hits {stats['prefix_hits']} "
+            f"misses {stats['prefix_misses']} hit_tokens "
+            f"{stats['prefix_hit_tokens']} (want {want['hits']} / "
+            f"{want['misses']} / {want['hit_tokens']}), B2 launches "
+            f"{counts['flash_attention']} (want "
+            f"{want[f'b2_forwards_{name}'] * L}), at a query offset "
+            f"{offset}; exact {exact}")
+        log(f"  [prefix {name}] wall {wall:.3f} s  TTFT over requests 1-"
+            f"{job['n'] - 1} mean {np.mean(ttft) * 1e3:.1f} ms max "
+            f"{np.max(ttft) * 1e3:.1f} ms  decode {decode_rate:.1f} tok/s "
+            f"(after the last first token)  launches {counts}")
+        if not exact:
+            failed.append(f"{cfg.name} prefix {name}: the counts are not "
+                          "the exact ones")
+        if not cache:
+            continue
+        pc, pool = eng.prefix_cache, eng.cache.pool
+        per_req = [teacher_forced_agreement(cfg, params, prompts[r],
+                                            streams[cache][r])
+                   for r in sorted(streams[cache])]
+        agree = float(np.mean(per_req))
+        same = bool(published) and all(
+            all(torch.equal(a, b) for a, b in
+                zip(gather_tokens(pool, [pc.index[k].block], bs), kv))
+            for k, kv in published.items())
+        held = index_held(pc)
+        clean = (pool.reserved == 0 and pool.allocator.pinned == 0
+                 and all(pool.allocator.refs[b] == 1 for b in held)
+                 and pool.allocator.n_free + len(held) == pool.num_blocks)
+        log(f"  [prefix on] teacher-forced agreement (bf16, all "
+            f"{len(per_req)} requests) {agree:.4f}, min {min(per_req):.4f}; "
+            f"limit {MIN_TEACHER_FORCED}; streams equal to the cache-off "
+            f"run {streams[True] == streams[False]}")
+        log(f"  [prefix on] after retirement: {pool.allocator.n_free} free "
+            f"+ {len(held)} held by the index (all at count 1 "
+            f"{all(pool.allocator.refs[b] == 1 for b in held)}) of "
+            f"{pool.num_blocks}; pinned {pool.allocator.pinned}, reserved "
+            f"{pool.reserved}; clean {clean}")
+        log(f"  [prefix on] the {len(published)} pages request 0 published "
+            f"are unchanged after {pc.hits} hits prefilled and decoded over "
+            f"them {same}; the prefix runs took "
+            f"{time.monotonic() - t_start:.1f} s")
+        if not same:
+            failed.append(f"{cfg.name} prefix on: a hit wrote into a shared "
+                          "page")
+        if agree < MIN_TEACHER_FORCED:
+            failed.append(f"{cfg.name} prefix on: decode agrees with the "
+                          f"teacher-forced forward on {agree:.4f} of the "
+                          f"tokens, under {MIN_TEACHER_FORCED}")
+        if not clean:
+            failed.append(f"{cfg.name} prefix on: blocks or reservations "
+                          "left after retirement")
+    return failed
+
+
+def phase_evict(ops, cfg, params) -> list[str]:
+    """The "evict" job at full width: two templates served A, B, A, B
+    through one slot and a pool of EVICT_BLOCKS pages.  Every visit after
+    the first of each template prefills 1 token, every restored page is
+    bit-equal to its gather just before its eviction, the evicted and
+    restored bytes are whole pages, no block is lost, the prefill kernel
+    runs once per layer and visit (at a query offset on a revisit) and the
+    paged decode kernel runs, and decode agrees with the teacher-forced
+    forward.  Then the host tier's rates: HOST_PAGES evictions and as many
+    restores a round, beside a plain pinned copy of the same bytes.
+    Returns the checks that failed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kvcache import gather_tokens
+    t_start = time.monotonic()
+    job = EVICT_JOB
+    rng = np.random.RandomState(3)
+    templates = [rng.randint(0, cfg.vocab_size, job["template"])
+                 .astype(np.int32) for _ in range(2)]
+    prompts = [templates[i % 2] for i in range(job["visits"])]
+    kw = dict(FULL_WIDTH_ENGINE, num_blocks=EVICT_BLOCKS, max_seqs=1)
+    eng = ServingEngine(cfg, params, device="cuda", prefix_cache=True,
+                        **kw, **PAGED)
+    pc, pool = eng.prefix_cache, eng.cache.pool
+    bs, page = pool.block_size, pool.page_nbytes
+    # every eviction keeps its page's gather; every restore compares
+    saved, restored = {}, []
+    evict, restore = pc._evict, pc._restore
+
+    def evict_kept(e):
+        saved[e.key] = gather_tokens(pool, [e.block], bs)
+        evict(e)
+
+    def restore_checked(e):
+        restore(e)
+        got = gather_tokens(pool, [e.block], bs)
+        restored.append(all(torch.equal(a, b)
+                            for a, b in zip(got, saved[e.key])))
+
+    pc._evict, pc._restore = evict_kept, restore_checked
+    prefills, conserved, streams = [], [], {}
+    ops.reset_launch_counts()
+    for rid, p in enumerate(prompts):
+        mark = eng.prefill_tokens
+        eng.submit(rid, p, job["new_tokens"])
+        streams.update({r.rid: r.generated for r in eng.run_to_completion()})
+        prefills.append(eng.prefill_tokens - mark)
+        held = index_held(pc)
+        conserved.append(
+            pool.allocator.n_free + len(held) == pool.num_blocks
+            and all(pool.allocator.refs[b] == 1 for b in held)
+            and pool.reserved == pool.allocator.pinned == 0)
+    pc._evict, pc._restore = evict, restore
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    offset = fa.flash_attention.offset_launches
+    L = cfg.n_layers
+    launched = (counts["flash_attention"] == job["visits"] * L
+                and offset == (job["visits"] - 2) * L
+                and counts["paged_decode"] > 0)
+    ev, rs = pc.evicted_bytes, pc.restored_bytes
+    want_prefills = [job["template"]] * 2 + [1] * (job["visits"] - 2)
+    want_page = (2 * cfg.n_layers * cfg.n_kv_heads * bs * cfg.head_dim
+                 * torch.finfo(FULL_WIDTH_ENGINE["dtype"]).bits // 8)
+    pages_ok = (page == want_page and ev > 0 and rs > 0
+                and ev % page == 0 and rs % page == 0)
+    per_req = [teacher_forced_agreement(cfg, params, prompts[r], streams[r])
+               for r in sorted(streams)]
+    agree = float(np.mean(per_req))
+    log(f"  [evict] templates of {job['template']} tokens served A, B, A, "
+        f"B through 1 slot, {EVICT_BLOCKS} pages of {bs}, "
+        f"{job['new_tokens']} new tokens each: prefill tokens a visit "
+        f"{prefills} (want {want_prefills}); evicted {ev} B = {ev / page:g} "
+        f"pages, restored {rs} B = {rs / page:g} pages of {page} B (want "
+        f"{want_page}); hits {pc.hits} misses {pc.misses}; launches "
+        f"{counts}, B2 at a query offset {offset} (want B2 "
+        f"{job['visits'] * L}, {(job['visits'] - 2) * L} at an offset); "
+        f"as required {launched}")
+    log(f"  [evict] restored pages bit-equal to their gather before "
+        f"eviction {sum(restored)} of {len(restored)}; blocks conserved "
+        f"after each visit {conserved}; teacher-forced agreement (bf16, "
+        f"{len(per_req)} requests) {agree:.4f}, per request "
+        f"{[round(a, 4) for a in per_req]}; limit {MIN_TEACHER_FORCED}")
+    failed = []
+    if not (prefills == want_prefills and pages_ok and restored
+            and all(restored) and all(conserved) and launched):
+        failed.append(f"{cfg.name} evict: a check failed (prefills "
+                      f"{prefills}, whole pages {pages_ok}, restored pages "
+                      f"equal {sum(restored)} of {len(restored)}, blocks "
+                      f"conserved {conserved}, launches {launched})")
+    if agree < MIN_TEACHER_FORCED:
+        failed.append(f"{cfg.name} evict: decode agrees with the teacher-"
+                      f"forced forward on {agree:.4f} of the tokens, under "
+                      f"{MIN_TEACHER_FORCED}")
+    del saved
+    # the host tier's rates on this pool's cold pages
+    rates = collections.defaultdict(list)
+    for _ in range(HOST_ROUNDS):
+        cold = [e for e in pc.index.values() if e.block is not None
+                and pool.allocator.refs[e.block] == 1][:HOST_PAGES]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in cold:
+            pc._evict(e)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for e in cold:
+            pc._restore(e)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rates["evict"].append((t1 - t0) / len(cold))
+        rates["restore"].append((t2 - t1) / len(cold))
+    dev = torch.empty(page // 2, dtype=torch.bfloat16, device="cuda")
+    host = torch.empty(page // 2, dtype=torch.bfloat16, pin_memory=True)
+    for name, fn in (("d2h copy_", lambda: host.copy_(dev)),
+                     ("h2d copy_", lambda: dev.copy_(host,
+                                                     non_blocking=True))):
+        for _ in range(HOST_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_PAGES):
+                fn()
+            torch.cuda.synchronize()
+            rates[name].append((time.perf_counter() - t0) / HOST_PAGES)
+    for name in ("evict", "d2h copy_", "restore", "h2d copy_"):
+        t = float(np.median(rates[name]))
+        log(f"  [evict] host tier {name:9s}: {t * 1e6:8.1f} us a page, "
+            f"{page / t / 1e9:6.2f} GB/s (median of {HOST_ROUNDS} rounds "
+            f"of {HOST_PAGES} pages of {page} B)")
+    log(f"  [evict] the evict run and rates took "
+        f"{time.monotonic() - t_start:.1f} s")
     return failed
 
 
@@ -1383,8 +1764,8 @@ def main() -> int:
     if failures:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
-        log(f"chip_smoke: {len(failures)} migrate check(s) failed: "
-            f"{'; '.join(failures)}")
+        log(f"chip_smoke: {len(failures)} migrate, prefix or evict "
+            f"check(s) failed: {'; '.join(failures)}")
         return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

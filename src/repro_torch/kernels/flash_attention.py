@@ -13,7 +13,9 @@ and window masks: a prefill chunk attends to the resident tokens before it
 and to itself.  Its plain version is ``ref.flash_attention_ref``;
 ``ops.flash_attention`` picks between them by the tensors' device.
 
-``flash_attention.launches`` counts the kernel launches this process made.
+``flash_attention.launches`` counts the kernel launches this process made,
+``flash_attention.offset_launches`` those of them with ``q_offset > 0``
+(a chunk, or the resumed prefill of a prefix-cache hit).
 """
 from __future__ import annotations
 
@@ -77,7 +79,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    flash_attention.offset_launches += q_offset > 0
     return out
 
 
 flash_attention.launches = 0
+flash_attention.offset_launches = 0

@@ -77,4 +77,5 @@ def reset_launch_counts() -> None:
     _fd.paged_decode.launches = 0
     _fd.flash_decode.launches = 0
     _fa.flash_attention.launches = 0
+    _fa.flash_attention.offset_launches = 0
     _ssd.ssd_chunk.launches = 0

@@ -39,6 +39,16 @@ back, with padded rows on the trash row.  As in the JAX package, chunked
 prefill and the prefix cache are attention-only (the SSD scan has no
 per-position state to resume from).
 
+The prefix cache (``prefix_cache=True``, ``serving.prefixcache``): at
+admission a fresh prompt's leading full pages that the pool's index holds
+are attached by reference count, and prefill starts at the first uncached
+token (``prefill_pos``).  A prompt the cache covers whole keeps its last
+token for the forward and copies its last matched page (copy-on-write).
+The uncached suffix runs as one chunk forward (``models.prefill_chunk``,
+the prefill kernel with a query offset), or through the chunk budget on a
+chunking engine.  A sequence publishes its full pages to the index when its
+context is all in pages and again at retirement, before it releases them.
+
 ``decode_mode="dense"`` is the JAX package's dense-gather baseline: each
 step copies the batch's live K/V out of the pages into a dense cache
 (``PagedKVCache.gather_dense``), runs one ``models.decode_step`` through
@@ -47,20 +57,23 @@ reads the sampled tokens back at once (horizon 1; as in the JAX package
 this path counts no ``decode_syncs``).
 
 Replica lifecycle (``repro_torch.serving.migration`` builds on it): an
-engine may share its ``BlockPool`` with others (``pool=``, ``kv_quota=``).
+engine may share its ``BlockPool`` with others (``pool=``, ``kv_quota=``),
+and then its prefix index too.
 ``export_inflight``/``export_request`` evict requests as
 ``InflightSnapshot``s: token state only, or (``release=False``) with the
 sequence's pages, disowned from this engine's view, and a copy of its SSM
-rows.  ``import_by_pages`` adopts such a snapshot — by handoff when it
-shares the pool, else by copying or re-laying out the pages — and the
+rows, and how many of its leading pages it holds by reference
+(``n_shared``).  ``import_by_pages`` adopts such a snapshot — by handoff
+when it shares the pool, else by copying or re-laying out the pages — and
+the
 request resumes decoding with nothing recomputed; ``import_inflight``
-resumes it by re-prefilling ``prompt + generated``.  Call export and import
-only between ``finish_step`` and the next ``step_async``: no decode may be
-in flight.
+resumes it by re-prefilling ``prompt + generated``, which hits the prefix
+cache like any admission.  Call export and import only between
+``finish_step`` and the next ``step_async``: no decode may be in flight.
 
-Not ported yet (ROADMAP.md): the prefix cache, SLO shedding, telemetry and
-meshes.  ``load_stats()`` returns every key of the frozen schema, with 0
-for those features.
+Not ported yet (ROADMAP.md): SLO shedding, telemetry (the ``prefix_hit``
+event among it), an injectable clock and meshes.  ``load_stats()`` returns
+every key of the frozen schema, with 0 for those features.
 """
 from __future__ import annotations
 
@@ -78,6 +91,7 @@ from repro_torch.models.model import check_supported
 from repro_torch.models.sampling import sample
 from repro_torch.serving.kvcache import (BlockPool, PagedKVCache,
                                          copy_blocks, relayout_blocks)
+from repro_torch.serving.prefixcache import PrefixCache
 
 # the frozen load_stats() key set (the JAX package's schema)
 LOAD_STATS_KEYS = frozenset({
@@ -134,6 +148,7 @@ class InflightSnapshot:
     max_new_tokens: int
     blocks: list | None = None       # physical page ids, sequence order
     seq_len: int = 0                 # tokens resident in those pages
+    n_shared: int = 0                # leading prefix-cache pages (by ref)
     pool: BlockPool | None = None    # the pool the pages live in
     ssm: torch.Tensor | None = None  # [L, H, P, N] the sequence's SSM row
     conv: torch.Tensor | None = None
@@ -178,7 +193,7 @@ class ServingEngine:
                  decode_horizon: int = 1, decode_mode: str = "paged",
                  prefill_chunk_tokens: int | None = None,
                  pool: BlockPool | None = None, kv_quota: int | None = None,
-                 device="cuda"):
+                 prefix_cache: bool = False, device="cuda"):
         """``params`` must already live on ``device``; ``dtype`` is the KV
         pool's dtype.  Runs on CUDA unless ``device="cpu"`` is passed.
         ``decode_mode`` is "paged" or "dense" (horizon 1 only);
@@ -186,7 +201,8 @@ class ServingEngine:
         longer than it (ignored for models with SSM layers).  ``pool``
         shares a ``BlockPool`` with other engines (``num_blocks`` is then
         ignored), ``kv_quota`` caps the blocks this engine may reserve in
-        it."""
+        it.  ``prefix_cache`` turns on the pool's prefix cache (ignored for
+        models with SSM layers or no attention)."""
         check_supported(cfg)
         if decode_mode not in ("paged", "dense"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
@@ -249,6 +265,15 @@ class ServingEngine:
         self.last_horizon = 0
         # chunked-prefill round-robin rotation pointer
         self._chunk_rr = 0
+        # prefix reuse resumes prefill mid-prompt through the chunk forward,
+        # which SSM models do not have, and pages carry no SSM state: the
+        # cache is attention-only.  Engines on one pool share its index.
+        self.prefix_cache = None
+        if prefix_cache and cfg.has_attn and not cfg.has_ssm:
+            self.prefix_cache = (self.cache.pool.prefix_cache
+                                 or PrefixCache(self.cache.pool))
+        # (rid, cached tokens, context tokens) per admission
+        self.prefix_events: list[tuple[int, int, int]] = []
 
     # -- submission ------------------------------------------------------------
 
@@ -342,11 +367,12 @@ class ServingEngine:
                if self.cache.ssm is not None else None)
         conv = (self.cache.conv[:, slot].clone()
                 if self.cache.conv is not None else None)
+        n_shared = self.cache.seq_shared.get(slot, 0)
         blocks, seq_len = self.cache.disown_slot(slot)
         return InflightSnapshot(r.rid, r.prompt, list(r.generated),
                                 r.max_new_tokens, blocks=blocks,
-                                seq_len=seq_len, pool=self.cache.pool,
-                                ssm=ssm, conv=conv)
+                                seq_len=seq_len, n_shared=n_shared,
+                                pool=self.cache.pool, ssm=ssm, conv=conv)
 
     def export_request(self, rid: int, release: bool = False
                        ) -> InflightSnapshot | None:
@@ -390,12 +416,12 @@ class ServingEngine:
                 continue
             cache = self.cache
             if s.pool is cache.pool:
-                if not cache.can_adopt(len(s.blocks), total):
+                if not cache.can_adopt(len(s.blocks), total, s.n_shared):
                     rejected.append(s)
                     continue
                 slot = free[0]
                 cache.adopt_slot(slot, s.blocks, s.seq_len,
-                                 total_tokens=total)
+                                 total_tokens=total, n_shared=s.n_shared)
             else:
                 if not cache.can_admit(s.seq_len, total_tokens=total):
                     rejected.append(s)
@@ -455,20 +481,22 @@ class ServingEngine:
     def load_stats(self) -> dict:
         """Occupancy snapshot; every key of ``LOAD_STATS_KEYS``."""
         free = self.cache.n_free_blocks
+        pc = self.prefix_cache
         return {
             "waiting": len(self.waiting),
             "active": len(self.active),
             "max_seqs": self.max_seqs,
             "free_blocks": free,
-            "free_blocks_effective": free,
+            # cold cached pages are evicted on demand: free for admission
+            "free_blocks_effective": free + (pc.cold_blocks() if pc else 0),
             "tokens_out": self.tokens_out,
             "steps": self.steps,
             "prefill_tokens": self.prefill_tokens,
-            "prefix_hits": 0,
-            "prefix_misses": 0,
-            "prefix_hit_tokens": 0,
-            "prefix_evicted_bytes": 0,
-            "prefix_restored_bytes": 0,
+            "prefix_hits": pc.hits if pc else 0,
+            "prefix_misses": pc.misses if pc else 0,
+            "prefix_hit_tokens": pc.hit_tokens if pc else 0,
+            "prefix_evicted_bytes": pc.evicted_bytes if pc else 0,
+            "prefix_restored_bytes": pc.restored_bytes if pc else 0,
             "shed": 0,
             "decode_syncs": self.decode_syncs,
             "load": (len(self.waiting) + len(self.active)) / self.max_seqs,
@@ -502,14 +530,41 @@ class ServingEngine:
             ctx = len(req.prefill_tokens)
             # reserve the lifetime footprint (prompt + decode growth)
             total = ctx + (req.max_new_tokens - len(req.generated)) - 1
-            if not self.cache.can_admit(ctx, total_tokens=total):
+            cached, shared, cow = 0, (), None
+            if self.prefix_cache is not None and req.prefill_pos == 0:
+                # attach (which restores host pages) comes before the
+                # capacity check: a failed restore shortens the match.  The
+                # cap at ctx - 1 leaves the forward one token, whose logits
+                # give the first generated token.
+                m = self.prefix_cache.match(req.prefill_tokens, ctx - 1)
+                cached, shared, cow = self.prefix_cache.attach(m)
+            if not self.cache.can_admit(ctx, total, shared):
                 break
             self.waiting.pop(0)
             req.slot = free.pop(0)
-            self.cache.admit(req.slot, ctx, total_tokens=total)
+            self.cache.admit(req.slot, ctx, total, shared, cow)
+            if cached:
+                req.prefill_pos = cached   # prefill starts past the prefix
+            if self.prefix_cache is not None:
+                self.prefix_events.append((req.rid, cached, ctx))
             self.active[req.slot] = req
             admitted.append(req)
         return admitted
+
+    def _publish(self, slot: int, r: EngineRequest) -> None:
+        """Hand the sequence's full resident pages to the prefix index, so
+        later prompts with the same leading tokens attach them.  Called when
+        the context is all in pages and again at retirement (decode has
+        extended the stream by then), always before the slot's release."""
+        if self.prefix_cache is None:
+            return
+        blocks = self.cache.seq_blocks.get(slot)
+        if not blocks:
+            return
+        resident = int(self.cache.seq_lens[slot])
+        stream = np.concatenate([np.asarray(r.prompt, np.int32),
+                                 np.asarray(r.generated, np.int32)])
+        self.prefix_cache.publish(stream[:resident], blocks)
 
     def _run_prefill(self, reqs: list[EngineRequest]) -> None:
         # group by prompt length: same-length batches need no padding
@@ -535,6 +590,46 @@ class ServingEngine:
                 r.prefill_pos = pl
                 r.generated.append(int(first[i]))
                 self.tokens_out += 1
+                self._publish(r.slot, r)
+
+    def _chunk_forward(self, r: EngineRequest, start: int, n_valid: int,
+                       bucket: int) -> torch.Tensor:
+        """One chunk forward of ``r``'s context, positions ``start +
+        [0, n_valid)``, run at ``bucket`` tokens (the tail writes to the
+        trash page).  Returns the logits at its last real position."""
+        buf = np.zeros((1, bucket), np.int32)
+        buf[0, :n_valid] = r.prefill_tokens[start:start + n_valid]
+        bs = self.cache.block_size
+        need = (start + n_valid + bs - 1) // bs
+        n_pages = _pow2_bucket(need, self.cache.max_blocks_per_seq)
+        self.prefill_tokens += n_valid
+        return prefill_chunk(
+            self.params, self.cfg, torch.from_numpy(buf).to(self.device),
+            self.cache.k, self.cache.v,
+            self.cache.block_table_dev[r.slot:r.slot + 1, :n_pages], start,
+            n_valid, self.cache.pool.trash_page)
+
+    def _first_token(self, r: EngineRequest, logits: torch.Tensor) -> None:
+        """A finished prefill's logits give the request its next token;
+        its context is now all in pages, which it publishes."""
+        first = self._pick(logits)
+        r.t_first = time.monotonic()
+        r.generated.append(int(first[0]))
+        self.tokens_out += 1
+        self._publish(r.slot, r)
+
+    def _resume_prefill(self, reqs: list[EngineRequest]) -> None:
+        """Prefill the uncached suffix of each prefix-cache hit, one chunk
+        forward a request at a power-of-two bucket of its length.  Cached
+        tokens cost nothing; writes start at ``prefill_pos``, whose page is
+        private (fresh or copied), so shared pages stay as they are."""
+        for r in reqs:
+            start = r.prefill_pos
+            n_valid = len(r.prefill_tokens) - start
+            logits = self._chunk_forward(r, start, n_valid,
+                                         1 << (n_valid - 1).bit_length())
+            r.prefill_pos = start + n_valid
+            self._first_token(r, logits)
 
     def _advance_chunked(self) -> None:
         """Spread this step's chunk-token budget over all mid-prefill
@@ -556,32 +651,19 @@ class ServingEngine:
         chunk = self.prefill_chunk_tokens
         budget = chunk
         floor = max(1, chunk // 4)
-        bs = self.cache.block_size
         for idx, slot in enumerate(order):
             if budget <= 0:
                 break
             share = max(floor, budget // (len(order) - idx))
             r = self.active[slot]
-            toks = r.prefill_tokens
             start = r.prefill_pos
-            n_valid = min(share, budget, len(toks) - start)
-            buf = np.zeros((1, _pow2_bucket(n_valid, chunk)), np.int32)
-            buf[0, :n_valid] = toks[start:start + n_valid]
-            need = (start + n_valid + bs - 1) // bs
-            n_pages = _pow2_bucket(need, self.cache.max_blocks_per_seq)
-            logits = prefill_chunk(
-                self.params, self.cfg, torch.from_numpy(buf).to(self.device),
-                self.cache.k, self.cache.v,
-                self.cache.block_table_dev[slot:slot + 1, :n_pages], start,
-                n_valid, self.cache.pool.trash_page)
-            self.prefill_tokens += n_valid
+            n_valid = min(share, budget, len(r.prefill_tokens) - start)
+            logits = self._chunk_forward(r, start, n_valid,
+                                         _pow2_bucket(n_valid, chunk))
             budget -= n_valid
             r.prefill_pos = start + n_valid
             if not r.prefilling:              # the final chunk: token 1
-                first = self._pick(logits)
-                r.t_first = time.monotonic()
-                r.generated.append(int(first[0]))
-                self.tokens_out += 1
+                self._first_token(r, logits)
 
     def _pick(self, logits: torch.Tensor) -> np.ndarray:
         if self.greedy:
@@ -708,6 +790,7 @@ class ServingEngine:
             r = self.active[s]
             if len(r.generated) >= r.max_new_tokens:
                 r.done = True
+                self._publish(s, r)   # decode pages join the prefix index
                 self.cache.release_slot(s)
                 del self.active[s]
                 done.append(r)
@@ -730,10 +813,19 @@ class ServingEngine:
         decode_slots = [s for s, r in self.active.items() if not r.prefilling]
         admitted = self._admit()
         chunk = self.prefill_chunk_tokens
+        # a prefix-cache hit (prefill_pos > 0) resumes mid-prompt instead of
+        # prefilling its whole prompt; a chunking engine resumes it through
+        # the chunk budget, which starts each chunk at prefill_pos
         oneshot = [r for r in admitted
-                   if chunk is None or len(r.prefill_tokens) <= chunk]
+                   if (chunk is None or len(r.prefill_tokens) <= chunk)
+                   and r.prefill_pos == 0]
         if oneshot:
             self._run_prefill(oneshot)
+        if chunk is None:
+            resumed = [r for r in admitted
+                       if 0 < r.prefill_pos < len(r.prefill_tokens)]
+            if resumed:
+                self._resume_prefill(resumed)
         # taken before the advance: a prefill that completes this step is
         # still an event (its sequence joins decode next step)
         chunking = any(r.prefilling for r in self.active.values())

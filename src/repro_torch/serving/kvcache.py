@@ -43,8 +43,18 @@ returning its blocks to the allocator, so a sibling view over the same pool
 can ``adopt_slot`` them — the pages do not move.  ``copy_blocks`` moves
 pages between pools of the same geometry; ``gather_tokens`` +
 ``scatter_tokens`` (``relayout_blocks``) move a sequence between pools
-whose page size differs.  Without a prefix cache every page has one owner:
-there are no reference counts, shared pages or pinned blocks.
+whose page size differs.
+
+Prefix sharing (``repro_torch.serving.prefixcache`` builds on these):
+``admit`` can attach pages already in the pool by reference count
+(``shared_blocks``) and copy a partly matched page into a private one
+(``cow_src``).  A shared page is counted once: it stays out of every view's
+reservation and ``used_blocks``, and every teardown path (``release_slot``,
+``disown_slot``, migration) drops one reference through
+``BlockAllocator.release`` instead of freeing, so a page lives while any
+sequence or the cache's index holds it.  A ``PrefixCache`` set as
+``BlockPool.prefix_cache`` is asked to evict cold cached pages to host
+memory when an allocation finds the free list short (``BlockPool.reclaim``).
 """
 from __future__ import annotations
 
@@ -58,22 +68,44 @@ from repro_torch.models.ssm import conv_channels
 
 
 class BlockAllocator:
-    """Host-side free-list of physical blocks, in the JAX package's order.
-
-    Prefix sharing (reference counts, ``share``, pinned blocks) is not
-    ported yet: every block has one owner."""
+    """Host-side free-list of physical blocks with reference counts, in the
+    JAX package's order: ``alloc`` pops from the end, a block whose last
+    reference drops is appended."""
 
     def __init__(self, num_blocks: int):
         self.free = list(range(num_blocks - 1, -1, -1))
+        self.refs = np.zeros(num_blocks, np.int32)
+        # blocks held by more than one owner (shared prefix pages): they
+        # take physical room outside any one sequence's reservation, so
+        # the views' headroom subtracts them (``n_free_blocks``)
+        self.pinned = 0
 
     def alloc(self, n: int) -> list[int]:
         if len(self.free) < n:
             raise MemoryError(f"KV pool exhausted (need {n}, "
                               f"have {len(self.free)})")
-        return [self.free.pop() for _ in range(n)]
+        out = [self.free.pop() for _ in range(n)]
+        for b in out:
+            self.refs[b] = 1
+        return out
 
     def release(self, blocks: list[int]) -> None:
-        self.free.extend(blocks)
+        """Drop one reference to each block; a block returns to the free
+        list only when its last reference goes."""
+        for b in blocks:
+            self.refs[b] -= 1
+            if self.refs[b] == 1:
+                self.pinned -= 1
+            if self.refs[b] <= 0:
+                self.refs[b] = 0
+                self.free.append(b)
+
+    def share(self, blocks: list[int]) -> None:
+        """Take one more reference to each block (prefix sharing)."""
+        for b in blocks:
+            self.refs[b] += 1
+            if self.refs[b] == 2:
+                self.pinned += 1
 
     @property
     def n_free(self) -> int:
@@ -102,10 +134,26 @@ class BlockPool:
             self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self.allocator = BlockAllocator(num_blocks)
         self.reserved = 0           # blocks promised to admitted sequences
+        self.prefix_cache = None    # set by PrefixCache.__init__
+
+    def reclaim(self, n: int) -> None:
+        """Make room for an ``n``-block allocation by evicting cold cached
+        pages to the host tier (nothing without a prefix cache, or while
+        the free list covers ``n``)."""
+        if self.prefix_cache is not None and self.allocator.n_free < n:
+            self.prefix_cache.reclaim(n)
 
     @property
     def trash_page(self) -> int:
         return self.num_blocks
+
+    @property
+    def page_nbytes(self) -> int:
+        """Bytes one page holds in k and v over all layers (0 for an
+        attention-free pool); the host tier's transfers are this size."""
+        if self.k is None:
+            return 0
+        return 2 * self.k[:, 0].numel() * self.k.element_size()
 
 
 @dataclasses.dataclass
@@ -125,6 +173,9 @@ class PagedKVCache:
     used_blocks: int = 0
     reserved_blocks: int = 0    # admitted sequences' lifetime reservations
     seq_reserved: dict = dataclasses.field(default_factory=dict)
+    # slot -> leading prefix-cache pages held by reference (counted once
+    # pool-wide: outside this view's used and reserved counts)
+    seq_shared: dict = dataclasses.field(default_factory=dict)
     ssm: torch.Tensor | None = None     # [L, max_seqs + 1, H, P, N] fp32
     conv: torch.Tensor | None = None    # [L, max_seqs + 1, W - 1, conv_ch]
 
@@ -187,9 +238,12 @@ class PagedKVCache:
 
     @property
     def n_free_blocks(self) -> int:
-        """Blocks this view may still reserve: the pool's unreserved
-        blocks, capped by what is left of the view's quota."""
-        n = self.pool.num_blocks - self.pool.reserved
+        """Blocks this view may still reserve: the pool's blocks neither
+        reserved nor pinned (shared by several owners), capped by what is
+        left of the view's quota.  Cold cached pages count as free: they
+        are evicted on demand (``BlockPool.reclaim``)."""
+        n = (self.pool.num_blocks - self.pool.reserved
+             - self.pool.allocator.pinned)
         if self.quota is not None:
             n = min(n, self.quota - self.reserved_blocks)
         return n
@@ -204,23 +258,41 @@ class PagedKVCache:
 
     # -- slot lifecycle -------------------------------------------------------
 
-    def admit(self, slot: int, prompt_len: int, total_tokens: int) -> None:
+    def admit(self, slot: int, prompt_len: int, total_tokens: int,
+              shared_blocks: tuple | list = (),
+              cow_src: int | None = None) -> None:
         """Admit one sequence: allocate its prompt blocks now and reserve its
         full lifetime block count (``total_tokens`` = prompt + decode
-        growth) so its decode growth can never fail."""
+        growth) so its decode growth can never fail.
+
+        ``shared_blocks`` are prefix-cache pages covering the sequence's
+        leading full pages: attached by reference, not allocated, and kept
+        out of the reservation.  ``cow_src`` is a cached page the sequence
+        diverges inside; it is copied into the first fresh page, so no
+        write touches the shared original."""
         n = self._blocks(prompt_len)
-        reserve = max(n, self._blocks(total_tokens))
-        blocks = self.allocator.alloc(n)
-        self.used_blocks += n
-        self._register(slot, blocks, prompt_len, reserve)
+        s = len(shared_blocks)
+        fresh = n - s
+        reserve = max(n, self._blocks(total_tokens)) - s
+        self.pool.reclaim(fresh)
+        new_blocks = self.allocator.alloc(fresh)
+        self.allocator.share(list(shared_blocks))
+        if cow_src is not None:
+            copy_blocks(self.pool, self.pool, [cow_src], [new_blocks[0]])
+        self.used_blocks += fresh
+        self._register(slot, list(shared_blocks) + new_blocks, prompt_len,
+                       reserve, s)
 
     def _register(self, slot: int, blocks: list[int], seq_len: int,
-                  reserve: int) -> None:
+                  reserve: int, n_shared: int = 0) -> None:
         """Book ``reserve`` blocks against the view and the pool and write
-        the slot's host and device table rows."""
+        the slot's host and device table rows; the first ``n_shared``
+        blocks are held by reference."""
         self.reserved_blocks += reserve
         self.pool.reserved += reserve
         self.seq_reserved[slot] = reserve
+        if n_shared:
+            self.seq_shared[slot] = n_shared
         self.seq_blocks[slot] = list(blocks)
         n = len(blocks)
         self.block_table[slot, :] = 0
@@ -232,10 +304,19 @@ class PagedKVCache:
         self.block_table_dev[slot] = torch.from_numpy(row).to(self.device)
         self.seq_lens_dev[slot] = seq_len
 
-    def can_admit(self, prompt_len: int, total_tokens: int) -> bool:
+    def can_admit(self, prompt_len: int, total_tokens: int,
+                  shared_blocks: tuple | list = ()) -> bool:
         """Whether the lifetime reservation of a sequence of ``total_tokens``
-        (prompt + expected decode growth) fits in the unreserved blocks."""
-        need = max(self._blocks(prompt_len), self._blocks(total_tokens))
+        (prompt + expected decode growth) fits in the unreserved blocks.
+
+        ``shared_blocks`` (the cached pages the admission would attach) are
+        resident already and shrink the need, but each one still cold (held
+        by the index alone) leaves the evictable set when attached, so its
+        first sharer pays for it once."""
+        refs = self.allocator.refs
+        pin = sum(1 for b in shared_blocks if refs[b] == 1)
+        need = (max(self._blocks(prompt_len), self._blocks(total_tokens))
+                - len(shared_blocks) + pin)
         return self.n_free_blocks >= need
 
     def extend_for(self, slot: int, n_tokens: int) -> tuple | None:
@@ -256,10 +337,12 @@ class PagedKVCache:
         need = (new_len + self.block_size - 1) // self.block_size
         update = None
         if need > n_have:
-            if need > self.seq_reserved[slot]:
+            # the reservation covers the sequence's private pages only
+            if need - self.seq_shared.get(slot, 0) > self.seq_reserved[slot]:
                 raise MemoryError("sequence grew beyond its admission "
                                   "reservation")
             grow = need - n_have
+            self.pool.reclaim(grow)
             new_blocks = self.allocator.alloc(grow)
             self.used_blocks += grow
             self.seq_blocks[slot].extend(new_blocks)
@@ -283,6 +366,8 @@ class PagedKVCache:
             torch.tensor(vals, dtype=torch.int32, device=self.device))
 
     def release_slot(self, slot: int) -> None:
+        """Drop the slot's reference to each of its pages: a shared page,
+        or one the cache's index holds, outlives it."""
         self.allocator.release(self._unregister(slot))
 
     def release_all(self) -> None:
@@ -294,8 +379,9 @@ class PagedKVCache:
         """Take a slot out of the view's and the pool's accounting and
         reset its table rows; returns its blocks, still allocated."""
         blocks = self.seq_blocks.pop(slot, [])
-        self.used_blocks -= len(blocks)
-        reserve = self.seq_reserved.pop(slot, len(blocks))
+        s = self.seq_shared.pop(slot, 0)
+        self.used_blocks -= len(blocks) - s
+        reserve = self.seq_reserved.pop(slot, len(blocks) - s)
         self.reserved_blocks -= reserve
         self.pool.reserved -= reserve
         self.seq_lens[slot] = 0
@@ -310,35 +396,40 @@ class PagedKVCache:
         """Take a sequence out of this view's accounting without releasing
         its blocks to the allocator.
 
-        Returns ``(blocks, seq_len)``.  The caller now owns the pages; they
-        must end in ``adopt_slot`` on a view of the same pool or in the
-        allocator's ``release``, or the pool leaks.
+        Returns ``(blocks, seq_len)``.  The caller now holds the slot's
+        references to the pages; they must end in ``adopt_slot`` on a view
+        of the same pool or in the allocator's ``release``, or the pool
+        leaks.  Read ``seq_shared`` first to carry the shared count.
         """
         seq_len = int(self.seq_lens[slot])
         blocks = self.seq_blocks[slot]      # KeyError for an empty slot
         self._unregister(slot)
         return blocks, seq_len
 
-    def can_adopt(self, n_blocks: int, total_tokens: int) -> bool:
-        return self.n_free_blocks >= max(n_blocks,
-                                         self._blocks(total_tokens))
+    def can_adopt(self, n_blocks: int, total_tokens: int,
+                  n_shared: int = 0) -> bool:
+        return (self.n_free_blocks
+                >= max(n_blocks, self._blocks(total_tokens)) - n_shared)
 
     def adopt_slot(self, slot: int, blocks: list[int], seq_len: int,
-                   total_tokens: int | None = None) -> None:
+                   total_tokens: int | None = None,
+                   n_shared: int = 0) -> None:
         """Adopt already-allocated blocks of this view's pool into a slot:
         the inverse of ``disown_slot``.  The data stays where it is; only
-        the accounting and the (host + device) table rows move."""
+        the accounting and the (host + device) table rows move.  The first
+        ``n_shared`` blocks are prefix-cache pages held by reference,
+        counted once pool-wide and so kept out of this view's counts."""
         n = len(blocks)
         if n > self.max_blocks_per_seq:
             raise MemoryError("adopted sequence exceeds max_blocks_per_seq")
         total = total_tokens or seq_len
-        reserve = max(n, self._blocks(total))
-        if not self.can_adopt(n, total):
+        reserve = max(n, self._blocks(total)) - n_shared
+        if not self.can_adopt(n, total, n_shared):
             raise MemoryError(
                 f"cannot adopt {n} blocks (reserve {reserve}): view has "
                 f"{self.n_free_blocks} free")
-        self.used_blocks += n
-        self._register(slot, blocks, seq_len, reserve)
+        self.used_blocks += n - n_shared
+        self._register(slot, blocks, seq_len, reserve, n_shared)
 
     # -- device writes ---------------------------------------------------------
 

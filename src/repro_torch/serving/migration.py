@@ -12,7 +12,9 @@ the cheapest path the destination allows, in order:
      re-chunked when its page size differs (``kvcache.relayout_blocks``).
      Nothing is recomputed; both count as ``copied``/``pages_copied``.
   3. **Re-prefill** (no pages, or no room for them): the destination
-     prefills ``prompt + generated`` again, chunked when its engine chunks.
+     prefills ``prompt + generated`` again, chunked when its engine chunks;
+     with a prefix cache it attaches the leading pages the index holds and
+     prefills the rest.
 
 Under greedy decoding all paths give the same tokens as an uninterrupted
 run; they differ in the stall and the bytes moved.  The port's pools are
@@ -64,9 +66,11 @@ def release_snapshot_pages(snap: InflightSnapshot) -> None:
     """Return a snapshot's held pages to their pool's allocator.
 
     Disowned pages belong to no view, so this is allocator bookkeeping
-    only.  Every page has one owner (there is no prefix cache), so a second
-    release would list a block twice as free: the call clears the
-    snapshot's page fields, which makes it idempotent.
+    only.  It drops the snapshot's reference to each page, and does not
+    free it: a page the sequence attached from the prefix cache is also
+    held by the cache's index, and perhaps by live sequences, and returns to
+    the free list only when its last reference goes.  The call clears the
+    snapshot's page fields, so a second call drops nothing twice.
     """
     if snap.blocks is not None and snap.pool is not None:
         snap.pool.allocator.release(snap.blocks)

@@ -553,3 +553,90 @@ def test_migrated_stream_equals_uninterrupted_on_the_card(cuda, arch, path):
     expect = {"handoff": "handoff", "copy": "copied", "relayout": "copied",
               "reprefill": "reprefilled"}[path]
     assert getattr(report, expect) == 3
+
+
+# --------------------------------------------------------------------------
+# The prefix cache's host tier and shared pages on the card.
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_host_tier_round_trip_is_bit_exact_on_the_card(cuda, dtype):
+    """Evict cached pages through pinned host memory, overwrite the blocks
+    they freed, restore them through ``attach``: every byte comes back."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.kvcache import (BlockPool, gather_tokens,
+                                             scatter_tokens)
+    from repro_torch.serving.prefixcache import PrefixCache
+    cfg = get_smoke_config("yi-9b")
+    bs, n = 8, 3
+    pool = BlockPool(cfg, 6, bs, dtype, device=cuda)
+    pc = PrefixCache(pool)
+    blocks = pool.allocator.alloc(n)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    shape = (cfg.n_layers, n * bs, cfg.n_kv_heads, cfg.head_dim)
+    k = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    v = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    scatter_tokens(pool, blocks, k, v)
+    tokens = np.random.RandomState(7).randint(0, 100, n * bs).astype(np.int32)
+    pc.publish(tokens, blocks)
+    pool.allocator.release(blocks)          # the index's references remain
+    pc.reclaim(pool.num_blocks)             # every cold page to the host
+    entries = list(pc.index.values())
+    assert all(e.block is None and e.host.is_pinned() for e in entries)
+    assert pc.evicted_bytes == n * pool.page_nbytes
+    # the freed blocks are reallocated and overwritten
+    again = pool.allocator.alloc(pool.num_blocks)
+    scatter_tokens(pool, again, torch.zeros(
+        (cfg.n_layers, pool.num_blocks * bs, cfg.n_kv_heads, cfg.head_dim),
+        dtype=dtype, device=cuda), torch.ones(
+        (cfg.n_layers, pool.num_blocks * bs, cfg.n_kv_heads, cfg.head_dim),
+        dtype=dtype, device=cuda))
+    pool.allocator.release(again)
+    cached, shared, cow = pc.attach(pc.match(tokens, n * bs))
+    assert cached == n * bs and cow is None
+    assert pc.restored_bytes == n * pool.page_nbytes
+    k2, v2 = gather_tokens(pool, shared, n * bs)
+    torch.cuda.synchronize()
+    assert torch.equal(k2, k) and torch.equal(v2, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hits_leave_the_shared_pages_unchanged_on_the_card(cuda, dtype):
+    """A shared-template job through the prefill kernel's resumed prefill
+    and the paged decode kernel: the pages request 0 published are the
+    same bytes after the hits (tails and a retry that copies on write)
+    prefilled and decoded over them; in fp32 the streams equal the
+    cache-off run's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.kvcache import gather_tokens
+    cs = _chip_smoke()
+    cfg = get_smoke_config("yi-9b")
+    params = init_params(cfg, seed=0, dtype=dtype, device=cuda)
+    prompts = cs.prefix_prompts(cfg, 4, 24, 8, 6)
+    published = {}
+
+    def keep(eng):
+        pool = eng.cache.pool
+        published.update({key: gather_tokens(pool, [e.block], 8)
+                          for key, e in eng.prefix_cache.index.items()})
+
+    kw = dict(num_blocks=128, block_size=8, max_seqs=4, dtype=dtype,
+              decode_horizon=8)
+    fin, eng, _ = cs.serve_prefix_job(cfg, params, prompts, 12, cuda,
+                                      after_first=keep, prefix_cache=True,
+                                      **kw)
+    pc, pool = eng.prefix_cache, eng.cache.pool
+    assert pc.hits == len(prompts) - 1 and published
+    for key, kv in published.items():
+        got = gather_tokens(pool, [pc.index[key].block], 8)
+        assert all(torch.equal(a, b) for a, b in zip(got, kv))
+    if dtype == torch.float32:
+        off, _, _ = cs.serve_prefix_job(cfg, params, prompts, 12, cuda,
+                                        prefix_cache=False, **kw)
+        assert ({r: fin[r].generated for r in fin}
+                == {r: off[r].generated for r in off})
