@@ -5,8 +5,8 @@
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; it exits non-zero without them.  Phases, in order (a failure exits
 non-zero before the result lines; a failed check of phase 5's "migrate",
-"prefix" or "evict" runs is reported, and exits non-zero, after phase 6
-has run and printed its table):
+"prefix", "evict" or "cluster" runs is reported, and exits non-zero,
+after phase 6 has run and printed its table):
 
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
@@ -37,7 +37,15 @@ has run and printed its table):
      pool, a relayout into a pool of half-size pages, re-prefill; mamba2
      has no pages to re-lay out) finish with the same tokens as the same
      engine's uninterrupted run, the smoke configs on the card and on the
-     CPU;
+     CPU; the cluster (``serving/cluster.py``, fp32, a virtual tick
+     clock): the twins of the three cluster benches (``bench_rebalance``,
+     ``bench_disagg``, ``bench_recovery``) on yi-9b give the same tokens
+     per rid on the card and the CPU and the counts committed in their
+     ``BENCH_*.json`` files (read from them), and a switch with requests
+     in flight followed by a replica crash gives the same tokens on both
+     and those of one uninterrupted engine: yi-9b in the dense decode
+     mode with the crashed replica's pages lost, hymba-1.5b with its
+     pages and SSM rows handed off;
   5. the served models at full width, one after another: yi-9b (48
      layers) three times on the same weights (paged decode, the dense
      decode mode, chunked prefill in 256-token budgets), hymba-1.5b (32)
@@ -75,7 +83,18 @@ has run and printed its table):
      revisit prefilling 1 token, each restored page bit-equal to its
      gather before eviction, whole pages moved, no block lost, and the
      host tier's time a page for an eviction and a restore beside a plain
-     pinned copy of the same bytes;
+     pinned copy of the same bytes; last, on the same weights, the
+     "cluster" runs: 16 prompts of 128-1024 tokens over 4 virtual chips
+     (512 pages and 8 slots each) — a switch from [2, 1, 1] to [2, 2]
+     chips at 8 tokens (the moved requests by page handoff, nothing
+     recomputed, no rollback), two crashes under [2, 1, 1] (pages kept at
+     8 tokens: handoff; lost at 16: re-prefill of exactly prompt +
+     emitted, every earlier stream a prefix of the final one, blocks
+     conserved), and [2 prefill, 2 decode] against [2, 2] mixed (16
+     handoffs, nothing recomputed); each run must launch the paged
+     decode and prefill kernels, finish 16 x 32 tokens, leave the pool
+     whole and meet the 90 % agreement, and prints its switch or
+     recovery stalls, TTFT and decode rate beside the card's line;
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
@@ -745,6 +764,231 @@ def check_migrated_streams(name, cfg, params, prompts, new_tokens, device,
                              f"{device} differs from the uninterrupted one")
 
 
+# --------------------------------------------------------------------------
+# The cluster (``serving/cluster.py``): the twins of the JAX package's three
+# cluster benches and a switch-and-crash scenario, written against a
+# package namespace so that the parity tests run the same scenarios on the
+# JAX package's cluster (``cluster_package``'s twin there), and phase 4 on
+# the port's on the card and on the CPU.  Time is virtual: one unit a
+# cluster tick, so every count and every TTFT/TPOT tick is exact.
+# --------------------------------------------------------------------------
+
+
+class TickClock:
+    """Virtual time: the caller advances one unit a cluster tick."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def cluster_package(device: str):
+    """The port's cluster entry points, and the options that put its
+    runtime on ``device`` in fp32."""
+    import types
+    from repro_torch.core.types import Deployment, ReplicaConfig
+    from repro_torch.serving.cluster import ClusterRuntime, RebalanceConfig
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    from repro_torch.serving.router import FlowRouter
+    from repro_torch.serving.telemetry import Telemetry
+    return types.SimpleNamespace(
+        ClusterRuntime=ClusterRuntime, RebalanceConfig=RebalanceConfig,
+        FaultPlan=FaultPlan, FaultSpec=FaultSpec, FlowRouter=FlowRouter,
+        Telemetry=Telemetry, ReplicaConfig=ReplicaConfig,
+        Deployment=Deployment,
+        kw=dict(dtype=torch.float32, device=device))
+
+
+def span_plan(pkg, rcs, fractions):
+    """A stand-in for a planner's span plan: a deployment and fractions."""
+    import types
+    return types.SimpleNamespace(deployment=pkg.Deployment(tuple(rcs)),
+                                 fractions=fractions)
+
+
+def cluster_tokens(rt) -> dict:
+    return {r: [int(t) for t in rt.results[r].generated]
+            for r in sorted(rt.results)}
+
+
+def bench_rebalance_twin(pkg, cfg, params, on: bool, n_requests: int = 16,
+                         seed: int = 9) -> dict:
+    """``benchmarks/bench_rebalance.py``'s run: a hot spot piles the first
+    half of the requests onto replica 0, which then stalls 6 ticks; every
+    request has a 3-tick TPOT budget and a seeded quarter priority 1; the
+    rest trickle in one a tick.  Rebalancer ``on`` or off."""
+    faults = pkg.FaultPlan([pkg.FaultSpec("hotspot", 0, replica=0, steps=2),
+                            pkg.FaultSpec("stall", 2, replica=0, steps=6)])
+    clock = TickClock()
+    tm = pkg.Telemetry(clock=clock)
+    rt = pkg.ClusterRuntime(
+        cfg, params, total_chips=4, blocks_per_chip=32, seqs_per_chip=8,
+        block_size=8, drain_steps=1, router=pkg.FlowRouter([[0.5], [0.5]]),
+        faults=faults, telemetry=tm,
+        rebalance=pkg.RebalanceConfig(max_moves_per_tick=4) if on else None,
+        **pkg.kw)
+    rt.apply_plan(span_plan(pkg, [pkg.ReplicaConfig(1, 1)] * 2,
+                            [[0.5], [0.5]]))
+    rng = np.random.RandomState(seed)
+    jobs = [(rng.randint(0, cfg.vocab_size, 6 + (i % 4) * 2)
+             .astype(np.int32), 6 + (i % 4)) for i in range(n_requests)]
+    pri = (np.random.RandomState(seed + 1).rand(n_requests)
+           < 0.25).astype(int).tolist()
+    upfront = n_requests // 2
+    for rid in range(upfront):
+        rt.submit(rid, *jobs[rid], tpot_deadline=3.0, priority=pri[rid])
+    ticks, next_rid = 0, upfront
+    while (rt.pending or next_rid < n_requests) and ticks < 200:
+        if next_rid < n_requests:
+            rt.submit(next_rid, *jobs[next_rid], tpot_deadline=3.0,
+                      priority=pri[next_rid])
+            next_rid += 1
+        rt.step()
+        clock.t += 1.0
+        ticks += 1
+    rep = rt.finish_span()
+    hist = tm.metrics.histograms
+    return {"mode": "on" if on else "off", "n_requests": n_requests,
+            "total_shed": len(rt.all_shed_rids),
+            "completed": len(rt.results), "ticks": ticks,
+            "ttft_p95_ticks": hist["ttft_s"].summary()["p95"],
+            "tpot_p95_ticks": hist["tpot_s"].summary()["p95"],
+            "rebalanced": rep.rebalanced, "preempted": rep.preempted,
+            "handoff": rep.rebalance.handoff,
+            "requeued": rep.rebalance.requeued,
+            "recompute_tokens": rep.rebalance.recompute_tokens,
+            "tokens": cluster_tokens(rt)}
+
+
+def bench_disagg_twin(pkg, cfg, params, disagg: bool, n_requests: int = 12,
+                      seed: int = 11) -> dict:
+    """``benchmarks/bench_disagg.py``'s run: one burst of long-prompt
+    requests on a prefill replica handing off to a decode replica, or on
+    two mixed replicas."""
+    rc = pkg.ReplicaConfig
+    if disagg:
+        rcs, fractions = [rc(2, role="prefill"), rc(2, role="decode")], \
+            [[1.0], [0.0]]
+    else:
+        rcs, fractions = [rc(2), rc(2)], [[0.5], [0.5]]
+    clock = TickClock()
+    tm = pkg.Telemetry(clock=clock)
+    rt = pkg.ClusterRuntime(
+        cfg, params, total_chips=4, blocks_per_chip=32, seqs_per_chip=2,
+        block_size=8, drain_steps=1, router=pkg.FlowRouter(fractions),
+        telemetry=tm, **pkg.kw)
+    rt.apply_plan(span_plan(pkg, rcs, fractions))
+    rng = np.random.RandomState(seed)
+    jobs = [(rng.randint(0, cfg.vocab_size, 24 + (i % 4) * 6)
+             .astype(np.int32), 6 + (i % 4)) for i in range(n_requests)]
+    for rid, (p, n) in enumerate(jobs):
+        rt.submit(rid, p, n)
+    ticks = 0
+    while rt.pending and ticks < 300:
+        rt.step()
+        clock.t += 1.0
+        ticks += 1
+    rep = rt.finish_span()
+    hist = tm.metrics.histograms
+    return {"mode": "disagg" if disagg else "mixed",
+            "n_requests": n_requests, "completed": len(rt.results),
+            "shed": len(rt.all_shed_rids), "ticks": ticks,
+            "ttft_p95_ticks": hist["ttft_s"].summary()["p95"],
+            "tpot_p95_ticks": hist["tpot_s"].summary()["p95"],
+            "handoffs": rep.handoffs, "handoff_path": rep.handoff.handoff,
+            "handoff_pages": rep.handoff.pages_handoff,
+            "recompute_tokens": rep.handoff.recompute_tokens,
+            "prefill_tokens": rt.total_prefill_tokens,
+            "prompt_tokens": sum(len(p) for p, _ in jobs),
+            "role_util": rep.role_util, "tokens": cluster_tokens(rt)}
+
+
+def bench_recovery_twin(pkg, cfg, params, mode: str, ctx_len: int = 448,
+                        batch: int = 2, new_tokens: int = 16) -> dict:
+    """One round of ``benchmarks/bench_recovery.py``: 2 x ``batch``
+    requests of ``ctx_len`` tokens over two replicas, a prefill and one
+    decode step, then replica 0 dies with its pages kept (``handoff``) or
+    lost (``reprefill``); the report's counts and the finished streams."""
+    block = 8
+    per_seq = (ctx_len + new_tokens) // block + 2
+    rt = pkg.ClusterRuntime(
+        cfg, params, total_chips=2, blocks_per_chip=2 * batch * per_seq,
+        seqs_per_chip=2 * batch, block_size=block, drain_steps=0,
+        router=pkg.FlowRouter([[0.5], [0.5]]), **pkg.kw)
+    rt.apply_plan(span_plan(pkg, [pkg.ReplicaConfig(1, 1)] * 2,
+                            [[0.5], [0.5]]))
+    rng = np.random.RandomState(0)
+    victims = []
+    for rid in range(2 * batch):
+        prompt = rng.randint(0, cfg.vocab_size, ctx_len).astype(np.int32)
+        if rt.submit(rid, prompt, new_tokens) == 0:
+            victims.append(rid)
+    rt.step()
+    rt.step()
+    report = rt.fail_replica(0, lose_pages=(mode == "reprefill"))
+    rt.run_until_idle()
+    return {"mode": mode, "recovered": len(victims),
+            "handoff": report.handoff, "reprefilled": report.reprefilled,
+            "pages_handoff": report.pages_handoff,
+            "recompute_tokens": report.recompute_tokens,
+            "dropped": report.dropped, "tokens": cluster_tokens(rt)}
+
+
+def switch_crash_twin(pkg, cfg, params, lose_pages: bool = True,
+                      **cluster_kw) -> dict:
+    """The smoke twin of phase 5's cluster job: 8 requests of two types on
+    [2, 1, 1] chips; after 3 ticks a switch to [2, 2] (replica 1 rebuilt,
+    replica 2 dropped: their requests move), 2 ticks later replica 1 dies
+    (pages kept or lost), and the cluster runs to idle.  Returns the
+    streams and everything the runtime reports."""
+    rc = pkg.ReplicaConfig
+    rt = pkg.ClusterRuntime(
+        cfg, params, total_chips=4, blocks_per_chip=32, seqs_per_chip=4,
+        block_size=8, drain_steps=0,
+        router=pkg.FlowRouter([[0.5, 0.5], [0.25, 0.25], [0.25, 0.25]]),
+        **pkg.kw, **cluster_kw)
+    rt.apply_plan(span_plan(pkg, [rc(2), rc(1), rc(1)],
+                            [[0.5, 0.5], [0.25, 0.25], [0.25, 0.25]]))
+    rng = np.random.RandomState(3)
+    for rid in range(8):
+        prompt = rng.randint(0, cfg.vocab_size, 6 + 3 * rid).astype(np.int32)
+        rt.submit(rid, prompt, 20 + rid % 3, type_id=rid % 2)
+    for _ in range(3):
+        rt.step()
+    switch = rt.apply_plan(span_plan(pkg, [rc(2), rc(2)],
+                                     [[0.5, 0.5], [0.5, 0.5]]))
+    spans = [rt.finish_span()]
+    rt.step()
+    rt.step()
+    prefill_before = rt.total_prefill_tokens
+    recovery = rt.fail_replica(1, lose_pages=lose_pages)
+    rt.run_until_idle()
+    spans.append(rt.finish_span())
+    return {"tokens": cluster_tokens(rt),
+            "switch": dataclasses.asdict(switch),
+            "recovery": dataclasses.asdict(recovery),
+            "spans": [span_fields(s) for s in spans],
+            "prefill_before_crash": prefill_before,
+            "prefill_tokens": rt.total_prefill_tokens,
+            "shed": list(rt.all_shed_rids),
+            "pool": (rt.pool.allocator.n_free, rt.pool.reserved)}
+
+
+def span_fields(rep) -> dict:
+    """A ``SpanReport`` as plain values (numpy arrays as lists)."""
+    out = {}
+    for f in dataclasses.fields(rep):
+        v = getattr(rep, f.name)
+        if dataclasses.is_dataclass(v):
+            v = dataclasses.asdict(v)
+        elif isinstance(v, np.ndarray):
+            v = v.tolist()
+        out[f.name] = v
+    return out
+
+
 # phase 4's engine modes: paged decode at horizons 1 and 8, the dense
 # decode mode, chunked prefill (8-token chunks on the smoke configs) and
 # the prefix cache (the SSM models ignore the last two: they prefill
@@ -926,6 +1170,342 @@ def phase_greedy() -> None:
         torch.cuda.empty_cache()
 
 
+def phase_cluster_smoke() -> None:
+    """Phase 4's cluster checks on smoke configs (fp32): the twins of the
+    three cluster benches on yi-9b, on the card and on the CPU, must give
+    the same tokens per rid on both and the counts committed in
+    ``BENCH_rebalance.json``, ``BENCH_disagg.json`` and
+    ``BENCH_recovery.json`` (ticks of a virtual clock: counts, not times);
+    the switch-and-crash twin on yi-9b in the dense decode mode (its pages
+    lost: re-prefill) and on hymba-1.5b (its pages and SSM rows kept: a
+    handoff) must give the same tokens on both and, on hymba, the tokens of
+    one uninterrupted engine."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+    t0 = time.monotonic()
+
+    def committed(name):
+        with open(os.path.join(HERE, f"BENCH_{name}.json")) as f:
+            bench = json.load(f)
+        return bench, {r["mode"]: r for r in bench["results"]}
+
+    pkgs = {dev: cluster_package(dev) for dev in ("cpu", "cuda")}
+    cfg = get_smoke_config("yi-9b")
+    p_cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    params = {"cpu": p_cpu, "cuda": _to(p_cpu, "cuda")}
+    rebalance, disagg = committed("rebalance")[1], committed("disagg")[1]
+    recovery_bench, recovery = committed("recovery")
+    twins = (
+        [("rebalance", m, rebalance[m], lambda pk, p, m=m:
+          bench_rebalance_twin(pk, cfg, p, m == "on",
+                               rebalance[m]["n_requests"]))
+         for m in ("off", "on")]
+        + [("disagg", m, disagg[m], lambda pk, p, m=m:
+            bench_disagg_twin(pk, cfg, p, m == "disagg",
+                              disagg[m]["n_requests"]))
+           for m in ("mixed", "disagg")]
+        + [("recovery", m, recovery[m], lambda pk, p, m=m:
+            bench_recovery_twin(pk, cfg, p, m, recovery_bench["ctx_len"],
+                                recovery_bench["batch"],
+                                recovery_bench["new_tokens"]))
+           for m in ("handoff", "reprefill")])
+    for bench, mode, want, run in twins:
+        got = {dev: run(pkgs[dev], params[dev]) for dev in pkgs}
+        keys = [k for k in want if k in got["cuda"] and k != "mode"]
+        counts = {k: got["cuda"][k] for k in keys}
+        same = got["cuda"]["tokens"] == got["cpu"]["tokens"]
+        exact = counts == {k: want[k] for k in keys} and all(
+            got["cpu"][k] == got["cuda"][k] for k in keys)
+        log(f"  cluster bench_{bench} {mode}: {counts}; equal to "
+            f"BENCH_{bench}.json {exact}; card tokens == CPU tokens {same}")
+        if not (exact and same):
+            raise SystemExit(f"bench_{bench} {mode} twin: the card's counts "
+                             f"or tokens differ from the committed counts "
+                             f"or the CPU's")
+    for arch, lose, kw in (("yi-9b", True, dict(decode_mode="dense")),
+                           ("hymba-1.5b", False, dict(decode_horizon=4))):
+        cfg = get_smoke_config(arch)
+        p_cpu = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+        params = {"cpu": p_cpu, "cuda": _to(p_cpu, "cuda")}
+        got = {dev: switch_crash_twin(pkgs[dev], cfg, params[dev],
+                                      lose_pages=lose, **kw)
+               for dev in pkgs}
+        g = got["cuda"]
+        same = {k: g[k] == got["cpu"][k] for k in g}
+        # one engine serving the same jobs without interruption
+        ref = ServingEngine(cfg, params["cuda"], num_blocks=256,
+                            block_size=8, max_seqs=8, device="cuda", **kw)
+        rng = np.random.RandomState(3)
+        for rid in range(8):
+            ref.submit(rid, rng.randint(0, cfg.vocab_size, 6 + 3 * rid)
+                       .astype(np.int32), 20 + rid % 3)
+        want = {r.rid: [int(t) for t in r.generated]
+                for r in ref.run_to_completion()}
+        sw, rec = g["switch"], g["recovery"]
+        path = "reprefilled" if lose else "handoff"
+        ok = (all(same.values()) and g["tokens"] == want
+              and not sw["rolled_back"] and sw["handoff"] == sw["migrated"]
+              and rec[path] >= 1 and g["pool"] == (128, 0))
+        log(f"  cluster switch+crash {arch} {kw}: switch changed "
+            f"{sw['changed']} handoff {sw['handoff']} ({sw['pages_handoff']} "
+            f"pages); crash with pages {'lost' if lose else 'kept'}: "
+            f"handoff {rec['handoff']} reprefilled {rec['reprefilled']} "
+            f"recompute {rec['recompute_tokens']}; card == CPU "
+            f"{all(same.values())}; equal to one uninterrupted engine "
+            f"{g['tokens'] == want}; pool free/reserved {g['pool']}")
+        if not ok:
+            raise SystemExit(f"{arch}: the smoke switch-and-crash cluster "
+                             f"run failed its checks ({same})")
+    log(f"  cluster checks took {time.monotonic() - t0:.1f} s")
+
+
+# phase 5's "cluster" job (yi-9b, after the prefix runs, on the same
+# weights): 16 prompts of 128-1024 tokens, two request types, 32 new tokens
+# each, over 4 virtual chips of 512 pages (the 2048 16-token pages the
+# phase's other runs use) and 8 slots each.  Plan A is [2, 1, 1] chips,
+# plan B [2, 2]; the switch and the first crash come when every request
+# has CLUSTER_AFTER[0] tokens, the second crash at CLUSTER_AFTER[1].
+CLUSTER_MODELS = ("yi-9b",)
+CLUSTER_JOB = dict(n=16, new_tokens=32)
+CLUSTER_AFTER = (8, 16)
+CLUSTER_RUNTIME = dict(total_chips=4, blocks_per_chip=512, seqs_per_chip=8,
+                       block_size=16, decode_horizon=8, drain_steps=1,
+                       dtype=torch.bfloat16, device="cuda")
+PLAN_A = ((2, 1, 1), [[0.5, 0.5], [0.25, 0.25], [0.25, 0.25]])
+PLAN_B = ((2, 2), [[0.5, 0.5], [0.5, 0.5]])
+
+
+def cluster_prompts(cfg) -> list:
+    rng = np.random.RandomState(1)
+    lens = rng.randint(128, 1025, CLUSTER_JOB["n"])
+    return [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def _cluster(pkg, cfg, params, chips, fractions, roles=None):
+    """A phase-5 runtime with telemetry on the host clock, its plan
+    applied."""
+    roles = roles or ["mixed"] * len(chips)
+    tm = pkg.Telemetry()
+    rt = pkg.ClusterRuntime(cfg, params, router=pkg.FlowRouter(fractions),
+                            telemetry=tm, **CLUSTER_RUNTIME)
+    report = rt.apply_plan(span_plan(
+        pkg, [pkg.ReplicaConfig(c, role=r) for c, r in zip(chips, roles)],
+        fractions))
+    return rt, tm, report
+
+
+def _serve_until(rt, rids, k) -> None:
+    """Step until every request has ``k`` tokens or has finished."""
+    while any(len(rt.request_log[r].emitted) < k and r not in rt.results
+              for r in rids):
+        rt.step()
+
+
+def _held(rt, rids) -> dict:
+    """{rid: tokens} of the requests each replica holds, by replica."""
+    return {h.index: {r.rid: len(r.generated)
+                      for r in list(h.engine.active.values())
+                      + h.engine.waiting if r.rid in rids}
+            for h in rt.replicas if not h.dead}
+
+
+def _next_token_ms(rt, had: dict, t0: float) -> float:
+    """Step until each rid of ``had`` ({rid: tokens}) has one more token;
+    ms since ``t0``."""
+    while any(len(rt.request_log[r].emitted) <= n and r not in rt.results
+              for r, n in had.items()):
+        rt.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _cluster_numbers(rt, tm, wall, t_end, prompts, counts) -> tuple:
+    """(the run's log line of times and launches, its streams by rid,
+    whether every request finished with all its tokens)."""
+    streams = {r: rt.results[r].generated for r in sorted(rt.results)}
+    full = (sorted(streams) == list(range(len(prompts)))
+            and all(len(t) == CLUSTER_JOB["new_tokens"]
+                    for t in streams.values()))
+    ttft = tm.metrics.histograms["ttft_s"]
+    firsts = [e.ts for e in tm.tracer.events if e.kind == "first_token"]
+    dec = sum(len(t) - 1 for t in streams.values())
+    rate = dec / max(t_end - max(firsts), 1e-9) if firsts else 0.0
+    return (f"wall {wall:.3f} s  TTFT mean {ttft.mean * 1e3:.1f} ms max "
+            f"{ttft.max * 1e3:.1f} ms  decode {rate:.1f} tok/s (after the "
+            f"last first token)  launches {counts}"), streams, full
+
+
+def phase_cluster(ops, cfg, params) -> list[str]:
+    """The "cluster" job at full width, three runs on one set of weights:
+    a switch from plan A to plan B mid-flight, two crashes under plan A
+    (pages kept, then lost), and disaggregated prefill/decode against two
+    mixed replicas.  Each run resets the launch counters first and must
+    launch the paged decode and prefill kernels, finish every request with
+    32 tokens, meet the teacher-forced agreement and leave the pool whole;
+    each has its exact counts.  Returns the checks that failed."""
+    t_start = time.monotonic()
+    pkg = cluster_package("cuda")
+    prompts = cluster_prompts(cfg)
+    rids = list(range(len(prompts)))
+    total_prompt = sum(len(p) for p in prompts)
+    new = CLUSTER_JOB["new_tokens"]
+    card = card_line()
+    failed = []
+
+    def submit_all(rt):
+        for rid, p in enumerate(prompts):
+            rt.submit(rid, p, new, type_id=rid % 2)
+
+    def finish(name, rt, tm, t0, exact):
+        rt.run_until_idle()
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        counts = ops.launch_counts()
+        line, streams, full = _cluster_numbers(rt, tm, t_end - t0, t_end,
+                                               prompts, counts)
+        per_req = [teacher_forced_agreement(cfg, params, prompts[r],
+                                            streams[r])
+                   for r in sorted(streams)] if full else [0.0]
+        agree = float(np.mean(per_req))
+        pool = rt.pool
+        whole = (pool.allocator.n_free == pool.num_blocks
+                 and pool.reserved == 0)
+        launched = counts["paged_decode"] > 0 and counts["flash_attention"] > 0
+        log(f"  [cluster {name}] {line}")
+        log(f"  [cluster {name}] 16 requests x 32 tokens {full}; pool "
+            f"{pool.allocator.n_free}/{pool.num_blocks} free, reserved "
+            f"{pool.reserved}; B1 and B2 launched {launched}; exact counts "
+            f"{exact}; teacher-forced agreement (bf16) {agree:.4f}, min "
+            f"{min(per_req):.4f}; limit {MIN_TEACHER_FORCED}; {card}")
+        if not (full and whole and launched and exact):
+            failed.append(f"{cfg.name} cluster {name}: a check failed (32 "
+                          f"tokens each {full}, pool whole {whole}, B1/B2 "
+                          f"launched {launched}, exact counts {exact})")
+        if agree < MIN_TEACHER_FORCED:
+            failed.append(f"{cfg.name} cluster {name}: decode agrees with "
+                          f"the teacher-forced forward on {agree:.4f} of "
+                          f"the tokens, under {MIN_TEACHER_FORCED}")
+        return streams, tm.metrics.histograms["ttft_s"]
+
+    # switch: plan A until every request has 8 tokens, then plan B
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    rt, tm, _ = _cluster(pkg, cfg, params, *PLAN_A)
+    submit_all(rt)
+    _serve_until(rt, rids, CLUSTER_AFTER[0])
+    held = _held(rt, rids)
+    moving = {r: n for k in (1, 2) for r, n in held[k].items()}
+    torch.cuda.synchronize()
+    t_switch = time.perf_counter()
+    report = rt.apply_plan(span_plan(
+        pkg, [pkg.ReplicaConfig(c) for c in PLAN_B[0]], PLAN_B[1]))
+    torch.cuda.synchronize()
+    stall = (time.perf_counter() - t_switch) * 1e3
+    if report.rolled_back:
+        failed.append(f"{cfg.name} cluster switch rolled back: "
+                      f"{report.failure}")
+        log(f"  [cluster switch] rolled back: {report.failure}")
+    exact = (not report.rolled_back
+             and report.handoff == report.migrated
+             == len(moving) - report.drained
+             and report.requeued == report.reprefilled == 0
+             and report.recompute_tokens == 0)
+    log(f"  [cluster switch] plan A {PLAN_A[0]} -> B {PLAN_B[0]} chips at "
+        f">= {CLUSTER_AFTER[0]} tokens: {len(moving)} requests on replicas "
+        f"1-2, drained {report.drained}, handoff {report.handoff} "
+        f"({report.pages_handoff} pages), reprefilled {report.reprefilled}, "
+        f"recompute {report.recompute_tokens}, rolled back "
+        f"{report.rolled_back}; switch stall {stall:.3f} ms "
+        f"(apply_plan, synchronized); {card}")
+    finish("switch", rt, tm, t0, exact
+           and rt.total_prefill_tokens == total_prompt)
+
+    # crash: replica 1 dies with its pages kept at 8 tokens, replica 2
+    # with its pages lost at 16
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    rt, tm, _ = _cluster(pkg, cfg, params, *PLAN_A)
+    submit_all(rt)
+    before, exact = {}, True
+    for k, lose, after in ((1, False, CLUSTER_AFTER[0]),
+                           (2, True, CLUSTER_AFTER[1])):
+        _serve_until(rt, rids, after)
+        held = _held(rt, rids)[k]
+        before.update({r: list(rt.request_log[r].emitted) for r in rids})
+        recompute = sum(len(prompts[r]) + n for r, n in held.items())
+        prefill0 = rt.total_prefill_tokens
+        torch.cuda.synchronize()
+        t_fail = time.perf_counter()
+        rep = rt.fail_replica(k, lose_pages=lose)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_fail) * 1e3
+        next_ms = _next_token_ms(rt, held, t_fail)
+        conserved = (int((rt.pool.allocator.refs > 0).sum())
+                     + rt.pool.allocator.n_free == rt.pool.num_blocks)
+        if lose:
+            ok = (rep.reprefilled == len(held) and rep.handoff == 0
+                  and rep.recompute_tokens == recompute)
+            rt.run_until_idle()
+            ok = ok and rt.total_prefill_tokens - prefill0 == recompute
+        else:
+            ok = (rep.handoff == rep.migrated == len(held)
+                  and rep.recompute_tokens == 0)
+        exact = exact and ok and conserved and rep.dropped == 0
+        path = "re-prefill" if lose else "handoff"
+        log(f"  [cluster crash] replica {k} dies at >= {after} tokens with "
+            f"its pages {'lost' if lose else 'kept'}: {len(held)} requests, "
+            f"handoff {rep.handoff} ({rep.pages_handoff} pages), "
+            f"reprefilled {rep.reprefilled}, recompute "
+            f"{rep.recompute_tokens} (want {recompute if lose else 0}), "
+            f"blocks conserved {conserved}; exact {ok}; recovery stall "
+            f"({path}) {ms:.3f} ms in fail_replica, {next_ms:.3f} ms until "
+            f"each of its requests emitted its next token; {card}")
+    streams, _ = finish("crash", rt, tm, t0, exact)
+    prefix = all(streams.get(r, [])[:len(t)] == t
+                 for r, t in before.items())
+    log(f"  [cluster crash] every stream emitted before a crash is a "
+        f"prefix of the final one {prefix}")
+    if not prefix:
+        failed.append(f"{cfg.name} cluster crash: a stream changed across "
+                      "a recovery")
+
+    # disagg: a prefill replica hands every context to a decode replica,
+    # against two mixed replicas
+    ttfts = {}
+    for name, roles, fractions in (
+            ("mixed", None, PLAN_B[1]),
+            ("disagg", ("prefill", "decode"), [[1.0, 1.0], [0.0, 0.0]])):
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        rt, tm, _ = _cluster(pkg, cfg, params, PLAN_B[0], fractions, roles)
+        submit_all(rt)
+        rt.run_until_idle()
+        span = rt.finish_span()
+        stats = rt.load_stats()
+        if roles:
+            exact = (span.handoffs == span.handoff.handoff == len(prompts)
+                     and span.handoff.recompute_tokens == 0
+                     and stats[0]["handoff_out"] == len(prompts)
+                     and stats[1]["handoff_in"] == len(prompts))
+            log(f"  [cluster disagg] handoffs {span.handoffs} (by page "
+                f"handoff {span.handoff.handoff}, {span.handoff.pages_handoff}"
+                f" pages), recompute {span.handoff.recompute_tokens}, "
+                f"handoff_out/in {stats[0]['handoff_out']}/"
+                f"{stats[1]['handoff_in']}, role_util {span.role_util}")
+        else:
+            exact = span.handoffs == 0
+        exact = exact and rt.total_prefill_tokens == total_prompt
+        _, ttfts[name] = finish(name, rt, tm, t0, exact)
+    log(f"  [cluster] TTFT mixed mean {ttfts['mixed'].mean * 1e3:.1f} ms max "
+        f"{ttfts['mixed'].max * 1e3:.1f} ms, disagg mean "
+        f"{ttfts['disagg'].mean * 1e3:.1f} ms max "
+        f"{ttfts['disagg'].max * 1e3:.1f} ms; the cluster runs took "
+        f"{time.monotonic() - t_start:.1f} s; {card}")
+    return failed
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1030,6 +1610,9 @@ def phase_full_width(ops, arch: str, variants: tuple,
     if arch in PREFIX_MODELS:
         failures += phase_prefix(ops, cfg, params)
         failures += phase_evict(ops, cfg, params)
+        torch.cuda.empty_cache()
+    if arch in CLUSTER_MODELS:
+        failures += phase_cluster(ops, cfg, params)
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -1732,6 +2315,7 @@ def main() -> int:
 
     log("[4] greedy decoding")
     phase_greedy()
+    phase_cluster_smoke()
 
     runs, failures = [], []
     for i, (arch, variants) in enumerate(FULL_WIDTH):
@@ -1764,8 +2348,8 @@ def main() -> int:
     if failures:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
-        log(f"chip_smoke: {len(failures)} migrate, prefix or evict "
-            f"check(s) failed: {'; '.join(failures)}")
+        log(f"chip_smoke: {len(failures)} migrate, prefix, evict or "
+            f"cluster check(s) failed: {'; '.join(failures)}")
         return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

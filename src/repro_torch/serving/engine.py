@@ -56,29 +56,49 @@ the dense decode kernel, writes the new token back into the pages and
 reads the sampled tokens back at once (horizon 1; as in the JAX package
 this path counts no ``decode_syncs``).
 
-Replica lifecycle (``repro_torch.serving.migration`` builds on it): an
-engine may share its ``BlockPool`` with others (``pool=``, ``kv_quota=``),
-and then its prefix index too.
+Replica lifecycle (``repro_torch.serving.migration`` and
+``repro_torch.serving.cluster`` build on it): an engine may share its
+``BlockPool`` with others (``pool=``, ``kv_quota=``), and then its prefix
+index too.  ``pause_admission``/``resume_admission`` gate admission,
+``drain`` finishes short sequences in place, and
 ``export_inflight``/``export_request`` evict requests as
 ``InflightSnapshot``s: token state only, or (``release=False``) with the
 sequence's pages, disowned from this engine's view, and a copy of its SSM
 rows, and how many of its leading pages it holds by reference
 (``n_shared``).  ``import_by_pages`` adopts such a snapshot — by handoff
 when it shares the pool, else by copying or re-laying out the pages — and
-the
-request resumes decoding with nothing recomputed; ``import_inflight``
+the request resumes decoding with nothing recomputed; ``import_inflight``
 resumes it by re-prefilling ``prompt + generated``, which hits the prefix
-cache like any admission.  Call export and import only between
+cache like any admission.  A snapshot carries the request's TTFT deadline,
+TPOT budget and priority.  Call export and import only between
 ``finish_step`` and the next ``step_async``: no decode may be in flight.
 
-Not ported yet (ROADMAP.md): SLO shedding, telemetry (the ``prefix_hit``
-event among it), an injectable clock and meshes.  ``load_stats()`` returns
-every key of the frozen schema, with 0 for those features.
+SLO shedding and priority, as in the JAX package: ``submit`` takes a TTFT
+deadline (absolute, engine clock), a TPOT budget (seconds a token) and a
+priority.  Admission sheds waiting requests whose deadline has passed
+(``_shed_blown``) and admits higher priorities first; after retirement
+each step sheds active requests whose pace since their first token blew
+their budget (``_shed_slow``).  Shed rids land in ``shed_rids``.
+
+Telemetry (``telemetry=``, ``serving.telemetry``): the engine emits the
+JAX package's lifecycle events with the same fields (submit, admit,
+prefix_hit, prefill_chunk, first_token, dispatch, sync, retire, shed) and
+records the TTFT, TPOT and queue-delay histograms, all on the host at
+scheduling boundaries; each emit point is guarded, so the disabled default
+``NULL_TELEMETRY`` costs nothing.  ``clock=`` sets the one time source of
+deadlines, pacing and events (else the telemetry's clock, else
+``time.monotonic``); ``trace_id`` is the replica index on the trace and
+``role`` the replica's serving role (the engine itself is role-blind; the
+cluster routes and hands off).  ``fault_hook``, when set, is called as
+``fault_hook("admit")`` before admission mutates anything and may raise
+(the cluster's injected OOM).
+
+``load_stats()`` returns every key of the frozen ``LOAD_STATS_KEYS``
+schema (the JAX package's table).  Not ported: meshes.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -92,6 +112,7 @@ from repro_torch.models.sampling import sample
 from repro_torch.serving.kvcache import (BlockPool, PagedKVCache,
                                          copy_blocks, relayout_blocks)
 from repro_torch.serving.prefixcache import PrefixCache
+from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 # the frozen load_stats() key set (the JAX package's schema)
 LOAD_STATS_KEYS = frozenset({
@@ -116,8 +137,13 @@ class EngineRequest:
     # a resumed (migrated) request prefills prompt + generated as one context
     ctx: np.ndarray | None = None
     prefill_pos: int = 0         # tokens of ``prefill_tokens`` in pages
+    # SLO shedding: absolute TTFT deadline (engine clock) of a waiting
+    # request, and the per-token pace budget (s/token) measured from t_first
+    deadline: float | None = None
+    tpot_budget: float | None = None
+    t_first: float | None = None  # engine clock when the first token was read
     t_submit: float | None = None
-    t_first: float | None = None  # host clock when the first token was read
+    priority: int = 0             # higher first at admission
 
     @property
     def prefill_tokens(self) -> np.ndarray:
@@ -152,6 +178,9 @@ class InflightSnapshot:
     pool: BlockPool | None = None    # the pool the pages live in
     ssm: torch.Tensor | None = None  # [L, H, P, N] the sequence's SSM row
     conv: torch.Tensor | None = None
+    deadline: float | None = None    # TTFT deadline, carried across a move
+    tpot: float | None = None        # TPOT pace budget, carried likewise
+    priority: int = 0                # scheduling priority, carried likewise
 
 
 @dataclasses.dataclass
@@ -180,9 +209,10 @@ def _canonical(device: torch.device) -> torch.device:
     return device
 
 
-def _token_snapshot(r: EngineRequest) -> InflightSnapshot:
+def _token_snapshot(r: EngineRequest, **pages) -> InflightSnapshot:
     return InflightSnapshot(r.rid, r.prompt, list(r.generated),
-                            r.max_new_tokens)
+                            r.max_new_tokens, deadline=r.deadline,
+                            tpot=r.tpot_budget, priority=r.priority, **pages)
 
 
 class ServingEngine:
@@ -193,7 +223,9 @@ class ServingEngine:
                  decode_horizon: int = 1, decode_mode: str = "paged",
                  prefill_chunk_tokens: int | None = None,
                  pool: BlockPool | None = None, kv_quota: int | None = None,
-                 prefix_cache: bool = False, device="cuda"):
+                 prefix_cache: bool = False, device="cuda",
+                 clock=None, telemetry=None, trace_id: int = 0,
+                 role: str = "mixed"):
         """``params`` must already live on ``device``; ``dtype`` is the KV
         pool's dtype.  Runs on CUDA unless ``device="cpu"`` is passed.
         ``decode_mode`` is "paged" or "dense" (horizon 1 only);
@@ -202,7 +234,9 @@ class ServingEngine:
         shares a ``BlockPool`` with other engines (``num_blocks`` is then
         ignored), ``kv_quota`` caps the blocks this engine may reserve in
         it.  ``prefix_cache`` turns on the pool's prefix cache (ignored for
-        models with SSM layers or no attention)."""
+        models with SSM layers or no attention).  ``clock``,
+        ``telemetry``, ``trace_id`` and ``role``: see the module
+        docstring."""
         check_supported(cfg)
         if decode_mode not in ("paged", "dense"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
@@ -265,6 +299,23 @@ class ServingEngine:
         self.last_horizon = 0
         # chunked-prefill round-robin rotation pointer
         self._chunk_rr = 0
+        # SLO shedding: rids rejected for a blown TTFT or TPOT budget
+        self.shed_rids: list[int] = []
+        # the cluster's traffic through this replica: sequences its
+        # rebalancer moved on and off, lower-priority ones preempted here,
+        # and first-token-ready contexts handed between roles
+        self.rebalanced_in = 0
+        self.rebalanced_out = 0
+        self.preempted = 0
+        self.role = role
+        self.handoff_in = 0
+        self.handoff_out = 0
+        # one time source for deadlines, pacing and trace events
+        self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
+        self.trace_id = trace_id
+        self.clock = clock if clock is not None else self.telemetry.clock
+        # chaos injection at admission (see the module docstring)
+        self.fault_hook = None
         # prefix reuse resumes prefill mid-prompt through the chunk forward,
         # which SSM models do not have, and pages carry no SSM state: the
         # cache is attention-only.  Engines on one pool share its index.
@@ -272,10 +323,18 @@ class ServingEngine:
         if prefix_cache and cfg.has_attn and not cfg.has_ssm:
             self.prefix_cache = (self.cache.pool.prefix_cache
                                  or PrefixCache(self.cache.pool))
+            if self.telemetry.enabled:
+                # the pool's sink: evict/restore events carry replica -1
+                self.prefix_cache.telemetry = self.telemetry
         # (rid, cached tokens, context tokens) per admission
         self.prefix_events: list[tuple[int, int, int]] = []
 
     # -- submission ------------------------------------------------------------
+
+    @property
+    def max_context(self) -> int:
+        """Tokens one sequence's block table can address."""
+        return self.cache.max_blocks_per_seq * self.cache.block_size
 
     def _capacity_blocks(self) -> int:
         """Blocks one sequence may ever hold on this replica."""
@@ -305,12 +364,28 @@ class ServingEngine:
                 f"per-sequence block capacity is "
                 f"{self._capacity_blocks()} x {self.cache.block_size} tokens")
 
-    def submit(self, rid: int, prompt: np.ndarray, max_new_tokens: int
-               ) -> None:
+    def submit(self, rid: int, prompt: np.ndarray, max_new_tokens: int,
+               ttft_deadline: float | None = None,
+               tpot_deadline: float | None = None,
+               type_id: int = -1, priority: int = 0) -> None:
+        """Queue a request.  ``ttft_deadline`` (absolute, engine clock)
+        sheds it if it is still waiting when the deadline passes;
+        ``tpot_deadline`` (seconds a token) sheds it mid-flight when its
+        pace since the first token exceeds the budget.  ``type_id`` only
+        labels the telemetry event; ``priority`` (higher first) orders
+        admission and marks preemption victims for the cluster."""
         prompt = np.asarray(prompt, np.int32)
         self._validate(len(prompt), max_new_tokens, rid)
-        self.waiting.append(EngineRequest(rid, prompt, max_new_tokens,
-                                          t_submit=time.monotonic()))
+        req = EngineRequest(rid, prompt, max_new_tokens,
+                            deadline=ttft_deadline,
+                            tpot_budget=tpot_deadline, priority=priority,
+                            t_submit=self.clock())
+        tm = self.telemetry
+        if tm.enabled:
+            tm.emit("submit", rid=rid, replica=self.trace_id,
+                    type_id=type_id, prompt_len=len(prompt),
+                    max_new=max_new_tokens)
+        self.waiting.append(req)
 
     def _free_slots(self) -> list[int]:
         return [s for s in range(self.max_seqs) if s not in self.active]
@@ -369,10 +444,9 @@ class ServingEngine:
                 if self.cache.conv is not None else None)
         n_shared = self.cache.seq_shared.get(slot, 0)
         blocks, seq_len = self.cache.disown_slot(slot)
-        return InflightSnapshot(r.rid, r.prompt, list(r.generated),
-                                r.max_new_tokens, blocks=blocks,
-                                seq_len=seq_len, n_shared=n_shared,
-                                pool=self.cache.pool, ssm=ssm, conv=conv)
+        return _token_snapshot(r, blocks=blocks, seq_len=seq_len,
+                               n_shared=n_shared, pool=self.cache.pool,
+                               ssm=ssm, conv=conv)
 
     def export_request(self, rid: int, release: bool = False
                        ) -> InflightSnapshot | None:
@@ -442,9 +516,12 @@ class ServingEngine:
                 cache.conv[:, slot] = s.conv
             r = EngineRequest(s.rid, np.asarray(s.prompt, np.int32),
                               s.max_new_tokens, slot=slot,
-                              generated=list(s.generated))
+                              generated=list(s.generated),
+                              tpot_budget=s.tpot, priority=s.priority)
             r.prefill_pos = len(r.prefill_tokens)   # the prefix is in pages
-            r.t_first = time.monotonic()
+            # the pace clock restarts here: the move's stall is the
+            # switch's, not this request's TPOT
+            r.t_first = self.clock()
             self.active[slot] = r
             # this engine owns the pages now: a later release of the
             # snapshot must not free them again
@@ -458,7 +535,9 @@ class ServingEngine:
         prefilled is submitted anew."""
         for s in snaps:
             if not s.generated:
-                self.submit(s.rid, s.prompt, s.max_new_tokens)
+                self.submit(s.rid, s.prompt, s.max_new_tokens,
+                            ttft_deadline=s.deadline, tpot_deadline=s.tpot,
+                            priority=s.priority)
                 continue
             remaining = s.max_new_tokens - len(s.generated)
             if remaining < 1:
@@ -469,7 +548,8 @@ class ServingEngine:
             self._validate(len(ctx), remaining, s.rid)
             self.waiting.append(EngineRequest(
                 s.rid, prompt, s.max_new_tokens,
-                generated=list(s.generated), ctx=ctx))
+                generated=list(s.generated), ctx=ctx,
+                tpot_budget=s.tpot, priority=s.priority))
 
     def release_all(self) -> None:
         """Teardown: drop every request and hand every block back to the
@@ -497,15 +577,15 @@ class ServingEngine:
             "prefix_hit_tokens": pc.hit_tokens if pc else 0,
             "prefix_evicted_bytes": pc.evicted_bytes if pc else 0,
             "prefix_restored_bytes": pc.restored_bytes if pc else 0,
-            "shed": 0,
+            "shed": len(self.shed_rids),
             "decode_syncs": self.decode_syncs,
             "load": (len(self.waiting) + len(self.active)) / self.max_seqs,
-            "rebalanced_in": 0,
-            "rebalanced_out": 0,
-            "preempted": 0,
+            "rebalanced_in": self.rebalanced_in,
+            "rebalanced_out": self.rebalanced_out,
+            "preempted": self.preempted,
             "fragmentation": self._fragmentation(),
-            "handoff_in": 0,
-            "handoff_out": 0,
+            "handoff_in": self.handoff_in,
+            "handoff_out": self.handoff_out,
         }
 
     def _fragmentation(self) -> float:
@@ -517,13 +597,46 @@ class ServingEngine:
                        for s in self.cache.seq_blocks)
         return 1.0 - resident / (held * self.cache.block_size)
 
+    def inflight_context_lens(self) -> list[int]:
+        """Context length of every sequence holding live pages (a planner's
+        migration-cost input); queued and mid-prefill requests move by
+        requeue, not by their pages, and are left out."""
+        return [len(r.prompt) + len(r.generated)
+                for r in self.active.values() if not r.prefilling]
+
     # -- scheduling ------------------------------------------------------------
+
+    def _shed_blown(self) -> None:
+        """Drop waiting requests whose TTFT deadline has passed: prefilling
+        them cannot meet it, so their capacity goes to requests that can."""
+        if not any(r.deadline is not None for r in self.waiting):
+            return
+        now = self.clock()
+        keep = []
+        tm = self.telemetry
+        for r in self.waiting:
+            if r.deadline is not None and now > r.deadline:
+                self.shed_rids.append(r.rid)
+                if tm.enabled:
+                    tm.emit("shed", rid=r.rid, replica=self.trace_id,
+                            reason="ttft")
+                    tm.metrics.count("shed_ttft")
+            else:
+                keep.append(r)
+        self.waiting = keep
 
     def _admit(self) -> list[EngineRequest]:
         """Move waiting requests into free slots while KV blocks remain."""
         admitted = []
         if not self.admitting:
             return admitted
+        if self.fault_hook is not None:
+            self.fault_hook("admit")
+        self._shed_blown()
+        # priority first; the stable sort keeps FIFO within a priority, and
+        # the all-default queue is left as it is
+        if any(r.priority for r in self.waiting):
+            self.waiting.sort(key=lambda r: -r.priority)
         free = self._free_slots()
         while self.waiting and free:
             req = self.waiting[0]
@@ -547,6 +660,21 @@ class ServingEngine:
                 req.prefill_pos = cached   # prefill starts past the prefix
             if self.prefix_cache is not None:
                 self.prefix_events.append((req.rid, cached, ctx))
+            tm = self.telemetry
+            if tm.enabled:
+                now = self.clock()
+                delay = (now - req.t_submit
+                         if req.t_submit is not None else 0.0)
+                tm.emit("admit", rid=req.rid, replica=self.trace_id,
+                        reserved_bytes=(self.cache.seq_reserved.get(
+                            req.slot, 0) * self.cache.pool.page_nbytes),
+                        cached_tokens=cached, queue_delay_s=delay)
+                tm.metrics.observe("queue_delay_s", delay)
+                if cached:
+                    tm.emit("prefix_hit", rid=req.rid,
+                            replica=self.trace_id, tokens=cached,
+                            pages=len(shared) + (1 if cow is not None
+                                                 else 0))
             self.active[req.slot] = req
             admitted.append(req)
         return admitted
@@ -566,6 +694,18 @@ class ServingEngine:
                                  np.asarray(r.generated, np.int32)])
         self.prefix_cache.publish(stream[:resident], blocks)
 
+    def _note_first_token(self, r: EngineRequest, now: float) -> None:
+        """Telemetry: a request's first token ever.  Callers check that
+        ``r.generated`` was empty before the append: a re-prefilled request
+        had its first token on its origin replica."""
+        tm = self.telemetry
+        if not tm.enabled:
+            return
+        ttft = now - r.t_submit if r.t_submit is not None else 0.0
+        tm.emit("first_token", rid=r.rid, replica=self.trace_id,
+                ttft_s=ttft)
+        tm.metrics.observe("ttft_s", ttft)
+
     def _run_prefill(self, reqs: list[EngineRequest]) -> None:
         # group by prompt length: same-length batches need no padding
         by_len: dict[int, list[EngineRequest]] = {}
@@ -584,12 +724,15 @@ class ServingEngine:
                     self.cache.conv[:, r.slot] = cache.conv[:, i]
             first = self._pick(logits)           # one sync per group
             self.prefill_tokens += pl * len(group)
-            t_first = time.monotonic()
+            t_first = self.clock()
             for i, r in enumerate(group):
                 r.t_first = t_first
                 r.prefill_pos = pl
+                fresh = not r.generated
                 r.generated.append(int(first[i]))
                 self.tokens_out += 1
+                if fresh:
+                    self._note_first_token(r, t_first)
                 self._publish(r.slot, r)
 
     def _chunk_forward(self, r: EngineRequest, start: int, n_valid: int,
@@ -613,9 +756,12 @@ class ServingEngine:
         """A finished prefill's logits give the request its next token;
         its context is now all in pages, which it publishes."""
         first = self._pick(logits)
-        r.t_first = time.monotonic()
+        r.t_first = self.clock()
+        fresh = not r.generated
         r.generated.append(int(first[0]))
         self.tokens_out += 1
+        if fresh:
+            self._note_first_token(r, r.t_first)
         self._publish(r.slot, r)
 
     def _resume_prefill(self, reqs: list[EngineRequest]) -> None:
@@ -662,6 +808,10 @@ class ServingEngine:
                                          _pow2_bucket(n_valid, chunk))
             budget -= n_valid
             r.prefill_pos = start + n_valid
+            if self.telemetry.enabled:
+                self.telemetry.emit("prefill_chunk", rid=r.rid,
+                                    replica=self.trace_id, tokens=n_valid,
+                                    pos=r.prefill_pos)
             if not r.prefilling:              # the final chunk: token 1
                 self._first_token(r, logits)
 
@@ -716,6 +866,9 @@ class ServingEngine:
         self._sample_step += horizon
         self.horizon_counts[horizon] = self.horizon_counts.get(horizon, 0) + 1
         self.last_horizon = horizon
+        if self.telemetry.enabled:
+            self.telemetry.emit("dispatch", replica=self.trace_id, n=B,
+                                h=horizon)
         cache = self.cache
         has_ssm = cache.ssm is not None
         state = PagedDecodeState(
@@ -746,6 +899,10 @@ class ServingEngine:
             self.active[s].generated.extend(
                 int(t) for t in toks[i, :pending.horizon])
             self.tokens_out += pending.horizon
+        if self.telemetry.enabled:
+            self.telemetry.emit("sync", replica=self.trace_id,
+                                n=len(pending.slots),
+                                tokens=len(pending.slots) * pending.horizon)
 
     def _run_decode_dense(self, slots: list[int]) -> None:
         """The dense-gather decode (the JAX package's A/B baseline): one
@@ -786,6 +943,7 @@ class ServingEngine:
 
     def _retire(self) -> list[EngineRequest]:
         done = []
+        tm = self.telemetry
         for s in list(self.active):
             r = self.active[s]
             if len(r.generated) >= r.max_new_tokens:
@@ -794,7 +952,39 @@ class ServingEngine:
                 self.cache.release_slot(s)
                 del self.active[s]
                 done.append(r)
+                if tm.enabled:
+                    now = self.clock()
+                    tm.emit("retire", rid=r.rid, replica=self.trace_id,
+                            tokens=len(r.generated))
+                    if r.t_first is not None and len(r.generated) > 1:
+                        tm.metrics.observe(
+                            "tpot_s", (now - r.t_first)
+                            / (len(r.generated) - 1))
         return done
+
+    def _shed_slow(self) -> None:
+        """Release active requests whose average pace since their first
+        token blew their TPOT budget; their slot and pages go to requests
+        that can still meet theirs.  Runs after retirement, so a request
+        that just produced its last token completes."""
+        if not any(r.tpot_budget is not None for r in self.active.values()):
+            return
+        now = self.clock()
+        for s in list(self.active):
+            r = self.active[s]
+            if (r.tpot_budget is None or r.t_first is None
+                    or len(r.generated) < 2):
+                continue
+            if (now - r.t_first) / (len(r.generated) - 1) > r.tpot_budget:
+                self.shed_rids.append(r.rid)
+                if self.telemetry.enabled:
+                    self.telemetry.emit("shed", rid=r.rid,
+                                        replica=self.trace_id,
+                                        reason="tpot")
+                    self.telemetry.metrics.count("shed_tpot")
+                self._publish(s, r)   # evicted work still warms the cache
+                self.cache.release_slot(s)
+                del self.active[s]
 
     # -- main loop ---------------------------------------------------------------
 
@@ -841,10 +1031,13 @@ class ServingEngine:
 
     def finish_step(self, pending: PendingDecode | None
                     ) -> list[EngineRequest]:
-        """Sync a dispatched step and retire finished requests."""
+        """Sync a dispatched step, retire finished requests and shed
+        TPOT-blown ones."""
         if pending is not None:
             self._finish_decode(pending)
-        return self._retire()
+        done = self._retire()
+        self._shed_slow()
+        return done
 
     def step(self) -> list[EngineRequest]:
         """One synchronous scheduler iteration; returns requests finished

@@ -41,8 +41,9 @@ class MigrationReport:
     pages_handoff: int = 0      # pages transferred by accounting only
     pages_copied: int = 0       # pages physically moved between pools
     recompute_tokens: int = 0   # context tokens the fallback re-prefills
-    # requests no survivor could hold, in the JAX package's failure
-    # recovery; nothing here sets it (the cluster is not ported)
+    # failure recovery only: requests no survivor could hold, released and
+    # shed by the cluster instead of wedging it (never set by a planned
+    # switch, whose stranding pre-check runs before any engine is touched)
     dropped: int = 0
     # per-request restore path: rid -> (path, pages or recompute tokens),
     # path in {"handoff", "copy", "reprefill", "requeue"}

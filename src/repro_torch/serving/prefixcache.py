@@ -36,8 +36,10 @@ are on the host before the block goes back to the allocator.  A later
 ``attach`` hit on a host entry restores it into a fresh block.
 
 The cache belongs to the pool: engines sharing one ``BlockPool`` share one
-index.  The JAX package's telemetry sink (``evict``/``restore`` events) is
-not ported.
+index.  ``telemetry`` is its event sink (an engine built with an enabled
+``serving.telemetry.Telemetry`` sets it): each eviction and restore emits
+an ``evict``/``restore`` event of one page and its bytes, with replica -1,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -96,6 +98,8 @@ class PrefixCache:
         self.evicted_bytes = 0        # device -> host tier
         self.restored_bytes = 0       # host tier -> device
         self.dropped_pages = 0        # cold pages freed without a host copy
+        # event sink for evict/restore (pool-scoped: replica -1)
+        self.telemetry = None
 
     # -- lookup / attach -------------------------------------------------------
 
@@ -212,6 +216,8 @@ class PrefixCache:
         self.evicted_bytes += host.nbytes
         pool.allocator.release([e.block])
         e.block = None
+        if self.telemetry is not None and self.telemetry.enabled:
+            self.telemetry.emit("evict", pages=1, bytes=host.nbytes)
 
     def _restore(self, e: _Entry) -> None:
         """Bring a host-tier page back into a fresh block."""
@@ -225,9 +231,12 @@ class PrefixCache:
         # after it is ordered on the same stream)
         kv = e.host.to(self.pool.device, non_blocking=True)
         scatter_tokens(self.pool, [b], kv[0], kv[1])
-        self.restored_bytes += e.host.nbytes
+        nbytes = e.host.nbytes
+        self.restored_bytes += nbytes
         e.block = b
         e.host = None
+        if self.telemetry is not None and self.telemetry.enabled:
+            self.telemetry.emit("restore", pages=1, bytes=nbytes)
 
     def cold_blocks(self) -> int:
         """Device pages held by the index alone (evictable on demand)."""

@@ -640,3 +640,33 @@ def test_hits_leave_the_shared_pages_unchanged_on_the_card(cuda, dtype):
                                         prefix_cache=False, **kw)
         assert ({r: fin[r].generated for r in fin}
                 == {r: off[r].generated for r in off})
+
+
+# --------------------------------------------------------------------------
+# The cluster on the card: the smoke twin of ``chip_smoke.py`` phase 5's
+# cluster job (the CPU parity against the JAX package is
+# ``test_torch_cluster*.py``).
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lose_pages", [False, True], ids=["keep", "lose"])
+@pytest.mark.parametrize("arch", ["yi-9b", "hymba-1.5b"])
+def test_cluster_switch_and_crash_on_the_card(cuda, arch, lose_pages):
+    """A switch with requests in flight and a replica crash give the same
+    tokens and counts on the card as on the CPU (fp32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    cs = _chip_smoke()
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    got = {dev: cs.switch_crash_twin(cs.cluster_package(dev), cfg,
+                                     cs._to(params, dev),
+                                     lose_pages=lose_pages, decode_horizon=4)
+           for dev in ("cpu", cuda.type)}
+    card = got[cuda.type]
+    assert card == got["cpu"]
+    sw, rec = card["switch"], card["recovery"]
+    assert not sw["rolled_back"] and sw["handoff"] == sw["migrated"] >= 1
+    assert rec["reprefilled" if lose_pages else "handoff"] >= 1
+    assert card["pool"] == (128, 0)
