@@ -5,8 +5,8 @@
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; it exits non-zero without them.  Phases, in order (a failure exits
 non-zero before the result lines; a failed check of phase 5's "migrate",
-"prefix", "evict" or "cluster" runs is reported, and exits non-zero,
-after phase 6 has run and printed its table):
+"prefix", "evict", "cluster" or "orchestrated" runs is reported, and exits
+non-zero, after phase 6 has run and printed its table):
 
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
@@ -45,7 +45,11 @@ after phase 6 has run and printed its table):
      in flight followed by a replica crash gives the same tokens on both
      and those of one uninterrupted engine: yi-9b in the dense decode
      mode with the crashed replica's pages lost, hymba-1.5b with its
-     pages and SSM rows handed off;
+     pages and SSM rows handed off; the control loop's
+     ``serving.validation.run_real_spans`` (llama2-70b smoke, planned
+     with the full profile on 6 virtual chips over 3 spans, a deployment
+     switch every span with requests in flight) gives the same plans,
+     switch and span reports and tokens per rid on the card and the CPU;
   5. the served models at full width, one after another: yi-9b (48
      layers) three times on the same weights (paged decode, the dense
      decode mode, chunked prefill in 256-token budgets), hymba-1.5b (32)
@@ -94,7 +98,31 @@ after phase 6 has run and printed its table):
      handoffs, nothing recomputed); each run must launch the paged
      decode and prefill kernels, finish 16 x 32 tokens, leave the pool
      whole and meet the 90 % agreement, and prints its switch or
-     recovery stalls, TTFT and decode rate beside the card's line;
+     recovery stalls, TTFT and decode rate beside the card's line; last
+     the "orchestrated" job, OServe's control loop (predict -> plan ->
+     switch): ``serve_orchestrated``'s analytic loop with its LSTM on the
+     card (12 spans of a synthetic trace typed by k-means, llama2-70b
+     planned on 16 chips), the card's predictions within a relative 1e-4
+     of the CPU's, one LSTM fit at the paper's defaults timed on the card
+     and the host; then llama2-70b at its published widths cut to 20 of
+     80 layers (bf16, seeded weights, ~35 GB), planned by
+     ``Orchestrator.plan_span`` with the full 80-layer profile on 6
+     virtual chips (512 pages and 4 slots each, drain window 0, prefix
+     cache on) over 3 spans of alternating mixes, 12 requests a span of
+     a per-type 128-token template and a unique tail (1275, 139, 1181 or
+     282 tokens), 32 new tokens each, two runtime steps after each
+     submit, each plan applied by ``ClusterRuntime.apply_plan`` with the
+     requests in flight: all 36 finish, the deployment changes and
+     requests migrate, each ``SwitchReport`` accounts for every request
+     on a torn-down replica (drained or migrated once, queued ones
+     requeued, none dropped, nothing copied, recompute = the re-prefilled
+     contexts), the paged decode and prefill kernels launch (the prefill
+     kernel also at a query offset, on prefix hits) and the dense decode
+     kernel does not, the 90 % agreement holds; each span prints its
+     plan, switch stall, TTFT, rate, predicted and achieved replica
+     shares and the decision audit's error, and the cost model's prefill
+     and decode-step times for the 20-layer profile stand beside the
+     card's;
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
@@ -1506,6 +1534,373 @@ def phase_cluster(ops, cfg, params) -> list[str]:
     return failed
 
 
+# --------------------------------------------------------------------------
+# The orchestrated path: the workload predictor, ``Orchestrator.plan_span``
+# and ``ClusterRuntime.apply_plan`` (phase 4's twin of ``run_real_spans`` on
+# the card and the CPU, phase 5's "orchestrated" job at full width).
+# --------------------------------------------------------------------------
+
+
+def real_spans_twin(device: str) -> dict:
+    """``serving.validation.run_real_spans`` on llama2-70b's smoke config
+    over 6 chips and 3 spans (fp32, seeded weights drawn on the CPU): the
+    plans, the switch and span reports and the tokens per request id."""
+    from repro_torch.serving.validation import run_real_spans
+    outcomes, rt = run_real_spans(model="llama2-70b", chips=6, n_spans=3,
+                                  device=device)
+
+    def nan_safe(x):      # the prefix hit rate of an unseen type is NaN
+        if isinstance(x, dict):
+            return {k: nan_safe(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [nan_safe(v) for v in x]
+        return "nan" if isinstance(x, float) and x != x else x
+
+    return {"plans": [(str(o.plan.deployment), o.plan.fractions,
+                       o.plan.changed_replicas) for o in outcomes],
+            "switches": [dataclasses.asdict(o.switch) for o in outcomes],
+            "spans": [nan_safe(span_fields(o.report)) for o in outcomes],
+            "tokens": cluster_tokens(rt)}
+
+
+def phase_orchestrated_smoke() -> None:
+    """Phase 4's orchestrated check: ``run_real_spans`` (llama2-70b smoke,
+    6 chips, 3 spans, a switch every span with requests in flight) gives
+    the same plans, reports and tokens per rid on the card and the CPU."""
+    t0 = time.monotonic()
+    got = {dev: real_spans_twin(dev) for dev in ("cpu", "cuda")}
+    card = got["cuda"]
+    same = {k: card[k] == got["cpu"][k] for k in card}
+    moved = sum(s["migrated"] for s in card["switches"])
+    log(f"  orchestrated run_real_spans llama2-70b smoke: plans "
+        f"{[p[0] for p in card['plans']]}; migrated {moved}; "
+        f"{len(card['tokens'])} requests; card == CPU {same} "
+        f"({time.monotonic() - t0:.1f} s)")
+    if not all(same.values()) or len(card["tokens"]) != 18:
+        raise SystemExit("run_real_spans: the card's plans, reports or "
+                         f"tokens differ from the CPU's ({same})")
+
+
+# phase 5's "orchestrated" job: llama2-70b at its published widths cut to
+# ORCH_LAYERS layers (weights ~35 GB, pool ~4 GB on one 80 GB card),
+# planned with the full 80-layer profile on ORCH_CHIPS virtual chips; the
+# runtime's options; three spans alternating the validation mixes, each
+# ORCH_JOB["per_span"] requests of a per-type ORCH_JOB["template"]-token
+# template and a unique tail (the archetype's in_len in all), 32 new
+# tokens each, two runtime steps after each submit.
+ORCH_MODEL, ORCH_LAYERS, ORCH_CHIPS = "llama2-70b", 20, 6
+ORCH_RUNTIME = dict(blocks_per_chip=512, seqs_per_chip=4, block_size=16,
+                    drain_steps=0, prefix_cache=True,
+                    dtype=torch.bfloat16, device="cuda")
+ORCH_JOB = dict(spans=3, per_span=12, template=128, new_tokens=32)
+# the analytic loop of ``serve_orchestrated`` (LSTM window 3, hidden 8,
+# 40 epochs) on the card against the CPU, and one fit at the paper's
+# defaults (window 50, hidden 32, 200 epochs) on a 300-span series
+LSTM_RTOL = 1e-4
+ORCH_VARIANT = Variant("orchestrated", {}, ("paged_decode",
+                                            "flash_attention"),
+                       ("flash_decode",), ("paged_decode",
+                                           "flash_attention"))
+
+
+def phase_predictor(card: str) -> list[str]:
+    """The control loop's forecasting half on the card: the analytic loop
+    of ``serve_orchestrated`` (12 spans, llama2-70b planning on 16 chips),
+    its LSTM predictions held against the same code on the CPU, and one
+    fit at the paper's defaults timed on both.  Returns failed checks."""
+    import argparse
+    from repro_torch import serve_orchestrated as so
+    from repro_torch.core.predictor import (LSTMWorkloadPredictor,
+                                            WorkloadClusterer, count_series)
+    from repro_torch.serving.request import span_of, synthesize_trace
+    failed = []
+    t0 = time.monotonic()
+    args = argparse.Namespace(model=ORCH_MODEL, chips=16, spans=12,
+                              device="cuda")
+    out = so.run_analytic(args, out=lambda s: log(f"  [predict] {s}"))
+    cpu = so.forecast(args.spans, "cpu")
+    w = out["window"]
+    card_p = np.asarray(out["preds"][w:], np.float64)
+    cpu_p = np.asarray(cpu["preds"][w:], np.float64)
+    rel = float(np.abs(card_p - cpu_p).max() / np.abs(cpu_p).max())
+    log(f"  [predict] LSTM on the card against the CPU: max relative "
+        f"difference {rel:.3e} over {len(card_p)} spans (limit "
+        f"{LSTM_RTOL:.0e}); train loss card {out['lstm'].train_loss:.6f} "
+        f"CPU {cpu['lstm'].train_loss:.6f}; analytic loop "
+        f"{time.monotonic() - t0:.1f} s")
+    if not rel <= LSTM_RTOL:
+        failed.append(f"LSTM predictions on the card differ from the CPU's "
+                      f"by {rel:.3e}")
+    reqs = synthesize_trace(300, 100, trace_id=2, seed=0)
+    il = np.array([r.in_len for r in reqs])
+    ol = np.array([r.out_len for r in reqs])
+    _, labels = WorkloadClusterer.fit(il, ol, k=4, seed=0)
+    series = count_series(labels, np.array([span_of(r) for r in reqs]), 4,
+                          300)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        lstm = LSTMWorkloadPredictor(4, window=50, hidden=32, seed=0,
+                                     device=dev)
+        t1 = time.perf_counter()
+        loss = lstm.fit(series, epochs=200)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        fits[dev] = (time.perf_counter() - t1, loss)
+    log(f"  [predict] one fit at the paper's defaults (300 spans, window "
+        f"50, hidden 32, batch 64, 200 epochs): card {fits['cuda'][0]:.3f} "
+        f"s (loss {fits['cuda'][1]:.6f}), host CPU {fits['cpu'][0]:.3f} s "
+        f"(loss {fits['cpu'][1]:.6f}); {card}")
+    return failed
+
+
+def orch_prompts(cfg, types: list) -> list:
+    """The job's prompts, one per request type: the type's template, then
+    a unique tail to the archetype's in_len."""
+    from repro_torch.serving.validation import REAL_ARCHETYPES
+    t_rng = np.random.RandomState(1)
+    templates = [t_rng.randint(0, cfg.vocab_size, ORCH_JOB["template"])
+                 .astype(np.int32) for _ in REAL_ARCHETYPES]
+    rng = np.random.RandomState(2)
+    prompts = [np.concatenate([templates[t], rng.randint(
+        0, cfg.vocab_size, REAL_ARCHETYPES[t].in_len - ORCH_JOB["template"])
+        .astype(np.int32)]) for t in types]
+    return prompts
+
+
+def _switch_accounting(tm, report, before: dict, n0: int) -> tuple:
+    """(the switch's accounting holds, the re-prefilled rids) for
+    ``report``: every request admitted on a torn-down replica is drained
+    or migrated once, queued ones are requeued, none dropped, nothing
+    copied in one pool, and the recompute equals the re-prefilled
+    contexts.  ``before``: {rid: context} admitted on the torn-down
+    replicas, and the queued rids under key None."""
+    moves = [e for e in list(tm.tracer.events)[n0:] if e.kind == "migrate"]
+    reprefilled = [e.rid for e in moves if e.data["path"] == "reprefill"]
+    admitted = {r: c for r, c in before.items() if r is not None}
+    ok = (report.drained + report.migrated == len(admitted)
+          and report.requeued == len(before.get(None, ()))
+          and report.dropped == 0
+          and report.migrated == (report.handoff + report.copied
+                                  + report.reprefilled)
+          and report.copied == report.pages_copied == 0
+          and report.recompute_tokens == sum(admitted[r]
+                                             for r in reprefilled)
+          and not report.rolled_back)
+    return ok, reprefilled
+
+
+def _torn_down(rt, plan) -> dict:
+    """{rid: context} of the requests admitted on the replicas
+    ``apply_plan(plan)`` will tear down, and their queued rids under
+    None."""
+    new = list(plan.deployment.replicas)
+    out = {None: []}
+    for k, h in enumerate(rt.replicas):
+        if h.dead or (k < len(new) and h.rc == new[k]):
+            continue
+        for r in h.engine.active.values():
+            out[r.rid] = len(r.prompt) + len(r.generated)
+        out[None] += [r.rid for r in h.engine.waiting]
+    return out
+
+
+def card_step_times(cfg, params, prompt_len: int, batch: int,
+                    ctx: int) -> tuple[float, float]:
+    """(one request's prefill of ``prompt_len`` tokens, one decode step at
+    ``batch`` sequences of ``ctx`` tokens) on one engine on the card, in
+    ms: the prefill as the median wall of 3 one-token requests, the step
+    as the wall after the last first token over the steps taken."""
+    kw = dict(dtype=torch.bfloat16, num_blocks=1024, block_size=16,
+              max_seqs=batch, max_blocks_per_seq=128, decode_horizon=1)
+    rng = np.random.RandomState(3)
+    prompt = rng.randint(0, cfg.vocab_size, prompt_len).astype(np.int32)
+    serve(cfg, params, [prompt], 2, "cuda", **kw)            # warm-up
+    prefill = float(np.median([serve(cfg, params, [prompt], 1, "cuda",
+                                     **kw)[2] for _ in range(3)])) * 1e3
+    prompts = [rng.randint(0, cfg.vocab_size, ctx).astype(np.int32)
+               for _ in range(batch)]
+    new = 33
+    fin, _, wall = serve(cfg, params, prompts, new, "cuda", **kw)
+    _, rate = serving_times(fin, wall)
+    return prefill, batch / rate * 1e3
+
+
+def phase_orchestrated(ops) -> tuple[dict, list[str]]:
+    """The "orchestrated" job: OServe's control loop end to end on the
+    card.  The predictor (``phase_predictor``), then three spans of the
+    validation mixes planned by ``Orchestrator.plan_span`` for llama2-70b
+    on 6 virtual chips and switched by ``ClusterRuntime.apply_plan`` with
+    requests in flight, served at full width with ORCH_LAYERS layers.  The
+    launch counters are set to 0 just before the first span and read after
+    the last; returns the run (for phase 6's rows) and the failed
+    checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.orchestrator import (Orchestrator,
+                                               OrchestratorConfig)
+    from repro_torch.core.types import H100_SPEC, ClusterSpec, ReplicaConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params, param_count
+    from repro_torch.serving.cluster import ClusterRuntime
+    from repro_torch.serving.telemetry import Telemetry
+    from repro_torch.serving.validation import (REAL_ARCHETYPES,
+                                                REAL_SPAN_RATES)
+    t_start = time.monotonic()
+    card = card_line()
+    failed = phase_predictor(card)
+    full = get_config(ORCH_MODEL)
+    cfg = dataclasses.replace(full, n_layers=ORCH_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n = param_count(params)
+    log(f"  {ORCH_MODEL}: {cfg.n_layers} of {full.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n:,} "
+        f"params, {n * 2 / 1e9:.2f} GB bf16 (init "
+        f"{time.monotonic() - t0:.1f} s); planned as {full.n_layers} layers "
+        f"on {ORCH_CHIPS} virtual chips")
+    orch = Orchestrator(CostModel(full.profile(), hw=H100_SPEC),
+                        ClusterSpec(ORCH_CHIPS, hw=H100_SPEC),
+                        OrchestratorConfig(search_patience=8))
+    tm = Telemetry()
+    rt = ClusterRuntime(cfg, params, orch, telemetry=tm, **ORCH_RUNTIME)
+    rng = np.random.RandomState(0)
+    span_types = [rng.choice(4, size=ORCH_JOB["per_span"],
+                             p=np.asarray(r, float) / np.sum(r))
+                  for r in (REAL_SPAN_RATES[s % 2]
+                            for s in range(ORCH_JOB["spans"]))]
+    types = [int(t) for ts in span_types for t in ts]
+    prompts = orch_prompts(cfg, types)
+    new = ORCH_JOB["new_tokens"]
+    # warm-up: cuBLAS handles, allocator, kernel modules
+    serve(cfg, params, [prompts[0][:64]], 2, "cuda", dtype=torch.bfloat16,
+          num_blocks=64, block_size=16, max_seqs=1)
+    ops.reset_launch_counts()
+    t_run = time.monotonic()
+    rid, spans, switched, moved = 0, [], 0, 0
+    for s in range(ORCH_JOB["spans"]):
+        ts = time.monotonic()
+        rates = REAL_SPAN_RATES[s % 2]
+        ws = [a.with_rate(float(r)) for a, r in zip(REAL_ARCHETYPES, rates)]
+        plan = orch.plan_span(ws)
+        before = _torn_down(rt, plan)
+        n0 = len(tm.tracer.events)
+        torch.cuda.synchronize()
+        t_sw = time.perf_counter()
+        report = rt.apply_plan(plan)
+        torch.cuda.synchronize()
+        stall = (time.perf_counter() - t_sw) * 1e3
+        ok, repref = _switch_accounting(tm, report, before, n0)
+        if s > 0 and report.changed:
+            switched += 1
+        moved += report.migrated
+        first = rid
+        for t in span_types[s]:
+            rt.submit(rid, prompts[rid], new, type_id=int(t))
+            rid += 1
+            rt.step()
+            rt.step()
+        if s == ORCH_JOB["spans"] - 1:
+            rt.run_until_idle()
+        torch.cuda.synchronize()
+        span = rt.finish_span()
+        wall = time.monotonic() - ts
+        frac = np.array(plan.fractions)
+        load = frac @ np.asarray(rates, float)
+        predicted = load / max(load.sum(), 1e-9)
+        achieved = np.asarray(span.tokens, float) / max(sum(span.tokens), 1)
+        rec = tm.audit.records[s]
+        spans.append(dict(first=first, last=rid, wall=wall,
+                          tokens=sum(span.tokens)))
+        log(f"  [orchestrated span {s}] rates {list(rates)}: plan "
+            f"{plan.deployment} (changed {plan.changed_replicas}, predicted "
+            f"switch {plan.switch_seconds:.3f} s, KV "
+            f"{plan.kv_migration_seconds:.3f} s)")
+        log(f"  [orchestrated span {s}] switch: rebuilt {report.changed}, "
+            f"{len(before) - 1} admitted and {len(before[None])} queued on "
+            f"torn-down replicas; drained {report.drained}, migrated "
+            f"{report.migrated} (handoff {report.handoff}, "
+            f"{report.pages_handoff} pages; copied {report.copied}; "
+            f"re-prefilled {report.reprefilled} {repref}, recompute "
+            f"{report.recompute_tokens}), requeued {report.requeued}, "
+            f"dropped {report.dropped}, rolled back {report.rolled_back}; "
+            f"accounting holds {ok}; switch stall {stall:.3f} ms "
+            f"(apply_plan, synchronized)")
+        log(f"  [orchestrated span {s}] {rid - first} requests, "
+            f"{sum(span.tokens)} tokens in {wall:.3f} s "
+            f"({sum(span.tokens) / wall:.1f} tok/s over the span), completed "
+            f"{span.completed}; predicted replica share "
+            f"{np.round(predicted, 3).tolist()}, achieved "
+            f"{np.round(achieved, 3).tolist()}, audit L1 "
+            f"{rec.share_l1:.3f}; prefix hits {span.prefix_hits} misses "
+            f"{span.prefix_misses}")
+        if not ok:
+            failed.append(f"orchestrated span {s}: the SwitchReport's "
+                          f"accounting does not hold ({report})")
+    torch.cuda.synchronize()
+    t_end = time.monotonic()
+    counts = ops.launch_counts()
+    offset = fa.flash_attention.offset_launches
+    line, streams, full_ok = _cluster_numbers(rt, tm, t_end - t_run, t_end,
+                                              prompts, counts)
+    ttft = {e.rid: e.data["ttft_s"] for e in tm.tracer.events
+            if e.kind == "first_token"}
+    for s, sp in enumerate(spans):
+        tt = [ttft[r] * 1e3 for r in range(sp["first"], sp["last"])
+              if r in ttft]
+        log(f"  [orchestrated span {s}] TTFT of its requests mean "
+            f"{np.mean(tt):.1f} ms max {np.max(tt):.1f} ms")
+    per_req = [teacher_forced_agreement(cfg, params, prompts[r], streams[r])
+               for r in sorted(streams)] if full_ok else [0.0]
+    agree = float(np.mean(per_req))
+    launched = (counts["paged_decode"] > 0 and counts["flash_attention"] > 0
+                and offset > 0 and counts["flash_decode"] == 0)
+    pool = rt.pool
+    calib = tm.audit.calibration_error()
+    log(f"  [orchestrated] {line}; B2 at a query offset {offset}")
+    log(f"  [orchestrated] {len(streams)}/{len(prompts)} requests x {new} "
+        f"tokens {full_ok}; deployment changes {switched}, requests migrated "
+        f"{moved}; B1 and B2 launched, B2 at an offset, B3 not {launched}; "
+        f"decision audit calibration error (mean L1) {calib:.3f} over "
+        f"{sum(1 for r in tm.audit.records if r.joined)} spans; pool "
+        f"{pool.allocator.n_free}/{pool.num_blocks} free; teacher-forced "
+        f"agreement (bf16) {agree:.4f}, min {min(per_req):.4f}, limit "
+        f"{MIN_TEACHER_FORCED}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
+    if not (full_ok and switched >= 1 and moved >= 1 and launched):
+        failed.append(f"orchestrated: a check failed (36 x 32 tokens "
+                      f"{full_ok}, switches {switched}, migrated {moved}, "
+                      f"kernels {counts} offset {offset})")
+    if agree < MIN_TEACHER_FORCED:
+        failed.append(f"orchestrated: decode agrees with the teacher-forced "
+                      f"forward on {agree:.4f} of the tokens, under "
+                      f"{MIN_TEACHER_FORCED}")
+    del rt
+    torch.cuda.empty_cache()
+    # the cost model's step times for the served depth against the card's
+    cm = CostModel(cfg.profile(), hw=H100_SPEC)
+    tp1 = ReplicaConfig(1)
+    long_in = max(a.in_len for a in REAL_ARCHETYPES)
+    ctx = REAL_ARCHETYPES[3].in_len + 16
+    card_prefill, card_step = card_step_times(cfg, params, long_in, 8, ctx)
+    log(f"  [orchestrated] cost model ({cfg.n_layers}-layer profile, TP=1, "
+        f"H100_SPEC) against the card: prefill of {long_in} tokens "
+        f"{cm.measure_prefill(tp1, long_in) * 1e3:.2f} ms predicted, "
+        f"{card_prefill:.2f} ms measured (one request, wall); decode step at "
+        f"B=8, ctx {ctx}: {cm.measure_decode_step(tp1, 8, ctx) * 1e3:.2f} "
+        f"ms predicted (step_overhead {cm.step_overhead * 1e3:.1f} ms), "
+        f"{card_step:.2f} ms measured; {card}")
+    lens = sorted((len(p) for p in prompts), reverse=True)[:8]
+    run = {"arch": ORCH_MODEL, "variant": ORCH_VARIANT, "cfg": cfg,
+           "counts": counts, "n_req": len(prompts), "lens": lens}
+    del params
+    torch.cuda.empty_cache()
+    log(f"  [orchestrated] the job took {time.monotonic() - t_start:.1f} s")
+    return run, failed
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -2316,12 +2711,19 @@ def main() -> int:
     log("[4] greedy decoding")
     phase_greedy()
     phase_cluster_smoke()
+    phase_orchestrated_smoke()
 
     runs, failures = [], []
     for i, (arch, variants) in enumerate(FULL_WIDTH):
         log(f"[5.{i + 1}] {arch} at full width "
             f"({', '.join(v.name for v in variants)})")
         runs += phase_full_width(ops, arch, variants, failures)
+    log(f"[5.{len(FULL_WIDTH) + 1}] the control loop: the predictor, then "
+        f"{ORCH_MODEL} ({ORCH_LAYERS} layers) planned and switched over "
+        f"{ORCH_JOB['spans']} spans (orchestrated)")
+    run, failed = phase_orchestrated(ops)
+    runs.append(run)
+    failures += failed
 
     log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls, "
         "back to back and replayed from a CUDA graph)")
@@ -2348,8 +2750,8 @@ def main() -> int:
     if failures:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
-        log(f"chip_smoke: {len(failures)} migrate, prefix, evict or "
-            f"cluster check(s) failed: {'; '.join(failures)}")
+        log(f"chip_smoke: {len(failures)} migrate, prefix, evict, cluster "
+            f"or orchestrated check(s) failed: {'; '.join(failures)}")
         return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

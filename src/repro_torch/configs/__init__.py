@@ -1,7 +1,10 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Only the architectures the port serves so far are registered; the others
-join as their model families are ported (see ROADMAP.md).
+The four served assigned architectures (yi-9b, gemma2-2b, mamba2-370m,
+hymba-1.5b) and the paper's evaluation models (``paper_models``:
+llama-30b and llama2-70b are served; opt-30b and opt-66b are planning
+profiles only).  The other assigned architectures join as their model
+families are ported (ROADMAP.md Queue A item 5).
 """
 from __future__ import annotations
 
@@ -14,6 +17,10 @@ _MODULES = {
     "hymba-1.5b": "hymba_1_5b",
     "mamba2-370m": "mamba2_370m",
     "yi-9b": "yi_9b",
+    "opt-30b": "paper_models",
+    "opt-66b": "paper_models",
+    "llama-30b": "paper_models",
+    "llama2-70b": "paper_models",
 }
 
 ARCHS = sorted(_MODULES)
@@ -23,7 +30,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
-    return mod.CONFIG
+    return mod.CONFIGS[arch] if hasattr(mod, "CONFIGS") else mod.CONFIG
 
 
 def get_smoke_config(arch: str) -> ModelConfig:

@@ -6,7 +6,9 @@ same keys, shapes and ``x @ w`` orientation as the port's parameters, so the
 conversion is a checked copy.  Tests use it to feed identical weights to
 both packages.  The SSM leaves the JAX package keeps in fp32
 (``ssm.FP32_KEYS``: ``dt_bias``, ``A_log``, ``D``) stay fp32 whatever
-``dtype`` is asked for.
+``dtype`` is asked for.  ``lstm_params_from_jax`` does the same for the
+workload predictor's LSTM (``core.predictor``), whose JAX parameters have
+the port's keys, shapes and orientation too.
 """
 from __future__ import annotations
 
@@ -69,3 +71,23 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device="cuda",
     if cfg.has_ssm:
         _check_shape(np_tree, "blocks.ssm.w_x", (L, d, cfg.d_inner), cfg)
     return _to_torch(np_tree, device, dtype, "params")
+
+
+def lstm_params_from_jax(np_params: dict, device="cuda") -> dict:
+    """The JAX predictor's LSTM parameters (``lstm_init``'s dict, as numpy
+    arrays) -> the port's, fp32 on ``device``; checks keys and shapes."""
+    from repro_torch.core.predictor import LSTM_KEYS
+    if set(np_params) != set(LSTM_KEYS):
+        raise ValueError(f"LSTM params keys {sorted(np_params)} are not "
+                         f"{sorted(LSTM_KEYS)}")
+    in_dim = np.shape(np_params["wx"])[0]
+    hidden, out_dim = np.shape(np_params["w_out"])
+    want = {"wx": (in_dim, 4 * hidden), "wh": (hidden, 4 * hidden),
+            "b": (4 * hidden,), "w_out": (hidden, out_dim),
+            "b_out": (out_dim,)}
+    for k, shape in want.items():
+        if np.shape(np_params[k]) != shape:
+            raise ValueError(f"LSTM {k} shape {np.shape(np_params[k])} is "
+                             f"not {shape}")
+    return {k: torch.from_numpy(np.array(np_params[k], dtype=np.float32))
+            .to(device) for k in LSTM_KEYS}

@@ -1,1 +1,3 @@
-"""Core datatypes of the serving cluster (``types``)."""
+"""Core datatypes, the cost model, the planner (flow network, assignment,
+deployment search, switch planning, the orchestrator) and the workload
+predictor."""

@@ -1,22 +1,26 @@
-"""Core datatypes of the serving cluster (the port's own copy).
+"""Core datatypes of the serving cluster and its planner (the port's copy).
 
-The part of the JAX package's ``core/types.py`` the cluster runtime needs:
-workload types, replica configurations with their serving role, and
-deployments.  Terminology follows the paper:
+The port's copy of the JAX package's ``core/types.py``: workload types,
+replica configurations with their serving role, deployments, and the
+hardware and cluster specs the planner prices them with.  Terminology
+follows the paper:
   - A *workload type* j clusters requests by (input_len, output_len); its arrival
     rate lambda_j is the number of requests arriving in one time span (1 minute).
   - A *replica* k is one model instance deployed on `chips` devices with a
     (tp, pp) parallelism strategy.  dp degree of the cluster = number of replicas.
   - A *deployment* is the list of replicas (resource allocation + strategies).
+  - A *serving strategy* = deployment + workload assignment x[k][j].
 
 On one card a replica's chips are the runtime's own accounting: they scale
 its share of the one shared KV pool, its slots and its context ceiling
-(``serving.cluster``).  The hardware and cluster specs come with the
-planner.
+(``serving.cluster``).  The planner prices them with ``HardwareSpec``'s
+roofline constants, by default ``H100_SPEC``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,3 +116,90 @@ class Deployment:
         """Order-independent form (replicas sorted) for dedup during search."""
         key = lambda r: (-r.chips, -r.tp, -r.pp, r.role)
         return Deployment(tuple(sorted(self.replicas, key=key)))
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """Roofline constants for one accelerator generation.
+
+    The field names are the JAX package's, so a spec means the same thing
+    in both; the port knows one spec, ``H100_SPEC``.  The two efficiencies
+    are the achievable fractions of peak matmul rate and of memory rate in
+    serving.
+    """
+
+    name: str
+    peak_flops: float                   # bf16 FLOP/s per chip
+    hbm_bw: float                       # bytes/s per chip
+    hbm_bytes: float                    # device memory per chip
+    ici_bw: float                       # bytes/s per chip-to-chip link
+    dcn_bw: float                       # bytes/s per host (between pods)
+    chips_per_pod: int
+    chips_per_host: int
+    host_load_bw: float                 # host->device reload path
+    mxu_flops_efficiency: float = 0.6   # achievable fraction of peak
+    hbm_efficiency: float = 0.8
+
+    def pod_of(self, chip: int) -> int:
+        return chip // self.chips_per_pod
+
+    def host_of(self, chip: int) -> int:
+        return chip // self.chips_per_host
+
+
+H100_SPEC = HardwareSpec(
+    name="h100",
+    peak_flops=989e12,
+    hbm_bw=3.35e12,
+    hbm_bytes=80e9,
+    ici_bw=400e9,        # NVLink
+    dcn_bw=200e9,        # InfiniBand
+    chips_per_pod=8,     # one DGX box
+    chips_per_host=8,
+    host_load_bw=4e9,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSpec:
+    """A serving cluster: `chips` devices with a hardware spec."""
+
+    chips: int
+    hw: HardwareSpec = H100_SPEC
+
+    @property
+    def pods(self) -> int:
+        return max(1, math.ceil(self.chips / self.hw.chips_per_pod))
+
+
+def valid_strategies(
+    chips: int,
+    max_tp: int | None = None,
+    max_pp: int = 8,
+) -> list[ReplicaConfig]:
+    """All (tp, pp) factorizations of `chips`, matching the paper's search space.
+
+    TP is capped at the fast-interconnect domain (the paper capped TP at
+    8 = one NVLink node).
+    """
+    out = []
+    for tp in range(1, chips + 1):
+        if chips % tp:
+            continue
+        pp = chips // tp
+        if max_tp is not None and tp > max_tp:
+            continue
+        if pp > max_pp:
+            continue
+        out.append(ReplicaConfig(tp=tp, pp=pp))
+    return out
+
+
+def assignment_as_fractions(
+    x: Sequence[Sequence[float]], rates: Sequence[float]
+) -> list[list[float]]:
+    """x[k][j] request counts -> f[k][j] fraction of type j routed to replica k."""
+    frac = []
+    for row in x:
+        frac.append([row[j] / rates[j] if rates[j] > 0 else 0.0 for j in range(len(row))])
+    return frac

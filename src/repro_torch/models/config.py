@@ -1,13 +1,15 @@
 """Model configuration for the PyTorch port.
 
 The port's own copy of ``ModelConfig``: the same frozen dataclass, fields and
-defaults as the JAX package's, so a config means the same model in both.
-It leaves out the cost-model bridge (``profile()``, ``param_count()``),
-which belongs to the planner and is not part of the serving path.
+defaults as the JAX package's, so a config means the same model in both,
+with the same cost-model bridge (``profile()``, ``param_count()``) into
+the planner's ``ModelProfile``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.core.costmodel import ModelProfile
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -101,6 +103,30 @@ class ModelConfig:
     def local_is_local(self, layer: int) -> bool:
         """gemma2 alternation: even layers local, odd layers global."""
         return self.local_window > 0 and layer % 2 == 0
+
+    # -- cost-model bridge ------------------------------------------------
+
+    def profile(self) -> ModelProfile:
+        return ModelProfile(
+            name=self.name,
+            n_layers=self.n_layers,
+            d_model=self.d_model,
+            n_q_heads=self.n_q_heads,
+            n_kv_heads=self.n_kv_heads,
+            head_dim=self.head_dim,
+            d_ff=self.d_ff,
+            vocab=self.vocab_size,
+            n_experts=self.n_experts,
+            top_k=self.top_k,
+            ssm_state=self.ssm_state,
+            ssm_heads=self.ssm_heads,
+            ssm_head_dim=self.ssm_head_dim,
+            hybrid_attn=self.hybrid,
+            attn_free=self.attn_free,
+        )
+
+    def param_count(self) -> int:
+        return self.profile().param_count
 
     # -- smoke-scale reduction ---------------------------------------------
 

@@ -80,11 +80,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet "
-            "(ROADMAP.md Queue A item 7, models/moe.py)")
+            "(ROADMAP.md Queue A item 5, models/moe.py)")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pos_embedding} positions are not ported yet "
-            "(ROADMAP.md Queue A item 2)")
+            "(ROADMAP.md Queue A item 5)")
 
 
 # --------------------------------------------------------------------------

@@ -670,3 +670,50 @@ def test_cluster_switch_and_crash_on_the_card(cuda, arch, lose_pages):
     assert not sw["rolled_back"] and sw["handoff"] == sw["migrated"] >= 1
     assert rec["reprefilled" if lose_pages else "handoff"] >= 1
     assert card["pool"] == (128, 0)
+
+
+# --------------------------------------------------------------------------
+# The control loop on the card: the workload predictor's LSTM and the
+# orchestrated path (the CPU parity against the JAX package is
+# ``test_torch_predictor.py`` and ``test_torch_orchestrated*.py``).
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,hidden,epochs", [(3, 8, 40), (50, 32, 20)])
+def test_lstm_predictions_on_the_card_equal_the_cpu(cuda, window, hidden,
+                                                    epochs):
+    """The LSTM trained and run on the card predicts what the same code
+    predicts on the CPU, within a relative 1e-4 (fp32, TF32 off)."""
+    from repro_torch.core.predictor import LSTMWorkloadPredictor
+    from repro_torch.serve_orchestrated import forecast
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if window == 3:
+        got, want = forecast(12, cuda.type), forecast(12, "cpu")
+        w = got["window"]
+        card, cpu = np.asarray(got["preds"][w:]), np.asarray(want["preds"][w:])
+    else:
+        series = np.random.RandomState(0).poisson(
+            40, (120, 4)).astype(np.float64)
+        fits = {}
+        for dev in (cuda.type, "cpu"):
+            lstm = LSTMWorkloadPredictor(4, window=window, hidden=hidden,
+                                         seed=0, device=dev)
+            lstm.fit(series, epochs=epochs)
+            fits[dev] = lstm.predict_series(series)
+        card, cpu = fits[cuda.type], fits["cpu"]
+    assert card.shape == cpu.shape and len(card)
+    assert np.abs(card - cpu).max() <= 1e-4 * np.abs(cpu).max()
+
+
+@pytest.mark.gpu
+def test_run_real_spans_on_the_card_equals_the_cpu(cuda):
+    """``run_real_spans`` (llama2-70b smoke, 6 chips, 3 spans, a switch each
+    span with requests in flight) gives the same plans, reports and tokens
+    on the card as on the CPU (fp32)."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = cs.real_spans_twin(cuda.type)
+    assert card == cs.real_spans_twin("cpu")
+    assert sum(s["migrated"] for s in card["switches"]) >= 1
+    assert len(card["tokens"]) == 18
