@@ -17,15 +17,25 @@ non-zero, after phase 6 has run and printed its table):
   3. hold each kernel against its plain PyTorch version on the card, fp32
      (absolute 1e-4; the SSD chunk kernel 1e-4 of each output row's
      largest value) and bf16 (1e-2 of each output row's largest value), at
-     smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m),
-     the prefill kernel also at a chunk's query offset, both decode
-     kernels also split over many CTAs and, at fixed split counts, against
-     the plain split-and-combine, the SSD chunk kernel also at ragged
-     state widths, long chunks and unaligned inputs, and causal to the
-     bit (a row's output is the same whatever rows follow it);
-  4. greedy decoding: the smoke configs give the same tokens on the card
-     and the CPU in every engine mode (paged at decode_horizon 1 and 8,
-     the dense mode, chunked prefill, the prefix cache); 2-layer full-width
+     smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m,
+     and the model families' heads: opt-30b's 56/56 and olmoe-1b-7b's
+     16/16 heads of 128, a group of 1, and granite-moe's 24/8 of 64, a
+     group of 3), the prefill kernel also at a chunk's query offset, both
+     decode kernels also split over many CTAs and, at fixed split counts,
+     against the plain split-and-combine, the SSD chunk kernel also at
+     ragged state widths, long chunks and unaligned inputs, and causal to
+     the bit (a row's output is the same whatever rows follow it);
+  4. greedy decoding: the smoke configs (yi-9b, gemma2-2b, mamba2-370m,
+     hymba-1.5b, and the families ported since: olmoe-1b-7b and
+     granite-moe-3b-a800m (MoE), opt-30b (sinusoidal positions, biases,
+     GELU), starcoder2-3b, qwen1.5-110b, chameleon-34b and musicgen-medium)
+     give the same tokens on the card and the CPU in every engine mode
+     (paged at decode_horizon 1 and 8, the dense mode, chunked prefill,
+     the prefix cache); one olmoe-1b-7b MoE layer at its published widths
+     on 4096 tokens takes the capacity path (one group, capacity factor
+     1.25) and drops the same (token, slot) pairs on the card as on the
+     CPU (their count printed), with outputs within 1e-4, and at a
+     drop-free factor equals ``moe_ref``; 2-layer full-width
      yi-9b, hymba-1.5b and mamba2-370m (fp32) give the same tokens in every
      mode (chunked prefill in 64-token chunks; chunks and the cache are
      ignored by the SSM models) and agree with a teacher-forced forward; on
@@ -48,12 +58,17 @@ non-zero, after phase 6 has run and printed its table):
      pages and SSM rows handed off; the control loop's
      ``serving.validation.run_real_spans`` (llama2-70b smoke, planned
      with the full profile on 6 virtual chips over 3 spans, a deployment
-     switch every span with requests in flight) gives the same plans,
-     switch and span reports and tokens per rid on the card and the CPU;
+     switch every span with requests in flight), and again on the
+     default model's, opt-30b (one switch, a drained replica), gives the
+     same plans, switch and span reports and tokens per rid on the card
+     and the CPU;
   5. the served models at full width, one after another: yi-9b (48
      layers) three times on the same weights (paged decode, the dense
      decode mode, chunked prefill in 256-token budgets), hymba-1.5b (32)
-     and mamba2-370m (48), bf16, random weights from a seeded generator,
+     and mamba2-370m (48), then opt-30b (all 48 layers, 60 GB of weights,
+     on a pool of 512 pages in place of 2048) and olmoe-1b-7b (16), each
+     paged and chunked (the chunks put sinusoidal positions at a query
+     offset), bf16, random weights from a seeded generator,
      each run serving 8 requests through ``ServingEngine``; the launch
      counters are set to 0 just before each run and read just after it,
      every kernel on that run's path must have launched (and the dense run
@@ -180,6 +195,11 @@ MIN_TEACHER_FORCED = 0.9
 Variant = collections.namedtuple(
     "Variant", "name options launch no_launch timed")
 PAGED = dict(decode_horizon=8)
+# opt-30b's pool: the 8 prompts of 320-963 tokens and 32 new tokens each
+# reserve 379 pages of 16 tokens
+OPT_POOL_BLOCKS = 512
+# the phase-5 models whose cost-model step times stand beside the card's
+COST_MODEL_MODELS = ("opt-30b",)
 # the served models at full width, in order, and their runs
 FULL_WIDTH = (
     ("yi-9b", (
@@ -199,6 +219,24 @@ FULL_WIDTH = (
     )),
     ("mamba2-370m", (
         Variant("paged", PAGED, ("ssd_chunk",), (), ("ssd_chunk",)),
+    )),
+    # 60 GB of weights: a pool of OPT_POOL_BLOCKS pages (11.3 GB) in place
+    # of the 2048 (45 GB) that would not fit beside them
+    ("opt-30b", (
+        Variant("paged", dict(PAGED, num_blocks=OPT_POOL_BLOCKS),
+                ("paged_decode", "flash_attention"), (),
+                ("paged_decode", "flash_attention")),
+        Variant("chunked", dict(PAGED, prefill_chunk_tokens=256,
+                                num_blocks=OPT_POOL_BLOCKS),
+                ("paged_decode", "flash_attention"), (),
+                ("flash_attention_chunk",)),
+    )),
+    ("olmoe-1b-7b", (
+        Variant("paged", PAGED, ("paged_decode", "flash_attention"), (),
+                ("paged_decode", "flash_attention")),
+        Variant("chunked", dict(PAGED, prefill_chunk_tokens=256),
+                ("paged_decode", "flash_attention"), (),
+                ("flash_attention_chunk",)),
     )),
 )
 # phase 6's chunk shape: 256 queries after 512 resident tokens
@@ -374,6 +412,14 @@ def check_paged(gen, fd, ref) -> None:
         ("gemma2", 4, 8, 4, 256, 16, [3, 64, 517, 1024], 50.0, 61, ()),
         ("hymba", 8, 25, 5, 64, 16,
          [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 0, (3,)),
+        # the model families' served heads: opt-30b's and olmoe's MHA
+        # (group 1, D = 128) and granite-moe's 24/8 of 64 (group 3)
+        ("opt-30b", 8, 56, 56, 128, 16,
+         [1, 15, 16, 17, 336, 512, 979, 2048], 0.0, 0, (3,)),
+        ("olmoe-1b-7b", 8, 16, 16, 128, 16,
+         [1, 15, 16, 17, 336, 512, 979, 2048], 0.0, 0, ()),
+        ("granite-moe", 8, 24, 8, 64, 16,
+         [1, 15, 16, 17, 336, 512, 979, 2048], 0.0, 0, (5,)),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Hq, Hkv, D, page, lens, cap, win, trash in cases:
@@ -403,6 +449,7 @@ def check_paged_split(gen, fd, ref) -> None:
         ("yi-9b", 6, 32, 4, 128, [1000, 517, 0, 17, 16, 1], 30.0, 300,
          (1,)),
         ("hymba", 5, 25, 5, 64, [15, 0, 700, 16, 1], 0.0, 0, (2,)),
+        ("opt-30b", 4, 56, 56, 128, [979, 0, 17, 336], 0.0, 0, (2,)),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Hq, Hkv, D, lens, cap, win, trash in cases:
@@ -445,6 +492,9 @@ def check_prefill(gen, fa, ref) -> None:
         ("d32-group8", 2, 77, 77, 8, 1, 32, True, 0.0, 0),
         ("d128-ragged", 2, 65, 129, 16, 2, 128, False, 30.0, 0),
         ("d256-ragged", 1, 99, 99, 8, 4, 256, True, 50.0, 40),
+        ("opt-30b-963", 1, 963, 963, 56, 56, 128, True, 0.0, 0),
+        ("olmoe-1024", 2, 1024, 1024, 16, 16, 128, True, 0.0, 0),
+        ("granite-200", 4, 200, 200, 24, 8, 64, True, 0.0, 0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Sq, Sk, Hq, Hkv, D, causal, cap, win in cases:
@@ -474,6 +524,9 @@ def check_chunk(gen, fa, ref) -> None:
         ("yi-9b-window", 1, CHUNK, CHUNK_OFFSET, 32, 4, 128, 0.0, 100),
         ("gemma2-window", 1, CHUNK, CHUNK_OFFSET, 8, 4, 256, 50.0, 300),
         ("hymba-ragged", 2, 100, 77, 25, 5, 64, 0.0, 0),
+        ("opt-30b", 1, CHUNK, CHUNK_OFFSET, 56, 56, 128, 0.0, 0),
+        ("olmoe-1b-7b", 1, CHUNK, CHUNK_OFFSET, 16, 16, 128, 0.0, 0),
+        ("granite-ragged", 2, 100, 77, 24, 8, 64, 0.0, 0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, C, off, Hq, Hkv, D, cap, win in cases:
@@ -1017,6 +1070,15 @@ def span_fields(rep) -> dict:
     return out
 
 
+# phase 4's smoke configs: the dense and SSM families, then the families
+# ported since (MoE, biases and GELU, sinusoidal positions, qk-norm, the
+# audio stub served from codebook ids); and the models whose 2-layer full
+# width runs every mode on the card in fp32
+SMOKE_ARCHS = ("yi-9b", "gemma2-2b", "mamba2-370m", "hymba-1.5b",
+               "olmoe-1b-7b", "granite-moe-3b-a800m", "opt-30b",
+               "starcoder2-3b", "qwen1.5-110b", "chameleon-34b",
+               "musicgen-medium")
+TWO_LAYER_ARCHS = ("yi-9b", "hymba-1.5b", "mamba2-370m")
 # phase 4's engine modes: paged decode at horizons 1 and 8, the dense
 # decode mode, chunked prefill (8-token chunks on the smoke configs) and
 # the prefix cache (the SSM models ignore the last two: they prefill
@@ -1120,7 +1182,7 @@ def phase_greedy() -> None:
     from repro_torch.models import init_params
     smoke_engine = dict(dtype=torch.float32, num_blocks=128, block_size=8,
                         max_seqs=4)
-    for arch in ("yi-9b", "gemma2-2b", "mamba2-370m", "hymba-1.5b"):
+    for arch in SMOKE_ARCHS:
         cfg = get_smoke_config(arch)
         rng = np.random.RandomState(0)
         prompts = [rng.randint(0, cfg.vocab_size, rng.randint(8, 24))
@@ -1158,7 +1220,7 @@ def phase_greedy() -> None:
 
     full_modes = dict(SMOKE_MODES, chunked=dict(decode_horizon=8,
                                                  prefill_chunk_tokens=64))
-    for arch, _ in FULL_WIDTH:
+    for arch in TWO_LAYER_ARCHS:
         cfg = dataclasses.replace(get_config(arch), n_layers=2)
         params = init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
         rng = np.random.RandomState(1)
@@ -1541,12 +1603,12 @@ def phase_cluster(ops, cfg, params) -> list[str]:
 # --------------------------------------------------------------------------
 
 
-def real_spans_twin(device: str) -> dict:
-    """``serving.validation.run_real_spans`` on llama2-70b's smoke config
+def real_spans_twin(device: str, model: str = "llama2-70b") -> dict:
+    """``serving.validation.run_real_spans`` on ``model``'s smoke config
     over 6 chips and 3 spans (fp32, seeded weights drawn on the CPU): the
     plans, the switch and span reports and the tokens per request id."""
     from repro_torch.serving.validation import run_real_spans
-    outcomes, rt = run_real_spans(model="llama2-70b", chips=6, n_spans=3,
+    outcomes, rt = run_real_spans(model=model, chips=6, n_spans=3,
                                   device=device)
 
     def nan_safe(x):      # the prefix hit rate of an unseen type is NaN
@@ -1564,21 +1626,97 @@ def real_spans_twin(device: str) -> dict:
 
 
 def phase_orchestrated_smoke() -> None:
-    """Phase 4's orchestrated check: ``run_real_spans`` (llama2-70b smoke,
-    6 chips, 3 spans, a switch every span with requests in flight) gives
-    the same plans, reports and tokens per rid on the card and the CPU."""
+    """Phase 4's orchestrated check: ``run_real_spans`` (6 chips, 3 spans)
+    on llama2-70b's smoke config (a switch every span with requests in
+    flight) and on the default model's, opt-30b (sinusoidal positions; one
+    switch, a drained replica) gives the same plans, reports and tokens
+    per rid on the card and the CPU."""
+    for model in ("llama2-70b", "opt-30b"):
+        t0 = time.monotonic()
+        got = {dev: real_spans_twin(dev, model) for dev in ("cpu", "cuda")}
+        card = got["cuda"]
+        same = {k: card[k] == got["cpu"][k] for k in card}
+        moved = sum(s["migrated"] for s in card["switches"])
+        drained = sum(s["drained"] for s in card["switches"])
+        log(f"  orchestrated run_real_spans {model} smoke: plans "
+            f"{[p[0] for p in card['plans']]}; migrated {moved}, drained "
+            f"{drained}; {len(card['tokens'])} requests; card == CPU "
+            f"{same} ({time.monotonic() - t0:.1f} s)")
+        if not all(same.values()) or len(card["tokens"]) != 18:
+            raise SystemExit(f"run_real_spans {model}: the card's plans, "
+                             "reports or tokens differ from the CPU's "
+                             f"({same})")
+
+
+# phase 4's MoE capacity check: one olmoe-1b-7b MoE layer at its published
+# widths (d_model 2048, 64 experts of d_ff 1024, top 8) on MOE_TOKENS
+# tokens in one group, fp32, at capacity factor MOE_CF (tokens drop) and
+# at E / K (C = N: nothing can drop).  The tokens share a component of
+# MOE_SHARED times a random direction, so the routing is skewed as a
+# trained model's is (isotropic tokens spread over 64 experts so evenly
+# that none overflows at 1.25)
+MOE_ARCH, MOE_TOKENS, MOE_CF, MOE_SHARED = "olmoe-1b-7b", 4096, 1.25, 0.5
+
+
+def moe_capacity_twin() -> dict:
+    """``models.moe.moe_block``'s capacity path on the card against the
+    same call on the CPU (weights and x drawn on the card from a seeded
+    generator), and at a drop-free factor against ``moe_ref``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def normal(shape, std, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dtype) * std
+
+    p = {k: v[0] for k, v in moe.init_moe(cfg, normal).items()}
+    x = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda")
+    x += MOE_SHARED * torch.randn((cfg.d_model,), generator=gen,
+                                  device="cuda")
+    G, C, _, keep, _ = moe.dispatch(x, p, cfg, MOE_CF)
+    got = moe.moe_block(x, p, cfg, MOE_CF)
+    p_cpu, x_cpu = _to(p, "cpu"), x.cpu()
+    keep_cpu = moe.dispatch(x_cpu, p_cpu, cfg, MOE_CF)[3]
+    want = moe.moe_block(x_cpu, p_cpu, cfg, MOE_CF)
+    free = moe.moe_block(x, p, cfg, cfg.n_experts / cfg.top_k)
+    oracle = moe.moe_ref(x, p, cfg)
+    dropped_rows = (~keep).reshape(MOE_TOKENS, -1).any(-1)
+    changed_rows = (got - oracle).abs().amax(-1).reshape(-1) > ATOL_FP32
+    return {"groups": G, "capacity": C, "slots": keep.numel(),
+            "dropped": int((~keep).sum()),
+            "dropped_cpu": int((~keep_cpu).sum()),
+            "same_drops": torch.equal(keep.cpu(), keep_cpu),
+            "max_abs_err": float((got.cpu() - want).abs().max()),
+            "drop_free_err": float((free - oracle).abs().max()),
+            "changed_rows_are_dropped_rows": torch.equal(changed_rows,
+                                                         dropped_rows),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def phase_moe_capacity() -> None:
+    """Phase 4's MoE check: ``moe_capacity_twin``'s drops and outputs
+    agree, some tokens drop, and the dropped rows are the changed ones."""
     t0 = time.monotonic()
-    got = {dev: real_spans_twin(dev) for dev in ("cpu", "cuda")}
-    card = got["cuda"]
-    same = {k: card[k] == got["cpu"][k] for k in card}
-    moved = sum(s["migrated"] for s in card["switches"])
-    log(f"  orchestrated run_real_spans llama2-70b smoke: plans "
-        f"{[p[0] for p in card['plans']]}; migrated {moved}; "
-        f"{len(card['tokens'])} requests; card == CPU {same} "
+    r = moe_capacity_twin()
+    ok = (r["same_drops"] and r["dropped"] > 0 and r["finite"]
+          and r["max_abs_err"] <= ATOL_FP32
+          and r["drop_free_err"] <= ATOL_FP32
+          and r["changed_rows_are_dropped_rows"])
+    log(f"  moe_block capacity path, {MOE_ARCH} widths, {MOE_TOKENS} tokens "
+        f"in {r['groups']} group, cf {MOE_CF} (C = {r['capacity']}): "
+        f"dropped (token, slot) pairs card {r['dropped']} CPU "
+        f"{r['dropped_cpu']} of {r['slots']}, same pattern "
+        f"{r['same_drops']}; card vs CPU max_abs_err {r['max_abs_err']:.3e}; "
+        f"drop-free factor vs moe_ref {r['drop_free_err']:.3e}; rows off "
+        f"the oracle are the dropped rows {r['changed_rows_are_dropped_rows']}"
+        f" (limit {ATOL_FP32}) {'ok' if ok else 'FAIL'} "
         f"({time.monotonic() - t0:.1f} s)")
-    if not all(same.values()) or len(card["tokens"]) != 18:
-        raise SystemExit("run_real_spans: the card's plans, reports or "
-                         f"tokens differ from the CPU's ({same})")
+    if not ok:
+        raise SystemExit(f"moe_block's capacity path disagrees: {r}")
 
 
 # phase 5's "orchestrated" job: llama2-70b at its published widths cut to
@@ -1705,12 +1843,12 @@ def _torn_down(rt, plan) -> dict:
 
 
 def card_step_times(cfg, params, prompt_len: int, batch: int,
-                    ctx: int) -> tuple[float, float]:
+                    ctx: int, num_blocks: int) -> tuple[float, float]:
     """(one request's prefill of ``prompt_len`` tokens, one decode step at
     ``batch`` sequences of ``ctx`` tokens) on one engine on the card, in
     ms: the prefill as the median wall of 3 one-token requests, the step
     as the wall after the last first token over the steps taken."""
-    kw = dict(dtype=torch.bfloat16, num_blocks=1024, block_size=16,
+    kw = dict(dtype=torch.bfloat16, num_blocks=num_blocks, block_size=16,
               max_seqs=batch, max_blocks_per_seq=128, decode_horizon=1)
     rng = np.random.RandomState(3)
     prompt = rng.randint(0, cfg.vocab_size, prompt_len).astype(np.int32)
@@ -1723,6 +1861,29 @@ def card_step_times(cfg, params, prompt_len: int, batch: int,
     fin, _, wall = serve(cfg, params, prompts, new, "cuda", **kw)
     _, rate = serving_times(fin, wall)
     return prefill, batch / rate * 1e3
+
+
+def cost_model_text(cfg, params, prompt_len: int, ctx: int,
+                    num_blocks: int) -> str:
+    """The cost model's prefill of ``prompt_len`` tokens and decode step at
+    B = 8, ``ctx`` tokens (``cfg``'s profile, TP = 1, ``H100_SPEC``) beside
+    the card's (``card_step_times`` on an engine of ``num_blocks``
+    pages)."""
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.types import H100_SPEC, ReplicaConfig
+    cm = CostModel(cfg.profile(), hw=H100_SPEC)
+    tp1 = ReplicaConfig(1)
+    card_prefill, card_step = card_step_times(cfg, params, prompt_len, 8,
+                                              ctx, num_blocks)
+    return (f"cost model ({cfg.n_layers}-layer profile, "
+            f"{cfg.profile().param_count:,} parameters, TP=1, H100_SPEC) "
+            f"against the card: prefill of {prompt_len} tokens "
+            f"{cm.measure_prefill(tp1, prompt_len) * 1e3:.2f} ms predicted, "
+            f"{card_prefill:.2f} ms measured (one request, wall); decode step "
+            f"at B=8, ctx {ctx}: "
+            f"{cm.measure_decode_step(tp1, 8, ctx) * 1e3:.2f} ms predicted "
+            f"(step_overhead {cm.step_overhead * 1e3:.1f} ms), "
+            f"{card_step:.2f} ms measured")
 
 
 def phase_orchestrated(ops) -> tuple[dict, list[str]]:
@@ -1738,7 +1899,7 @@ def phase_orchestrated(ops) -> tuple[dict, list[str]]:
     from repro_torch.core.costmodel import CostModel
     from repro_torch.core.orchestrator import (Orchestrator,
                                                OrchestratorConfig)
-    from repro_torch.core.types import H100_SPEC, ClusterSpec, ReplicaConfig
+    from repro_torch.core.types import H100_SPEC, ClusterSpec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import init_params, param_count
     from repro_torch.serving.cluster import ClusterRuntime
@@ -1880,18 +2041,9 @@ def phase_orchestrated(ops) -> tuple[dict, list[str]]:
     del rt
     torch.cuda.empty_cache()
     # the cost model's step times for the served depth against the card's
-    cm = CostModel(cfg.profile(), hw=H100_SPEC)
-    tp1 = ReplicaConfig(1)
-    long_in = max(a.in_len for a in REAL_ARCHETYPES)
-    ctx = REAL_ARCHETYPES[3].in_len + 16
-    card_prefill, card_step = card_step_times(cfg, params, long_in, 8, ctx)
-    log(f"  [orchestrated] cost model ({cfg.n_layers}-layer profile, TP=1, "
-        f"H100_SPEC) against the card: prefill of {long_in} tokens "
-        f"{cm.measure_prefill(tp1, long_in) * 1e3:.2f} ms predicted, "
-        f"{card_prefill:.2f} ms measured (one request, wall); decode step at "
-        f"B=8, ctx {ctx}: {cm.measure_decode_step(tp1, 8, ctx) * 1e3:.2f} "
-        f"ms predicted (step_overhead {cm.step_overhead * 1e3:.1f} ms), "
-        f"{card_step:.2f} ms measured; {card}")
+    log("  [orchestrated] " + cost_model_text(
+        cfg, params, max(a.in_len for a in REAL_ARCHETYPES),
+        REAL_ARCHETYPES[3].in_len + 16, 1024) + f"; {card}")
     lens = sorted((len(p) for p in prompts), reverse=True)[:8]
     run = {"arch": ORCH_MODEL, "variant": ORCH_VARIANT, "cfg": cfg,
            "counts": counts, "n_req": len(prompts), "lens": lens}
@@ -1937,9 +2089,12 @@ def phase_full_width(ops, arch: str, variants: tuple,
     log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
         f"ssm {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
-        f"{cfg.ssm_state}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
-        f"{n:,} params, {n * 2 / 1e9:.2f} GB bf16 "
-        f"(init {time.monotonic() - t0:.1f} s)")
+        f"{cfg.ssm_state}, d_ff {cfg.d_ff}, experts {cfg.n_experts} top "
+        f"{cfg.top_k}, vocab {cfg.vocab_size}, {cfg.pos_embedding} "
+        f"positions: {n:,} params, {n * 2 / 1e9:.2f} GB bf16 (the cost "
+        f"model's profile counts {cfg.profile().param_count:,}; init "
+        f"{time.monotonic() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
     prompts = full_width_prompts(cfg)
     lens = [len(p) for p in prompts]
     runs = []
@@ -1958,11 +2113,13 @@ def phase_full_width(ops, arch: str, variants: tuple,
               and all(0 <= t < cfg.vocab_size for r in fin
                       for t in fin[r].generated))
         log(f"  [{var.name}] prompts {sorted(int(x) for x in lens)}, 32 new "
-            f"tokens each, max_seqs 8, pool 2048 x 16-token pages, "
+            f"tokens each, max_seqs {kw['max_seqs']}, pool "
+            f"{kw['num_blocks']} x {kw['block_size']}-token pages, "
             f"{var.options}")
         log(f"  [{var.name}] tokens_out {eng.tokens_out}  prefill_tokens "
             f"{eng.prefill_tokens}  steps {eng.steps}  decode_syncs "
-            f"{eng.decode_syncs}  horizons {eng.horizon_counts}")
+            f"{eng.decode_syncs}  horizons {eng.horizon_counts}  distinct "
+            f"tokens {len({t for r in fin for t in fin[r].generated})}")
         log(f"  [{var.name}] wall {wall:.3f} s  TTFT mean "
             f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms  "
             f"decode {decode_rate:.1f} tok/s (after the last first token)  "
@@ -1998,6 +2155,13 @@ def phase_full_width(ops, arch: str, variants: tuple,
                      "counts": counts, "n_req": len(fin),
                      "lens": [int(x) for x in lens],
                      "streams": {r: fin[r].generated for r in fin}})
+        # the next run's engine must not meet this one's pool
+        del fin, eng
+    if arch in COST_MODEL_MODELS:
+        log(f"  [{arch}] " + cost_model_text(
+            cfg, params, max(lens), 512, runs[0]["variant"].options.get(
+                "num_blocks", FULL_WIDTH_ENGINE["num_blocks"]))
+            + f"; {card_line()}")
     for path in MIGRATE.get(arch, ()):
         failures += phase_migrate(ops, cfg, params, prompts, path,
                                   runs[0]["streams"])
@@ -2710,6 +2874,7 @@ def main() -> int:
 
     log("[4] greedy decoding")
     phase_greedy()
+    phase_moe_capacity()
     phase_cluster_smoke()
     phase_orchestrated_smoke()
 

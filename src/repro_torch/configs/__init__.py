@@ -1,10 +1,9 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-The four served assigned architectures (yi-9b, gemma2-2b, mamba2-370m,
-hymba-1.5b) and the paper's evaluation models (``paper_models``:
-llama-30b and llama2-70b are served; opt-30b and opt-66b are planning
-profiles only).  The other assigned architectures join as their model
-families are ported (ROADMAP.md Queue A item 5).
+All fourteen of the JAX package's architectures, with its lists: the ten
+assigned architectures (exact public configs) and the paper's own
+evaluation models (``paper_models``: OPT-30B/66B, Llama-30B, Llama2-70B).
+Every one is served by ``models.model`` and ``serving.engine``.
 """
 from __future__ import annotations
 
@@ -12,11 +11,34 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
+ASSIGNED_ARCHS = [
+    "olmoe-1b-7b",
+    "granite-moe-3b-a800m",
+    "starcoder2-3b",
+    "gemma2-2b",
+    "qwen1.5-110b",
+    "yi-9b",
+    "mamba2-370m",
+    "hymba-1.5b",
+    "chameleon-34b",
+    "musicgen-medium",
+]
+
+PAPER_ARCHS = ["opt-30b", "opt-66b", "llama-30b", "llama2-70b"]
+
+ALL_ARCHS = ASSIGNED_ARCHS + PAPER_ARCHS
+
 _MODULES = {
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "starcoder2-3b": "starcoder2_3b",
     "gemma2-2b": "gemma2_2b",
-    "hymba-1.5b": "hymba_1_5b",
-    "mamba2-370m": "mamba2_370m",
+    "qwen1.5-110b": "qwen1_5_110b",
     "yi-9b": "yi_9b",
+    "mamba2-370m": "mamba2_370m",
+    "hymba-1.5b": "hymba_1_5b",
+    "chameleon-34b": "chameleon_34b",
+    "musicgen-medium": "musicgen_medium",
     "opt-30b": "paper_models",
     "opt-66b": "paper_models",
     "llama-30b": "paper_models",

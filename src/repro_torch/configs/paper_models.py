@@ -1,10 +1,9 @@
 """The paper's own evaluation models (S5.1): OPT-30B/66B, Llama-30B, Llama2-70B.
 
 The planner's profiles of the paper's evaluation and the orchestrated path's
-model.  llama-30b and llama2-70b (GQA, RoPE, no biases, untied embeddings)
-are served by the dense path; opt-30b and opt-66b are planning profiles
-only: their sincos positions and biased GELU MLP are not ported
-(``models.model.check_supported`` raises; ROADMAP.md Queue A item 5).
+models, all served: llama-30b and llama2-70b (GQA, RoPE, no biases, untied
+embeddings) and opt-30b and opt-66b (MHA, sincos positions, biased
+projections and GELU MLP, tied embeddings).
 """
 from repro_torch.models.config import ModelConfig
 

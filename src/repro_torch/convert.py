@@ -4,11 +4,11 @@ The JAX ``init_params`` pytree (``embed``, layer-stacked ``blocks.*``,
 ``final_norm``, ``lm_head`` unless tied), given as numpy arrays, has the
 same keys, shapes and ``x @ w`` orientation as the port's parameters, so the
 conversion is a checked copy.  Tests use it to feed identical weights to
-both packages.  The SSM leaves the JAX package keeps in fp32
-(``ssm.FP32_KEYS``: ``dt_bias``, ``A_log``, ``D``) stay fp32 whatever
-``dtype`` is asked for.  ``lstm_params_from_jax`` does the same for the
-workload predictor's LSTM (``core.predictor``), whose JAX parameters have
-the port's keys, shapes and orientation too.
+both packages.  The leaves the JAX package keeps in fp32 (the SSM's
+``ssm.FP32_KEYS``: ``dt_bias``, ``A_log``, ``D``; the MoE router) stay
+fp32 whatever ``dtype`` is asked for.  ``lstm_params_from_jax`` does the
+same for the workload predictor's LSTM (``core.predictor``), whose JAX
+parameters have the port's keys, shapes and orientation too.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import FP32_KEYS
 
 
-_FP32_PATHS = frozenset(f"params.blocks.ssm.{k}" for k in FP32_KEYS)
+_FP32_PATHS = frozenset([f"params.blocks.ssm.{k}" for k in FP32_KEYS]
+                        + ["params.blocks.moe.router"])
 
 
 def _expected_top(cfg: ModelConfig) -> set[str]:
@@ -58,7 +59,7 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device="cuda",
     """Numpy copy of a JAX params pytree -> the port's params on ``device``.
 
     Checks the top-level keys and the embedding / stacked-layer shapes
-    (attention and SSM, as ``cfg`` has them) against ``cfg``.
+    (attention, SSM and experts, as ``cfg`` has them) against ``cfg``.
     """
     top = set(np_tree)
     if top != _expected_top(cfg):
@@ -70,6 +71,9 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device="cuda",
         _check_shape(np_tree, "blocks.attn.wq", (L, d, cfg.q_dim), cfg)
     if cfg.has_ssm:
         _check_shape(np_tree, "blocks.ssm.w_x", (L, d, cfg.d_inner), cfg)
+    if cfg.is_moe:
+        _check_shape(np_tree, "blocks.moe.w_gate",
+                     (L, cfg.n_experts, d, cfg.d_ff), cfg)
     return _to_torch(np_tree, device, dtype, "params")
 
 

@@ -1,10 +1,14 @@
-"""Shared building blocks: norms, softcap, rotary positions, MLPs.
+"""Shared building blocks: norms, softcap, rotary and sinusoidal positions,
+MLPs.
 
 Numerics follow the JAX package exactly: RMSNorm computes in fp32 and
 scales by ``(1 + w)``; RoPE is split-half (not interleaved) with fp32
-angles; GELU is the tanh approximation.
+angles; sinusoidal embeddings are ``[sin | cos]`` of fp32 angles; GELU is
+the tanh approximation.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -45,6 +49,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sincos_embedding(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Absolute sinusoidal embeddings (opt, musicgen): positions [B, S] ->
+    [B, S, d_model] fp32, ``[sin | cos]`` of ``pos * freq`` with the
+    frequencies ``exp(-log(1e4) * i / half)``, computed in fp32 in the JAX
+    package's order."""
+    half = d_model // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10_000.0) * i / half)
+    angles = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 # -- MLPs ---------------------------------------------------------------------

@@ -1,5 +1,10 @@
-"""The decoder-only model of the port: dense attention, SSD (mamba2) and
-hybrid parallel attention + SSD (hymba) layers.
+"""The decoder-only model of the port, covering every family of the JAX
+package: dense GQA attention (with gemma2's local/global alternation,
+softcaps and sandwich norms, biases, qk-norm, RoPE or sinusoidal
+positions), MoE MLPs, SSD mixers (mamba2) and hybrid parallel attention +
+SSD heads (hymba).  The VLM/audio archs use the same backbone; their
+modality frontends are stubs, so ``forward``, ``prefill`` and the decode
+steps also take precomputed embeddings (``embeds=``) in place of ids.
 
 Parameters are a plain dict with the JAX package's keys and layout: layers
 stacked on axis 0 under ``blocks`` (``blocks["attn"]["wq"]`` is
@@ -9,8 +14,8 @@ weights as ``x @ w`` matrices.  PyTorch runs eagerly, so the JAX layer
 
 Entry points:
   init_params(cfg, seed, dtype, device)        -> parameter dict
-  forward(params, cfg, tokens)                 -> logits [B, S, Vpad]
-  prefill(params, cfg, tokens)                 -> (logits [B, Vpad],
+  forward(params, cfg, tokens|embeds)          -> logits [B, S, Vpad]
+  prefill(params, cfg, tokens|embeds)          -> (logits [B, Vpad],
                                                    PrefillCache)
   prefill_chunk(params, cfg, tokens, k, v, table, start, n_valid, trash)
       -> logits [B, Vpad] at position start + n_valid - 1
@@ -19,7 +24,9 @@ Entry points:
   decode_loop_paged(params, cfg, tokens, st, horizon)
       -> ([B, horizon] tokens on the device, state)
 
-MoE layers are not ported yet; configs that need them raise.
+Every path embeds at the true positions (sinusoidal models add them to
+the embeddings): ``arange(S)`` in forward and prefill, ``start + arange(C)``
+in a chunk, the cache's ``pos`` or the paged state's ``lens`` in decode.
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import mlp, rms_norm, softcap
+from repro_torch.models.layers import mlp, rms_norm, sincos_embedding, softcap
 from repro_torch.models.sampling import sample, step_generator
 
 
@@ -76,17 +84,6 @@ class PagedDecodeState:
     conv: torch.Tensor | None = None    # [L, B, W - 1, conv_ch]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet "
-            "(ROADMAP.md Queue A item 5, models/moe.py)")
-    if cfg.pos_embedding not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.pos_embedding} positions are not ported yet "
-            "(ROADMAP.md Queue A item 5)")
-
-
 # --------------------------------------------------------------------------
 # Parameter init.
 # --------------------------------------------------------------------------
@@ -94,10 +91,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _normal(shape, std: float, gen: torch.Generator, dtype, device
             ) -> torch.Tensor:
-    """N(0, std) in ``dtype``, drawn layer by layer for stacked weights so
-    no full-size fp32 temporary is ever made."""
+    """N(0, std) in ``dtype``, drawn one matrix at a time for stacked
+    weights (a layer's, or a layer's expert's) so no full-size fp32
+    temporary is ever made."""
     t = torch.empty(shape, dtype=dtype, device=device)
-    for part in (t if len(shape) == 3 else [t]):
+    for part in (t.view(-1, *shape[-2:]) if len(shape) >= 3 else [t]):
         part.normal_(0.0, std, generator=gen)
     return t
 
@@ -108,16 +106,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     on ``device``.
 
     Same keys, shapes, scales and dtypes as the JAX package's
-    ``init_params`` (the SSM's ``dt_bias``/``A_log``/``D`` stay fp32); the
-    random values differ (JAX keys cannot be reproduced in torch).
+    ``init_params`` (the SSM's ``dt_bias``/``A_log``/``D`` and the MoE
+    router stay fp32); the random values differ (JAX keys cannot be
+    reproduced in torch).
     """
-    check_supported(cfg)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab()
     q_dim, kv_dim, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
 
-    def normal(shape, std):
+    def normal(shape, std, dtype=dtype):
         return _normal(shape, std, generator, dtype, device)
 
     def zeros(*shape):
@@ -144,7 +142,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
         blocks["ssm_out_norm"] = zeros(L, d)
     if cfg.sandwich_norm:
         blocks["post_ln1"] = zeros(L, d)
-    if f > 0:
+    if cfg.is_moe:
+        blocks["ln2"] = zeros(L, d)
+        blocks["moe"] = moe_lib.init_moe(cfg, normal)
+    elif f > 0:
         m = {}
         if cfg.mlp_variant in ("swiglu", "geglu"):
             m["w_gate"] = normal((L, d, f), s)
@@ -154,8 +155,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
             m.update(b_up=zeros(L, f), b_down=zeros(L, d))
         blocks["ln2"] = zeros(L, d)
         blocks["mlp"] = m
-        if cfg.sandwich_norm:
-            blocks["post_ln2"] = zeros(L, d)
+    if cfg.sandwich_norm and (cfg.is_moe or f > 0):
+        blocks["post_ln2"] = zeros(L, d)
     params = {"embed": normal((V, d), 0.02), "blocks": blocks,
               "final_norm": zeros(d)}
     if not cfg.tie_embeddings:
@@ -181,9 +182,10 @@ def layer_params(blocks: dict, layer: int) -> dict:
 
 
 def _mlp_residual(x, bp, cfg: ModelConfig):
-    if cfg.d_ff > 0:
-        m = mlp(rms_norm(x, bp["ln2"], cfg.norm_eps), bp["mlp"],
-                cfg.mlp_variant)
+    if cfg.is_moe or cfg.d_ff > 0:
+        h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        m = (moe_lib.moe_block(h, bp["moe"], cfg) if cfg.is_moe
+             else mlp(h, bp["mlp"], cfg.mlp_variant))
         if cfg.sandwich_norm:
             m = rms_norm(m, bp["post_ln2"], cfg.norm_eps)
         x = x + m
@@ -205,8 +207,9 @@ def _combine(attn_out, ssm_out, bp, cfg: ModelConfig):
 
 
 def _block(x, bp, cfg: ModelConfig, layer: int, positions):
-    """Full-sequence block: attention and/or SSD mixer + dense MLP with
-    residuals.  Returns (x, per-layer PrefillCache entries k, v, ssm, conv).
+    """Full-sequence block: attention and/or SSD mixer + dense or MoE MLP
+    with residuals.  Returns (x, per-layer PrefillCache entries k, v, ssm,
+    conv).
     """
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     attn_out = ssm_out = k = v = state = conv = None
@@ -225,10 +228,18 @@ def _block(x, bp, cfg: ModelConfig, layer: int, positions):
 # --------------------------------------------------------------------------
 
 
-def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor):
-    x = params["embed"][tokens.long()]
+def embed_inputs(params, cfg: ModelConfig, tokens=None, embeds=None,
+                 positions=None):
+    """Token ids [B, S] (or precomputed embeddings [B, S, d] for the
+    stub-frontend archs) at ``positions`` [B, S] -> [B, S, d]."""
+    if embeds is None:
+        x = params["embed"][tokens.long()]
+    else:
+        x = embeds.to(params["embed"].dtype)
     if cfg.scale_embedding:
         x = x * np.sqrt(cfg.d_model)
+    if cfg.pos_embedding == "sincos":
+        x = x + sincos_embedding(positions, cfg.d_model).to(x.dtype)
     return x
 
 
@@ -239,8 +250,15 @@ def lm_logits(params, cfg: ModelConfig, x):
     return softcap(logits, cfg.final_logit_softcap)
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+def _positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
+    return torch.arange(start, start + S, dtype=torch.int32,
+                        device=device).expand(B, S)
+
+
+def _shape(tokens, embeds):
+    """(B, S, device) of the ids [B, S] or the embeddings [B, S, d]."""
+    t = tokens if tokens is not None else embeds
+    return t.shape[0], t.shape[1], t.device
 
 
 # --------------------------------------------------------------------------
@@ -248,29 +266,31 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, padded_vocab] (fp32)."""
-    check_supported(cfg)
-    B, S = tokens.shape
-    positions = _positions(B, S, tokens.device)
-    x = embed_inputs(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens [B, S] (or embeds [B, S, d]) -> logits [B, S, padded_vocab]
+    (fp32)."""
+    B, S, device = _shape(tokens, embeds)
+    positions = _positions(B, S, device)
+    x = embed_inputs(params, cfg, tokens, embeds, positions)
     for layer in range(cfg.n_layers):
         x, _ = _block(x, layer_params(params["blocks"], layer), cfg, layer,
                       positions)
     return lm_logits(params, cfg, x)
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None):
     """One-shot prefill of same-length prompts.
 
-    tokens [B, S] -> (last-token logits [B, Vpad] fp32, PrefillCache with
-    k/v [L, B, S, Hkv, D], the final SSM state [L, B, H, P, N] and the conv
-    window [L, B, W - 1, conv_ch], each None where the model has none).
+    tokens [B, S] (or embeds [B, S, d]) -> (last-token logits [B, Vpad]
+    fp32, PrefillCache with k/v [L, B, S, Hkv, D], the final SSM state
+    [L, B, H, P, N] and the conv window [L, B, W - 1, conv_ch], each None
+    where the model has none).
     """
-    check_supported(cfg)
-    B, S = tokens.shape
-    positions = _positions(B, S, tokens.device)
-    x = embed_inputs(params, cfg, tokens)
+    B, S, device = _shape(tokens, embeds)
+    positions = _positions(B, S, device)
+    x = embed_inputs(params, cfg, tokens, embeds, positions)
     per_layer = []
     for layer in range(cfg.n_layers):
         x, caches = _block(x, layer_params(params["blocks"], layer), cfg,
@@ -296,11 +316,12 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     Models with SSM layers raise, as in the JAX package: the SSD scan has
     no per-position state to resume a bucketed chunk from.
     """
-    check_supported(cfg)
     if cfg.has_ssm:
         raise NotImplementedError(
             "chunked prefill supports attention-only models")
-    x = embed_inputs(params, cfg, tokens)
+    B, C = tokens.shape
+    x = embed_inputs(params, cfg, tokens, None,
+                     _positions(B, C, tokens.device, start))
     for layer in range(cfg.n_layers):
         bp = layer_params(params["blocks"], layer)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -316,14 +337,14 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def _decode_core(params, cfg: ModelConfig, tokens: torch.Tensor, attend,
+def _decode_core(params, cfg: ModelConfig, tokens, embeds, pos, attend,
                  ssm: torch.Tensor | None, conv: torch.Tensor | None):
-    """The decode-step body shared by the dense and paged caches: embed,
-    the layers, logits.  ``attend(h, p, layer)`` is one layer's attention;
-    the SSM rows ssm/conv [L, B, ...] are updated in place.
-    Returns logits [B, Vpad] fp32."""
-    check_supported(cfg)
-    x = embed_inputs(params, cfg, tokens[:, None])
+    """The decode-step body shared by the dense and paged caches: embed at
+    ``pos`` [B], the layers, logits.  ``attend(h, p, layer)`` is one
+    layer's attention; the SSM rows ssm/conv [L, B, ...] are updated in
+    place.  Returns logits [B, Vpad] fp32."""
+    x = embed_inputs(params, cfg, None if tokens is None else tokens[:, None],
+                     embeds, pos[:, None])
     for layer in range(cfg.n_layers):
         bp = layer_params(params["blocks"], layer)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -340,12 +361,13 @@ def _decode_core(params, cfg: ModelConfig, tokens: torch.Tensor, attend,
     return lm_logits(params, cfg, x)[:, 0]
 
 
-def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: DecodeCache):
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor | None,
+                cache: DecodeCache, embeds: torch.Tensor | None = None):
     """One token for every sequence against a dense cache.
 
-    tokens [B] int32.  Each layer writes its new K/V at ``cache.pos`` and
-    its SSM rows in place, then attends to [start, pos + 1).
+    tokens [B] int32 (or embeds [B, 1, d] for stub-frontend archs).  Each
+    layer writes its new K/V at ``cache.pos`` and its SSM rows in place,
+    then attends to [start, pos + 1).
     Returns (logits [B, Vpad] fp32, cache with pos + 1).
     """
     def attend(h, p, layer):
@@ -353,17 +375,21 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
             h, p, cfg, cache.k[layer], cache.v[layer], cache.pos,
             cfg.local_is_local(layer))
 
-    logits = _decode_core(params, cfg, tokens, attend, cache.ssm, cache.conv)
+    logits = _decode_core(params, cfg, tokens, embeds, cache.pos, attend,
+                          cache.ssm, cache.conv)
     return logits, dataclasses.replace(cache, pos=cache.pos + 1)
 
 
-def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
-                      state: PagedDecodeState):
+def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor | None,
+                      state: PagedDecodeState,
+                      embeds: torch.Tensor | None = None):
     """One token for every sequence, attending the paged pool directly.
 
-    tokens [B] int32.  Each layer's new K/V token is written into its page
-    in place and attention reads pages through the block table; each SSM
-    layer's state and conv window rows are updated in place.
+    tokens [B] int32 (or embeds [B, 1, d] for stub-frontend archs); the
+    step writes and embeds at ``state.lens``.  Each layer's new K/V token
+    is written into its page in place and attention reads pages through
+    the block table; each SSM layer's state and conv window rows are
+    updated in place.
     Returns (logits [B, Vpad] fp32, state with lens + 1).
     """
     def attend(h, p, layer):
@@ -371,7 +397,8 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
             h, p, cfg, state.k[layer], state.v[layer], state.block_table,
             state.lens, cfg.local_is_local(layer))
 
-    logits = _decode_core(params, cfg, tokens, attend, state.ssm, state.conv)
+    logits = _decode_core(params, cfg, tokens, embeds, state.lens, attend,
+                          state.ssm, state.conv)
     return logits, dataclasses.replace(state, lens=state.lens + 1)
 
 

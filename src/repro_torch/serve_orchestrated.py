@@ -23,10 +23,9 @@ in Perfetto / ``chrome://tracing``; the export is validated in-process and
 a latency-histogram summary plus the planner's prediction calibration
 error are printed.
 
-The default model is llama2-70b, which the port both plans for and serves
-(the JAX example's opt-30b has sincos positions the port does not serve;
-it remains a planning profile: ``--model opt-30b`` works without
-``--real``).  ``--shard`` is not ported.
+The default model is the JAX example's, opt-30b: its full config is the
+planning profile and, with ``--real``, its smoke config runs the engines.
+``--shard`` is not ported.
 """
 from __future__ import annotations
 
@@ -191,7 +190,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--spans", type=int, default=12)
     ap.add_argument("--chips", type=int, default=16)
-    ap.add_argument("--model", default="llama2-70b")
+    ap.add_argument("--model", default="opt-30b")
     ap.add_argument("--device", default="cuda",
                     help="where the LSTM and, with --real, the engines run "
                          "(cuda or cpu)")

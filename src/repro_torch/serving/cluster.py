@@ -7,13 +7,14 @@ model; ``docs/telemetry.md`` explains how to read an exported trace.
 This docstring keeps the runtime-policy reference detail.
 
 A span plan's heterogeneous deployment (anything with
-``.deployment.replicas`` and ``.fractions``; the planner is not ported
-yet) is materialized as N live ``ServingEngine`` replicas partitioning one
-shared device ``BlockPool`` on one card.  A replica's chips are the
-runtime's own accounting: its chip count scales its KV-block quota in the
-one pool, its concurrency (``max_seqs``) and its per-sequence context
-ceiling, so a 1-chip replica really is a smaller server than a 4-chip one,
-though every replica runs on the same card.
+``.deployment.replicas`` and ``.fractions``: ``core.orchestrator``'s
+``SpanPlan``, or a hand-built one) is materialized as N live
+``ServingEngine`` replicas partitioning one shared device ``BlockPool`` on
+one card.  A replica's chips are the runtime's own accounting: its chip
+count scales its KV-block quota in the one pool, its concurrency
+(``max_seqs``) and its per-sequence context ceiling, so a 1-chip replica
+really is a smaller server than a 4-chip one, though every replica runs
+on the same card.
 
 Per span, typed requests are routed through any ``Router`` policy
 (``FlowRouter`` realizes the plan's x[k][j] fractions), and every replica

@@ -107,7 +107,6 @@ from repro_torch.models import (DecodeCache, PagedDecodeState,
                                 decode_loop_paged, decode_step, prefill,
                                 prefill_chunk)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import check_supported
 from repro_torch.models.sampling import sample
 from repro_torch.serving.kvcache import (BlockPool, PagedKVCache,
                                          copy_blocks, relayout_blocks)
@@ -237,7 +236,6 @@ class ServingEngine:
         models with SSM layers or no attention).  ``clock``,
         ``telemetry``, ``trace_id`` and ``role``: see the module
         docstring."""
-        check_supported(cfg)
         if decode_mode not in ("paged", "dense"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if decode_horizon < 1:

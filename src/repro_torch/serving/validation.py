@@ -64,7 +64,7 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def run_real_spans(model: str = "llama2-70b", chips: int = 6,
+def run_real_spans(model: str = "opt-30b", chips: int = 6,
                    n_spans: int = 2, requests_per_span: int = 6,
                    seed: int = 0, shard: bool = False,
                    prefix_cache: bool = True, shared_prefix_len: int = 16,
@@ -103,12 +103,10 @@ def run_real_spans(model: str = "llama2-70b", chips: int = 6,
     devices) is not ported and raises ``NotImplementedError``, as the
     runtime does.
 
-    ``model`` must be one the port serves (its smoke config runs the
-    engines; the full config is the planning profile): the default is
-    llama2-70b, since the JAX package's default, opt-30b, has sincos
-    positions the port does not serve.  The fp32 weights are the port's
-    ``init_params(seed)``, drawn on the CPU and moved to ``device``, so the
-    card and the CPU serve the same weights.
+    ``model``'s smoke config runs the engines and its full config is the
+    planning profile; the default is the JAX package's, opt-30b.  The fp32
+    weights are the port's ``init_params(seed)``, drawn on the CPU and
+    moved to ``device``, so the card and the CPU serve the same weights.
     """
     cfg = get_smoke_config(model)
     params = _to(init_params(cfg, seed=seed, dtype=torch.float32,

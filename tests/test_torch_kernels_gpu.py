@@ -423,6 +423,54 @@ def test_flash_attention_q_offset_kernel_matches_plain(cuda, dtype, name, B,
     kernel_close(got, want, dtype)
 
 
+# the model families' served heads: opt-30b's and olmoe-1b-7b's MHA (a
+# group of 1, D = 128) and granite-moe's 24/8 of 64 (a group of 3);
+# name, Hq, Hkv, D
+FAMILY_HEADS = [("opt-30b", 56, 56, 128), ("olmoe-1b-7b", 16, 16, 128),
+                ("granite-moe", 24, 8, 64)]
+FAMILY_IDS = [c[0] for c in FAMILY_HEADS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,Hq,Hkv,D", FAMILY_HEADS, ids=FAMILY_IDS)
+def test_paged_decode_kernel_family_heads_match_plain(cuda, dtype, name, Hq,
+                                                      Hkv, D):
+    """B1 at the families' decode shape: B = 8 mid-way through decode on
+    the engine's 64-page table, a trash-page row among them."""
+    lens = [336, 512, 700, 979, 963, 480, 820, 640]
+    q, kp, vp, live, ln, st = to_torch(
+        *paged_inputs(31, 8, Hq, Hkv, D, 16, lens, trash_rows=(2,)),
+        device=cuda)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    tb = torch.zeros((8, 64), dtype=torch.int32, device=cuda)
+    tb[:, :live.shape[1]] = live
+    before = tfd.paged_decode.launches
+    got = tfd.paged_decode(q, kp, vp, tb, ln, st, 0.0, 1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    assert tfd.paged_decode.launches == before + 1
+    want = ref.paged_decode_plain(q, kp, vp, tb, ln, st, 0.0, 1.0 / D ** 0.5)
+    kernel_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,Hq,Hkv,D", FAMILY_HEADS, ids=FAMILY_IDS)
+def test_flash_attention_kernel_family_heads_match_plain(cuda, dtype, name,
+                                                         Hq, Hkv, D):
+    """B2 at the families' heads: a 300-token prompt, and a 256-token
+    chunk at query offset 512."""
+    for Sq, off in ((300, 0), (256, 512)):
+        q, k, v = (t.to(dtype) for t in to_torch(
+            *flash_inputs(32, 1, Sq, off + Sq, Hq, Hkv, D), device=cuda))
+        before = tfa.flash_attention.launches
+        got = tfa.flash_attention(q, k, v, q_offset=off)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.launches == before + 1
+        want = ref.flash_attention_ref(q, k, v, q_offset=off)
+        kernel_close(got, want, dtype)
+
+
 def unaligned(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``t`` whose data starts one element past a
     16-byte boundary (the wrapper's checks accept it)."""
@@ -717,3 +765,29 @@ def test_run_real_spans_on_the_card_equals_the_cpu(cuda):
     assert card == cs.real_spans_twin("cpu")
     assert sum(s["migrated"] for s in card["switches"]) >= 1
     assert len(card["tokens"]) == 18
+
+
+@pytest.mark.gpu
+def test_run_real_spans_opt_30b_on_the_card_equals_the_cpu(cuda):
+    """``run_real_spans`` on the default model's smoke config, opt-30b
+    (sinusoidal positions, biases, GELU; 6 chips, 3 spans): the same
+    plans, reports and tokens on the card as on the CPU (fp32)."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = cs.real_spans_twin(cuda.type, "opt-30b")
+    assert card == cs.real_spans_twin("cpu", "opt-30b")
+    assert len(card["tokens"]) == 18
+
+
+@pytest.mark.gpu
+def test_moe_capacity_path_on_the_card_equals_the_cpu(cuda):
+    """One olmoe-1b-7b MoE layer at its published widths on 4096 tokens in
+    one group at capacity factor 1.25: the card drops the CPU's (token,
+    slot) pairs and its output is the CPU's within 1e-4 (fp32); at a
+    drop-free factor it is ``moe_ref``'s."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = cs.moe_capacity_twin()
+    assert r["groups"] == 1 and r["dropped"] > 0 and r["same_drops"]
+    assert r["max_abs_err"] <= 1e-4 and r["drop_free_err"] <= 1e-4
+    assert r["changed_rows_are_dropped_rows"] and r["finite"]

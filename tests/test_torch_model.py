@@ -190,8 +190,19 @@ def test_sampled_stream_is_horizon_invariant(pair):
 
 
 def test_unported_families_raise():
+    """Every family is ported: the hand-built MoE config that raised
+    before inits (router fp32) and forwards; what still raises is what
+    the JAX package refuses too, a chunked prefill of an SSM model."""
     from repro_torch.models.config import ModelConfig
     moe = ModelConfig("m", "moe", 2, 64, 4, 2, 32, 128, 256, n_experts=4,
                       top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(moe, device="cpu")
+    params = tm.init_params(moe, dtype=torch.bfloat16, device="cpu")
+    assert params["blocks"]["moe"]["router"].dtype == torch.float32
+    assert params["blocks"]["moe"]["w_gate"].shape == (2, 4, 64, 128)
+    logits = tm.forward(params, moe, torch.arange(6)[None])
+    assert torch.isfinite(logits).all()
+    ssm = get_smoke_config("mamba2-370m")
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        tm.prefill_chunk(tm.init_params(ssm, device="cpu"), ssm,
+                         torch.zeros(1, 8, dtype=torch.int32), None, None,
+                         torch.zeros(1, 1, dtype=torch.int32), 0, 8, 0)

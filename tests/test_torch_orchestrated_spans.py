@@ -138,15 +138,24 @@ def test_analytic_loop_prints_the_jax_lines(monkeypatch, capsys):
 
 
 def test_serve_orchestrated_real_smoke(tmp_path):
+    """The CLI end to end: on the default model, the JAX example's
+    opt-30b, whose two spans the planner serves on its first deployment
+    (as the JAX example does), and on llama2-70b, whose second span
+    switches."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    trace = tmp_path / "trace.json"
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.serve_orchestrated", "--real",
-         "--spans", "2", "--device", "cpu", "--trace", str(trace)],
-        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert "total completed 12/12" in out.stdout, out.stdout
-    assert "switches executed: 1" in out.stdout, out.stdout
-    assert "joined decisions" in out.stdout, out.stdout
-    assert trace.exists()
+    for model, switches in ((None, 0), ("llama2-70b", 1)):
+        trace = tmp_path / f"trace-{model}.json"
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.serve_orchestrated",
+             "--real", "--spans", "2", "--device", "cpu", "--trace",
+             str(trace)] + (["--model", model] if model else []),
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+        name = model or "opt-30b"
+        assert (f"{name}-smoke (real engines, cpu) planning as {name}"
+                in out.stdout), out.stdout
+        assert "total completed 12/12" in out.stdout, out.stdout
+        assert f"switches executed: {switches}" in out.stdout, out.stdout
+        assert "joined decisions" in out.stdout, out.stdout
+        assert trace.exists()

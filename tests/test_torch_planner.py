@@ -78,12 +78,19 @@ def test_profile_equals_jax(arch):
 
 
 def test_paper_models_registered_and_served_as_documented():
-    from repro_torch.models.model import check_supported
-    for arch in ("llama-30b", "llama2-70b"):
-        check_supported(tconfigs.get_config(arch))
-    for arch in ("opt-30b", "opt-66b"):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            check_supported(tconfigs.get_config(arch))
+    """All four paper models are served: each smoke config inits and
+    forwards to finite logits (opt's sincos positions, biases and GELU
+    MLP included)."""
+    import torch
+
+    from repro_torch.models import forward, init_params
+    assert tconfigs.PAPER_ARCHS == jconfigs.PAPER_ARCHS
+    for arch in tconfigs.PAPER_ARCHS:
+        cfg = tconfigs.get_smoke_config(arch)
+        params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+        logits = forward(params, cfg, torch.arange(12)[None] % 256)
+        assert logits.shape == (1, 12, cfg.padded_vocab())
+        assert torch.isfinite(logits).all(), arch
 
 
 def test_hardware_and_cluster_specs():
