@@ -5,8 +5,9 @@
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; it exits non-zero without them.  Phases, in order (a failure exits
 non-zero before the result lines; a failed check of phase 5's "migrate",
-"prefix", "evict", "cluster" or "orchestrated" runs is reported, and exits
-non-zero, after phase 6 has run and printed its table):
+"prefix", "evict", "cluster", "orchestrated" or "evaluation" runs is
+reported, and exits non-zero, after phase 6 has run and printed its
+table):
 
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
@@ -61,7 +62,12 @@ non-zero, after phase 6 has run and printed its table):
      switch every span with requests in flight), and again on the
      default model's, opt-30b (one switch, a drained replica), gives the
      same plans, switch and span reports and tokens per rid on the card
-     and the CPU;
+     and the CPU; and the evaluation's ``bench_e2e.real_validation``
+     (opt-30b smoke, 6 chips, 2 spans, telemetry on) gives the same rows
+     on the card and the CPU but for the wall-clock fields (each span's
+     seconds, the latency histograms' millisecond quantiles), completes
+     every request and launches the paged decode and prefill kernels
+     (counted from a reset just before the card's run);
   5. the served models at full width, one after another: yi-9b (48
      layers) three times on the same weights (paged decode, the dense
      decode mode, chunked prefill in 256-token budgets), hymba-1.5b (32)
@@ -137,7 +143,18 @@ non-zero, after phase 6 has run and printed its table):
      plan, switch stall, TTFT, rate, predicted and achieved replica
      shares and the decision audit's error, and the cost model's prefill
      and decode-step times for the 20-layer profile stand beside the
-     card's;
+     card's; last the "evaluation" job, the paper's comparison
+     (``repro_torch.benchmarks``): ``bench_e2e``'s six policies simulated
+     at opt-30b's full profile on 16 virtual H100s over 12 spans of trace
+     2 (the cost model and the discrete-event simulator on the host,
+     printed as such, not a measurement of the card), every request
+     completed or dropped; ``OServePolicy`` with an LSTM in the loop
+     (window 6, hidden 8) on the card and the CPU, each span's prediction
+     within a relative 1e-4 and whether the deployment logs are equal;
+     ``bench_predictor`` at its defaults (300 spans, window 50, hidden 32,
+     250 epochs) on the card and the CPU, each rrmse within 1e-3, with the
+     fit's seconds and the milliseconds a prediction (the ordering row is
+     printed, not checked);
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
@@ -154,9 +171,11 @@ table (one row per kernel and timed run) and ``{"ok": true, "device":
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1648,6 +1667,65 @@ def phase_orchestrated_smoke() -> None:
                              f"({same})")
 
 
+# --------------------------------------------------------------------------
+# The paper's evaluation (``repro_torch.benchmarks``): phase 4's
+# ``bench_e2e.real_validation`` on the card and the CPU, and phase 5's
+# "evaluation" job (the simulator at H100 rates, the LSTM in the loop on
+# the card, ``bench_predictor`` on the card).
+# --------------------------------------------------------------------------
+
+
+def timeless_rows(rows: list[str]) -> list[tuple]:
+    """``real_validation``'s rows without their wall-clock fields: each
+    span's seconds and the latency histograms' millisecond quantiles
+    (their counts stay)."""
+    return [(r.split(",")[0],
+             re.sub(r";p(50|95|99)=[0-9.]+ms", "", r.split(",", 2)[2]))
+            for r in rows]
+
+
+def real_validation_rows(device: str) -> tuple[list[str], list[tuple]]:
+    """``bench_e2e.real_validation(n_spans=2)`` (opt-30b smoke, 6 chips)
+    on ``device``: its rows, and the rows without their wall-clock
+    fields."""
+    from repro_torch.benchmarks.bench_e2e import real_validation
+    rows = real_validation(n_spans=2, device=device)
+    return rows, timeless_rows(rows)
+
+
+def phase_evaluation_smoke(ops) -> None:
+    """Phase 4's evaluation check: ``real_validation``'s rows on the card
+    equal the CPU's but for the wall-clock fields, every request
+    completes, and the card run launches B1 and B2 (counted from a reset
+    just before it)."""
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.monotonic()
+    cpu = real_validation_rows("cpu")[1]
+    ops.reset_launch_counts()
+    rows, card = real_validation_rows("cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    offset = fa.flash_attention.offset_launches
+    for r in rows:
+        log(f"  [evaluation smoke] {r}")
+    done = any(r.startswith("e2e-real/opt-30b/6c/total,0,completed=12/12")
+               for r in rows)
+    ok = (card == cpu and done and counts["paged_decode"] > 0
+          and counts["flash_attention"] > 0)
+    log(f"  bench_e2e.real_validation opt-30b smoke (6 chips, 2 spans): "
+        f"{len(rows)} rows, card == CPU without the wall-clock fields "
+        f"{card == cpu}; 12/12 completed {done}; launches B1 "
+        f"{counts['paged_decode']}, B2 {counts['flash_attention']} "
+        f"({offset} at a query offset), B3 {counts['flash_decode']}, B4 "
+        f"{counts['ssd_chunk']} {'ok' if ok else 'FAIL'} "
+        f"({time.monotonic() - t0:.1f} s)")
+    if not ok:
+        diff = [(c, p) for c, p in zip(card, cpu) if c != p]
+        raise SystemExit(f"real_validation on the card: rows differ from the "
+                         f"CPU's {diff}, or not all completed, or B1/B2 "
+                         f"did not launch ({counts})")
+
+
 # phase 4's MoE capacity check: one olmoe-1b-7b MoE layer at its published
 # widths (d_model 2048, 64 experts of d_ff 1024, top 8) on MOE_TOKENS
 # tokens in one group, fp32, at capacity factor MOE_CF (tokens drop) and
@@ -2051,6 +2129,153 @@ def phase_orchestrated(ops) -> tuple[dict, list[str]]:
     torch.cuda.empty_cache()
     log(f"  [orchestrated] the job took {time.monotonic() - t_start:.1f} s")
     return run, failed
+
+
+# phase 5's "evaluation" job: (a) ``bench_e2e.run``'s comparison of the six
+# policies at opt-30b's full profile on EVAL_BENCH["chips"] virtual H100s
+# over EVAL_BENCH["n_spans"] spans of trace 2 (the cost model and the
+# simulator on the host: not a measurement of the card); (b) OServePolicy
+# on that trace with an LSTM (EVAL_LSTM, fitted on the first spans' counts
+# + 1) on the card and on the CPU, each span's prediction within a
+# relative LSTM_RTOL; (c) ``bench_predictor`` at its defaults (300 spans,
+# window 50, hidden 32, 250 epochs) on the card and on the CPU, each
+# rrmse within RRMSE_ATOL (the ordering row is printed, not gated)
+EVAL_BENCH = dict(model="opt-30b", chips=16, n_spans=12, trace_id=2)
+EVAL_LSTM = dict(window=6, hidden=8, fit_spans=8, epochs=20)
+RRMSE_ATOL = 1e-3
+
+
+@contextlib.contextmanager
+def one_host_thread():
+    """One torch intra-op thread for the CPU references of the LSTM: its
+    products are [64, 32]-sized, so more threads only add overhead, and
+    far more of it on a host busy with other work."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def lstm_in_the_loop(bench, device: str) -> dict:
+    """``OServePolicy`` with an LSTM in the loop on ``bench``: the
+    predictor (EVAL_LSTM, seed 0: the same initial weights on every
+    device) trains and predicts on ``device``.  Returns its predictions
+    (one a span from span ``window`` on, where the history first exceeds
+    the window), the deployment log and the simulator's metrics."""
+    from repro_torch.core.predictor import LSTMWorkloadPredictor
+    from repro_torch.serving.baselines import OServePolicy
+    lstm = LSTMWorkloadPredictor(len(bench.archetypes),
+                                 window=EVAL_LSTM["window"],
+                                 hidden=EVAL_LSTM["hidden"], seed=0,
+                                 device=device)
+    lstm.fit(np.maximum(bench.counts[:EVAL_LSTM["fit_spans"]], 0) + 1.0,
+             epochs=EVAL_LSTM["epochs"])
+    preds, predict = [], lstm.predict
+
+    def recording(history):
+        preds.append(predict(history))
+        return preds[-1]
+
+    lstm.predict = recording
+    res, m = bench.run(OServePolicy(bench.cm, bench.cluster,
+                                    bench.archetypes, predictor=lstm))
+    return {"preds": np.asarray(preds, np.float64),
+            "deployments": res.deployments, "p99": m.get("p99"),
+            "completed": m["completed"], "dropped": m["dropped"]}
+
+
+def phase_evaluation(card: str) -> list[str]:
+    """The "evaluation" job (EVAL_BENCH, EVAL_LSTM): the simulated policy
+    comparison, the LSTM in the loop on the card against the CPU, and the
+    predictor study on both.  Returns the failed checks."""
+    from repro_torch.benchmarks import bench_e2e, bench_predictor
+    from repro_torch.benchmarks.common import Bench
+    failed = []
+    t_start = time.monotonic()
+    bench = Bench(**EVAL_BENCH)
+    t_bench = time.monotonic() - t_start
+    t0 = time.monotonic()
+    rows, results = bench_e2e.compare(
+        bench, EVAL_BENCH["model"], EVAL_BENCH["chips"],
+        EVAL_BENCH["trace_id"])
+    n = len(bench.requests)
+    log(f"  [evaluation] (a) cost model and simulator at H100 rates on the "
+        f"host, not measured on the card: {EVAL_BENCH}, {n} requests; "
+        f"Bench built in {t_bench:.1f} s, six policies simulated in "
+        f"{time.monotonic() - t0:.1f} s")
+    for r in rows:
+        log(f"  [evaluation sim] {r}")
+    unaccounted = {name: (m["completed"], m["dropped"])
+                   for name, (_, m) in results.items()
+                   if m["completed"] + m["dropped"] != n}
+    log(f"  [evaluation] completed + dropped == {n} for every policy "
+        f"{not unaccounted}")
+    if unaccounted:
+        failed.append(f"evaluation: completed + dropped != {n} for "
+                      f"{unaccounted}")
+
+    t0 = time.monotonic()
+    loop = {"cuda": lstm_in_the_loop(bench, "cuda")}
+    with one_host_thread():
+        loop["cpu"] = lstm_in_the_loop(bench, "cpu")
+    got, want = loop["cuda"]["preds"], loop["cpu"]["preds"]
+    w = EVAL_LSTM["window"]
+    rel = [float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-12))
+           for g, c in zip(got, want)]
+    same_log = loop["cuda"]["deployments"] == loop["cpu"]["deployments"]
+    log(f"  [evaluation] (b) OServe with the LSTM in the loop (window {w}, "
+        f"hidden {EVAL_LSTM['hidden']}, {EVAL_LSTM['epochs']} epochs on "
+        f"the first {EVAL_LSTM['fit_spans']} spans' counts + 1), card "
+        f"against CPU: {len(got)} predictions (spans {w}-"
+        f"{w + len(got) - 1}), max relative difference by span "
+        f"{max(rel, default=float('nan')):.3e} (limit {LSTM_RTOL:.0e}); "
+        f"deployment logs equal {same_log}; p99 card "
+        f"{loop['cuda']['p99']:.1f} s CPU {loop['cpu']['p99']:.1f} s; "
+        f"completed {loop['cuda']['completed']} / "
+        f"{loop['cpu']['completed']}, dropped {loop['cuda']['dropped']} / "
+        f"{loop['cpu']['dropped']} ({time.monotonic() - t0:.1f} s)")
+    if not same_log:
+        s = next(i for i, (a, b) in enumerate(zip(
+            loop["cuda"]["deployments"], loop["cpu"]["deployments"]))
+            if a != b)
+        i = s - w
+        log(f"  [evaluation] (b) the logs part at span {s}: card "
+            f"{loop['cuda']['deployments'][s]} CPU "
+            f"{loop['cpu']['deployments'][s]}; predictions there card "
+            f"{got[i].tolist() if 0 <= i < len(got) else 'none'} CPU "
+            f"{want[i].tolist() if 0 <= i < len(want) else 'none'}")
+    if not (len(got) == len(want) > 0 and max(rel) <= LSTM_RTOL):
+        failed.append(f"evaluation: the LSTM's predictions in the loop "
+                      f"differ between card and CPU by {rel}")
+
+    studies = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        with one_host_thread() if dev == "cpu" else contextlib.nullcontext():
+            studies[dev] = bench_predictor.study(device=dev)
+        studies[dev]["wall_s"] = time.monotonic() - t0
+    for r in bench_predictor.rows(studies["cuda"]):
+        log(f"  [evaluation predictor] {r}")
+    diff = {k: abs(studies["cuda"][k] - studies["cpu"][k])
+            for k in ("lstm", "ma", "agg")}
+    log(f"  [evaluation] (c) bench_predictor at its defaults (300 spans, "
+        f"window 50, hidden 32, 250 epochs): per-type fit card "
+        f"{studies['cuda']['fit_s']:.3f} s, {studies['cuda']['pred_ms']:.3f}"
+        f" ms a prediction (paper: < 30 ms); host CPU "
+        f"{studies['cpu']['fit_s']:.3f} s, {studies['cpu']['pred_ms']:.3f} "
+        f"ms (one thread); rrmse card / CPU "
+        + ", ".join(f"{k} {studies['cuda'][k]:.6f} / {studies['cpu'][k]:.6f}"
+                    for k in diff)
+        + f"; max difference {max(diff.values()):.2e} (limit "
+        f"{RRMSE_ATOL:.0e}); study wall card {studies['cuda']['wall_s']:.1f}"
+        f" s, CPU {studies['cpu']['wall_s']:.1f} s; {card}")
+    if not max(diff.values()) <= RRMSE_ATOL:
+        failed.append(f"evaluation: bench_predictor's rrmse differs between "
+                      f"card and CPU by {diff}")
+    log(f"  [evaluation] the job took {time.monotonic() - t_start:.1f} s")
+    return failed
 
 
 def _to(tree, device):
@@ -2877,6 +3102,7 @@ def main() -> int:
     phase_moe_capacity()
     phase_cluster_smoke()
     phase_orchestrated_smoke()
+    phase_evaluation_smoke(ops)
 
     runs, failures = [], []
     for i, (arch, variants) in enumerate(FULL_WIDTH):
@@ -2889,6 +3115,10 @@ def main() -> int:
     run, failed = phase_orchestrated(ops)
     runs.append(run)
     failures += failed
+    log(f"[5.{len(FULL_WIDTH) + 2}] the paper's evaluation: the simulator "
+        f"at H100 rates, the LSTM in the loop and the predictor study "
+        f"(evaluation)")
+    failures += phase_evaluation(card)
 
     log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls, "
         "back to back and replayed from a CUDA graph)")
@@ -2915,8 +3145,9 @@ def main() -> int:
     if failures:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
-        log(f"chip_smoke: {len(failures)} migrate, prefix, evict, cluster "
-            f"or orchestrated check(s) failed: {'; '.join(failures)}")
+        log(f"chip_smoke: {len(failures)} migrate, prefix, evict, cluster, "
+            f"orchestrated or evaluation check(s) failed: "
+            f"{'; '.join(failures)}")
         return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,8 @@ re-run the same loop with the surviving chip count; EWMA health scaling
 (straggler mitigation) shrinks a degraded replica's capacities so the flow
 re-routes around it.
 
-Observation hooks (fed by ``serving.cluster.ClusterRuntime``, not just by
-predictions):
+Observation hooks (fed by ``serving.cluster.ClusterRuntime`` and the
+discrete-event simulator, not just by predictions):
 
   * ``observe_health(achieved_fraction)`` — per-replica achieved/expected
     throughput for the last span; the EWMA scales the current deployment's

@@ -19,7 +19,7 @@ through the serving stack (``engine.py``, ``cluster.py``,
   histograms (TTFT / TPOT / queue delay / switch stall / recovery
   stall) cheap enough to stay on in production.
 * :class:`DecisionAudit` — one record per planner decision (an
-  orchestrator's ``plan_span``, duck-typed: the port has no planner yet):
+  orchestrator's ``plan_span``, duck-typed):
   its inputs (workload mix, health scales, ``cached_frac`` EWMAs,
   hysteresis margin, KV-stall price) and the predicted per-replica token
   share, later joined with the realized ``SpanReport`` into a

@@ -1,6 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/``, nothing in
-``chip_smoke.py`` and nothing the card-only tests import brings in ``jax``
-or the JAX package ``repro``."""
+``chip_smoke.py`` and nothing the card-only tests import brings in ``jax``,
+the JAX package ``repro``, or the top-level ``benchmarks`` and
+``examples`` packages (which import ``repro``; the port's twins live in
+``repro_torch.benchmarks``)."""
 import ast
 import os
 import pathlib
@@ -9,7 +11,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks", "examples")
 
 
 def _port_files():

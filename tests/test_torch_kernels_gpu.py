@@ -791,3 +791,37 @@ def test_moe_capacity_path_on_the_card_equals_the_cpu(cuda):
     assert r["groups"] == 1 and r["dropped"] > 0 and r["same_drops"]
     assert r["max_abs_err"] <= 1e-4 and r["drop_free_err"] <= 1e-4
     assert r["changed_rows_are_dropped_rows"] and r["finite"]
+
+
+# --------------------------------------------------------------------------
+# The paper's evaluation on the card (``repro_torch.benchmarks``; the CPU
+# parity against the JAX package is ``test_torch_evaluation*.py``).
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_lstm_in_the_loop_on_the_card_equals_the_cpu(cuda):
+    """``OServePolicy`` with the LSTM in the loop (window 6, hidden 8) on
+    ``Bench("opt-30b", 8, 10, 2)``: each span's prediction on the card is
+    the CPU's within a relative 1e-4 (fp32, TF32 off)."""
+    from repro_torch.benchmarks.common import Bench
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bench = Bench("opt-30b", 8, n_spans=10, trace_id=2)
+    card = cs.lstm_in_the_loop(bench, cuda.type)
+    cpu = cs.lstm_in_the_loop(bench, "cpu")
+    assert card["preds"].shape == cpu["preds"].shape == (4, 4)
+    for got, want in zip(card["preds"], cpu["preds"]):
+        assert np.abs(got - want).max() <= cs.LSTM_RTOL * np.abs(want).max()
+    assert card["completed"] + card["dropped"] == len(bench.requests)
+
+
+@pytest.mark.gpu
+def test_real_validation_on_the_card_equals_the_cpu(cuda):
+    """``bench_e2e.real_validation(n_spans=2)`` (opt-30b smoke, 6 chips):
+    the card's rows are the CPU's but for the wall-clock fields (fp32)."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, card = cs.real_validation_rows(cuda.type)
+    assert card == cs.real_validation_rows("cpu")[1]
+    assert len(rows) == 7 and "completed=12/12" in rows[2]
