@@ -5,16 +5,18 @@
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; it exits non-zero without them.  Phases, in order (a failure exits
 non-zero before the result lines; a failed check of phase 5's "migrate",
-"prefix", "evict", "cluster", "orchestrated" or "evaluation" runs is
-reported, and exits non-zero, after phase 6 has run and printed its
+"prefix", "evict", "cluster", "orchestrated", "evaluation" or "train" runs
+is reported, and exits non-zero, after phase 6 has run and printed its
 table):
 
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
-     and print registers and spills; count the tensor-core instructions
-     (``HMMA``, from ``cuobjdump -sass``) of each prefill and SSD chunk
-     instantiation and fail if the bf16 prefill ones or the SSD chunk one
-     the served models use (P = 64) have none;
+     and print registers and spills (the prefill backward's instantiations
+     too); count the tensor-core instructions
+     (``HMMA``, from ``cuobjdump -sass``) of each prefill, prefill
+     backward and SSD chunk instantiation and fail if the bf16 prefill
+     ones, the bf16 backward ones at D <= 128 or the SSD chunk one the
+     served models use (P = 64) have none;
   3. hold each kernel against its plain PyTorch version on the card, fp32
      (absolute 1e-4; the SSD chunk kernel 1e-4 of each output row's
      largest value) and bf16 (1e-2 of each output row's largest value), at
@@ -25,7 +27,13 @@ table):
      decode kernels also split over many CTAs and, at fixed split counts,
      against the plain split-and-combine, the SSD chunk kernel also at
      ragged state widths, long chunks and unaligned inputs, and causal to
-     the bit (a row's output is the same whatever rows follow it);
+     the bit (a row's output is the same whatever rows follow it); the
+     prefill kernel's backward (dq, dk, dv from q, k, v, out, lse and dO)
+     against its plain version at every head dim, groups of 1, 3 and 8,
+     ragged S, gemma2-2b's heads past its 4096 window with softcap 50, and
+     the train job's shapes (yi-100m's 12/4 heads of 64 at S = 256, yi-9b's
+     32/4 of 128 at S = 2048), the forward's lse against logsumexp of the
+     plain scores within 1e-4, and each gradient twice, bit-equal;
   4. greedy decoding: the smoke configs (yi-9b, gemma2-2b, mamba2-370m,
      hymba-1.5b, and the families ported since: olmoe-1b-7b and
      granite-moe-3b-a800m (MoE), opt-30b (sinusoidal positions, biases,
@@ -67,7 +75,15 @@ table):
      on the card and the CPU but for the wall-clock fields (each span's
      seconds, the latency histograms' millisecond quantiles), completes
      every request and launches the paged decode and prefill kernels
-     (counted from a reset just before the card's run);
+     (counted from a reset just before the card's run); the train smoke:
+     every smoke config without SSD layers (yi-9b, gemma2-2b, olmoe-1b-7b,
+     granite-moe-3b-a800m, starcoder2-3b, opt-30b, qwen1.5-110b,
+     chameleon-34b, musicgen-medium through ``embeds_batches``) takes 3
+     fp32 ``make_train_step`` steps (remat, 2 microbatches) on the card and
+     on the CPU from one set of weights, losses within 1e-5 relative and
+     parameters within 1e-5, B2's forward launched layers x 2 x 2 and its
+     backward layers x 2 times a step; mamba2-370m and hymba-1.5b raise the
+     SSD chunk kernel's grad guard on the card;
   5. the served models at full width, one after another: yi-9b (48
      layers) three times on the same weights (paged decode, the dense
      decode mode, chunked prefill in 256-token budgets), hymba-1.5b (32)
@@ -154,7 +170,20 @@ table):
      ``bench_predictor`` at its defaults (300 spans, window 50, hidden 32,
      250 epochs) on the card and the CPU, each rrmse within 1e-3, with the
      fit's seconds and the milliseconds a prediction (the ordering row is
-     printed, not checked);
+     printed, not checked); last the "train" job (bf16 compute over fp32
+     master weights): (a) ``train_100m --full-100m``'s yi-100m (12 layers,
+     d_model 768, 12/4 heads of 64, 125 M parameters) at its settings,
+     120 steps with a checkpoint every 60, then a fresh ``Trainer``
+     resumed from step 60: its losses for steps 61-120 and final
+     parameters equal to the uninterrupted run's to the bit, the last 10
+     steps' mean nll below the first 10's less 0.05; (b) yi-9b at its
+     published widths reduced to 8 of 48 layers (1.91 B parameters), seq
+     2048, batch 2, 2 microbatches, remat, 10 steps: finite losses, the
+     last below the first; (c) yi-9b at 2 layers, fp32, one ``loss_fn``
+     gradient on the card and the CPU: loss within 1e-5 relative, every
+     gradient leaf within 1e-3 of its largest value; each run prints its
+     median step time, tokens/s, model-FLOPs share, peak memory and B2's
+     forward and backward launches beside the card's line;
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
@@ -162,7 +191,10 @@ table):
      from a CUDA graph (``device_ms``: no host work between the kernels,
      so a kernel faster than its wrapper's host code shows its own time);
      each timed kernel's output is checked again; the decode rows also
-     give their split counts and CTAs, as the wrappers launched them.
+     give their split counts and CTAs, as the wrappers launched them; B2's
+     backward at the train runs' shapes beside autograd of
+     ``scaled_dot_product_attention`` with K/V expanded, its launches a
+     step.
 
 The last three lines are the card line, one JSON object with the kernel
 table (one row per kernel and timed run) and ``{"ok": true, "device":
@@ -281,6 +313,60 @@ EVICT_BLOCKS = 60
 # the host tier's rates: HOST_ROUNDS rounds of HOST_PAGES evictions, then
 # as many restores, beside a plain pinned copy of the same bytes
 HOST_PAGES, HOST_ROUNDS = 32, 3
+# phase 3's cases for B2's backward: every head dim, groups of 1, 3 and 8,
+# ragged S, gemma2-2b's heads past its window with its softcap, and the
+# train job's shapes (yi-100m's microbatch, yi-9b at 2048 tokens)
+BWD_CASES = [
+    # name, B, S, Hq, Hkv, D, softcap, window
+    ("d32-group1", 2, 77, 4, 4, 32, 0.0, 0),
+    ("d64-group3", 2, 100, 12, 4, 64, 0.0, 0),
+    ("d128-group8-cap", 2, 130, 32, 4, 128, 30.0, 0),
+    ("d256-window", 1, 99, 8, 4, 256, 50.0, 40),
+    ("gemma2-2b", 1, 4160, 8, 4, 256, 50.0, 4096),
+    ("yi-100m", 4, 256, 12, 4, 64, 0.0, 0),
+    ("yi-9b-2048", 1, 2048, 32, 4, 128, 0.0, 0),
+]
+# the forward's log-sum-exp against logsumexp of the plain scores: values
+# of ~5-10 summed in another order in fp32 differ by ~1e-6
+LSE_ATOL = 1e-4
+# B2's backward is held as B2 is (fp32 within ATOL_FP32, bf16 rows within
+# ROW_RTOL_BF16 of their largest |value|), but a bf16 row's largest value
+# is floored at GRAD_ROW_FLOOR of the tensor's: the first query's dq is
+# zero in exact arithmetic (one key, so dP = delta and dS = 0), and both
+# versions return rounding noise there, which no row-relative limit holds
+GRAD_ROW_FLOOR = 1e-3
+# phase 4's train smoke: the smoke configs that run no SSD chunk kernel
+# take TRAIN_SMOKE["steps"] fp32 steps on the card and on the CPU from one
+# set of weights (remat, 2 microbatches, AdamW's defaults); losses within a
+# relative TRAIN_RTOL, parameters within TRAIN_ATOL.  The SSD kernel has
+# no backward yet, so the SSM models must raise its grad guard on the card
+TRAIN_SMOKE_ARCHS = ("yi-9b", "gemma2-2b", "olmoe-1b-7b",
+                     "granite-moe-3b-a800m", "starcoder2-3b", "opt-30b",
+                     "qwen1.5-110b", "chameleon-34b", "musicgen-medium")
+TRAIN_GUARDED_ARCHS = ("mamba2-370m", "hymba-1.5b")
+TRAIN_SMOKE = dict(steps=3, batch=4, seq=96, microbatches=2)
+TRAIN_RTOL = TRAIN_ATOL = 1e-5
+# phase 5's "train" job (bf16 compute over fp32 master weights): (a)
+# ``train_100m --full-100m``'s yi-100m and settings, TRAIN_A["steps"] steps
+# with a checkpoint every TRAIN_A["every"], then a fresh Trainer resumed
+# from that checkpoint to the end; (b) yi-9b at its published widths cut
+# to TRAIN_B["layers"] of 48 layers (fp32 master, two moments and the
+# gradients take 16 bytes a parameter: 141 GB at 48 layers, 31 GB at 8);
+# (c) yi-9b at 2 layers, one fp32 gradient on the card and on the CPU,
+# each leaf within GRAD_LEAF_RTOL of the leaf's largest |value|
+TRAIN_A = dict(steps=120, every=60, batch=8, seq=256)
+# (b)'s learning rate: Adam moves every weight by ~lr a step whatever its
+# gradient, and at d_model 4096 the example's schedule (2e-4 by step 7)
+# threw the loss from 11.9 to 24.2; a constant 3e-5 lowered it at first,
+# then overshot, in fp32 as in bf16 (grad norm 13 -> 79-176, loss 13.1 by
+# step 10); 1e-5 still kicked once (grad norm 66); 3e-6 falls smoothly
+TRAIN_B = dict(layers=8, steps=10, batch=2, seq=2048, microbatches=2,
+               lr=3e-6)
+TRAIN_C = dict(layers=2, batch=1, seq=128)
+GRAD_LEAF_RTOL = 1e-3
+# test_training_reduces_loss's margin: the last 10 steps' mean nll below
+# the first 10's by this much
+LOSS_MARGIN = 0.05
 
 
 def log(*args) -> None:
@@ -317,6 +403,22 @@ def row_rel(got: torch.Tensor, want: torch.Tensor):
     row_max = want.abs().reshape(-1, d).amax(-1).clamp_min(1e-30)
     rel = (diff.reshape(-1, d).amax(-1) / row_max).max().item()
     return diff.max().item(), rel, bool(torch.isfinite(got).all())
+
+
+def grad_agreement(got: torch.Tensor, want: torch.Tensor, dtype):
+    """``agreement`` for a gradient: (max absolute error, max row-relative
+    error with each row's largest |value| floored at GRAD_ROW_FLOOR of the
+    tensor's, within tolerance)."""
+    got, want = got.float(), want.float()
+    d = got.shape[-1]
+    diff = (got - want).abs().reshape(-1, d).amax(-1)
+    floor = GRAD_ROW_FLOOR * want.abs().max().clamp_min(1e-30)
+    row_max = torch.maximum(want.abs().reshape(-1, d).amax(-1), floor)
+    rel = (diff / row_max).max().item()
+    err = diff.max().item()
+    within = (err <= ATOL_FP32 if dtype == torch.float32
+              else rel <= ROW_RTOL_BF16)
+    return err, rel, within and bool(torch.isfinite(got).all())
 
 
 def tol_text(dtype) -> str:
@@ -564,6 +666,46 @@ def check_chunk(gen, fa, ref) -> None:
             if not ok:
                 raise SystemExit(f"flash_attention q_offset {name} {dtype} "
                                  "disagrees")
+
+
+def check_prefill_bwd(gen, fa, fab, ref) -> None:
+    """B2's backward against its plain version on the same inputs (q, k,
+    v, the kernel's out and lse, a random dO); the forward's lse against
+    logsumexp of the plain scores; the backward twice, bit-equal."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, S, Hq, Hkv, D, cap, win in BWD_CASES:
+            q = rand(gen, B, S, Hq, D, dtype=dtype)
+            k = rand(gen, B, S, Hkv, D, dtype=dtype)
+            v = rand(gen, B, S, Hkv, D, dtype=dtype)
+            dout = rand(gen, B, S, Hq, D, dtype=dtype)
+            out, lse = fa.flash_attention(q, k, v, softcap=cap, window=win,
+                                          with_lse=True)
+            got = fab.flash_attention_bwd(q, k, v, out, dout, lse,
+                                          softcap=cap, window=win)
+            again = fab.flash_attention_bwd(q, k, v, out, dout, lse,
+                                            softcap=cap, window=win)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            lse_want = ref.flash_attention_lse_ref(q, k, softcap=cap,
+                                                   window=win)
+            lse_err = (lse - lse_want).abs().max().item()
+            ok = same and bool(torch.isfinite(lse).all()) \
+                and lse_err <= LSE_ATOL
+            want = ref.flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                                 True, cap, win)
+            parts = []
+            for label, g, w in zip(("dq", "dk", "dv"), got, want):
+                err, rel, good = grad_agreement(g, w, dtype)
+                ok = ok and good
+                parts.append(f"{label} {err:.3e}/{rel:.3e}")
+            log(f"  flash_attention_bwd {name:16s} {str(dtype):14s} "
+                f"max_abs/row_rel {', '.join(parts)} {tol_text(dtype)}; lse "
+                f"{lse_err:.3e} (atol {LSE_ATOL:.0e}); twice bit-equal "
+                f"{same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"flash_attention_bwd {name} {dtype} "
+                                 "disagrees")
+            del q, k, v, dout, out, lse, got, again, want
 
 
 def dense_inputs(gen, B, S, Hq, Hkv, D, lens, dtype, *, window=0, rot=1):
@@ -2784,6 +2926,295 @@ def phase_evict(ops, cfg, params) -> list[str]:
 
 
 # --------------------------------------------------------------------------
+# The trainer (``repro_torch.train``): phase 4's train smoke on the card and
+# the CPU, phase 5's "train" job at published widths.
+# --------------------------------------------------------------------------
+
+
+def train_batches(cfg, batch: int, seq: int, n: int) -> list:
+    """``n`` numpy batches of the synthetic pipeline (seed 0): packed token
+    batches, or ``embeds_batches`` for the audio stub."""
+    import itertools
+    from repro_torch.data.pipeline import (DataConfig, embeds_batches,
+                                           packed_batches)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch,
+                    seed=0)
+    it = (embeds_batches(dc, cfg.d_model) if cfg.modality == "audio_stub"
+          else packed_batches(dc))
+    return list(itertools.islice(it, n))
+
+
+def train_steps(cfg, tcfg, state, batches, device) -> tuple[dict, list]:
+    """``make_train_step``'s steps over ``batches`` on ``device``; returns
+    the state and each step's metrics as floats."""
+    from repro_torch.train.trainer import batch_to_device, make_train_step
+    step = make_train_step(cfg, tcfg)
+    metrics = []
+    for b in batches:
+        state, m = step(state, batch_to_device(b, device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def max_leaf_diff(a, b) -> float:
+    from repro_torch.train.optimizer import tree_leaves
+    return max((x.detach().cpu().float() - y.detach().cpu().float())
+               .abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def phase_train_smoke(ops) -> None:
+    """Phase 4's train check: TRAIN_SMOKE["steps"] fp32 steps of every
+    smoke config without SSD layers on the card and on the CPU from one set
+    of weights agree (losses within a relative TRAIN_RTOL, parameters
+    within TRAIN_ATOL), and the card's steps launch B2's forward layers x
+    microbatches x 2 (remat recomputes it) and its backward layers x
+    microbatches times a step; the SSM models raise the SSD kernel's grad
+    guard on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train.trainer import TrainConfig, init_train_state
+    job = TRAIN_SMOKE
+    tcfg = TrainConfig(remat=True, microbatches=job["microbatches"],
+                       compute_dtype=torch.float32)
+    for arch in TRAIN_SMOKE_ARCHS:
+        t0 = time.monotonic()
+        cfg = get_smoke_config(arch)
+        batches = train_batches(cfg, job["batch"], job["seq"], job["steps"])
+        cpu = init_train_state(cfg, 0, tcfg, "cpu")
+        card = _to(cpu, "cuda")
+        cpu, cpu_m = train_steps(cfg, tcfg, cpu, batches, "cpu")
+        ops.reset_launch_counts()
+        card, card_m = train_steps(cfg, tcfg, card, batches, "cuda")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        loss_rel = max(abs(c[k] - p[k]) / max(abs(p[k]), 1e-30)
+                       for c, p in zip(card_m, cpu_m)
+                       for k in ("nll", "aux_loss") if p[k] or c[k])
+        param_err = max_leaf_diff(card["params"], cpu["params"])
+        per_step = cfg.n_layers * job["microbatches"]
+        fwd, bwd = counts["flash_attention"], counts["flash_attention_bwd"]
+        launched = (fwd == 2 * per_step * job["steps"]
+                    and bwd == per_step * job["steps"]
+                    and counts["ssd_chunk"] == 0)
+        ok = loss_rel <= TRAIN_RTOL and param_err <= TRAIN_ATOL and launched
+        log(f"  [train smoke] {arch:22s} {job['steps']} steps fp32 (B "
+            f"{job['batch']}, S {job['seq']}, {job['microbatches']} "
+            f"microbatches, remat): nll {[round(m['nll'], 5) for m in card_m]}"
+            f" card vs CPU loss rel {loss_rel:.3e} (rtol {TRAIN_RTOL:.0e}), "
+            f"params max abs {param_err:.3e} (atol {TRAIN_ATOL:.0e}); B2 "
+            f"forward {fwd} (want {2 * per_step * job['steps']}), backward "
+            f"{bwd} (want {per_step * job['steps']}) "
+            f"{'ok' if ok else 'FAIL'} ({time.monotonic() - t0:.1f} s)")
+        if not ok:
+            raise SystemExit(f"train smoke {arch}: the card's steps disagree "
+                             f"with the CPU's or launched {counts}")
+    for arch in TRAIN_GUARDED_ARCHS:
+        cfg = get_smoke_config(arch)
+        batches = train_batches(cfg, job["batch"], job["seq"], 1)
+        state = init_train_state(cfg, 0, tcfg, "cuda")
+        try:
+            train_steps(cfg, tcfg, state, batches, "cuda")
+            err = ""
+        except RuntimeError as e:
+            err = str(e)
+        ok = err.startswith("ssd_chunk: the CUDA kernel has no backward")
+        log(f"  [train smoke] {arch:22s} on the card raises the SSD chunk "
+            f"kernel's grad guard: {ok} ({err[:60]}...)")
+        if not ok:
+            raise SystemExit(f"train smoke {arch}: a train step through the "
+                             f"SSD chunk kernel did not raise its grad guard")
+
+
+def train_numbers(cfg, hist: list, tokens_per_step: int) -> dict:
+    """Median step time, tokens/s and the model-FLOPs share of a run whose
+    history has every step (the first step, which builds the cuBLAS and
+    allocator state, left out)."""
+    from repro_torch.models.config import flops_per_token_train
+    walls = [h["wall"] for h in hist]
+    dt = float(np.median(np.diff(walls))) if len(walls) > 2 else walls[-1]
+    tps = tokens_per_step / dt
+    return {"step_ms": dt * 1e3, "tokens_per_s": tps,
+            "mfu": flops_per_token_train(cfg) * tps / BF16_FLOPS_PER_S}
+
+
+def train_line(tag, cfg, nums, counts, card: str) -> str:
+    return (f"  [train {tag}] step {nums['step_ms']:.1f} ms (median), "
+            f"{nums['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
+            f"{nums['mfu']:.4f} of 989 TFLOP/s bf16 "
+            f"({cfg.profile().active_param_count:,} active params x 6); "
+            f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; B2 "
+            f"forward {counts['flash_attention']}, backward "
+            f"{counts['flash_attention_bwd']}; {card}")
+
+
+def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
+    """Phase 5's "train" job: (a) yi-100m as ``train_100m --full-100m``
+    with its resume, (b) yi-9b at 8 layers, (c) a full-width gradient on
+    the card against the CPU.  Returns the runs (phase 6 times B2's
+    backward at their shapes) and the failed checks."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+    from repro_torch.train.checkpoint import flatten_with_paths
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                           batch_to_device, value_and_grad)
+    from repro_torch.train_100m import build_config, train_config
+    failures, runs = [], []
+    timed = Variant("train", {}, ("flash_attention", "flash_attention_bwd"),
+                    ("ssd_chunk",), ("flash_attention_bwd",))
+
+    # (a) yi-100m, resumed half-way
+    job = TRAIN_A
+    cfg = build_config(True)
+    tcfg = train_config(job["steps"])
+    batches = train_batches(cfg, job["batch"], job["seq"], job["steps"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        tr = Trainer(cfg, tcfg, iter(batches),
+                     checkpoint_dir=os.path.join(root, "run"),
+                     checkpoint_every=job["every"], device="cuda")
+        hist = tr.run(job["steps"], log_every=1)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        wall = time.monotonic() - t0
+        nums = train_numbers(cfg, hist, job["batch"] * job["seq"])
+        # a fresh trainer from the checkpoint at job["every"]
+        name = f"step_{job['every']:09d}"
+        shutil.copytree(os.path.join(root, "run", name),
+                        os.path.join(root, "resume", name))
+        tr2 = Trainer(cfg, tcfg, iter(batches[job["every"]:]),
+                      checkpoint_dir=os.path.join(root, "resume"),
+                      device="cuda")
+        resumed_at = tr2.step
+        hist2 = tr2.run(job["steps"] - tr2.step, log_every=1)
+        loss_diff = max(abs(a["nll"] - b["nll"])
+                        for a, b in zip(hist[job["every"]:], hist2))
+        param_diff = max_leaf_diff(tr.state["params"], tr2.state["params"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    nll = [h["nll"] for h in hist]
+    first, last = float(np.mean(nll[:10])), float(np.mean(nll[-10:]))
+    per_step = cfg.n_layers * tcfg.microbatches
+    launched = (counts["flash_attention"] == 2 * per_step * job["steps"]
+                and counts["flash_attention_bwd"] == per_step * job["steps"])
+    ok_a = (resumed_at == job["every"] and len(hist2) == len(hist)
+            - job["every"] and loss_diff == 0.0 and param_diff == 0.0
+            and last < first - LOSS_MARGIN and launched
+            and all(np.isfinite(nll)))
+    log(f"  [train a] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{cfg.param_count():,} params; batch {job['batch']} x seq "
+        f"{job['seq']}, {tcfg.microbatches} microbatches, remat, lr "
+        f"{tcfg.opt.lr}, warmup {tcfg.opt.warmup_steps}, bf16 compute; "
+        f"{job['steps']} steps in {wall:.1f} s")
+    log(f"  [train a] nll steps 1-10 mean {first:.4f}, steps "
+        f"{job['steps'] - 9}-{job['steps']} mean {last:.4f} (must fall by "
+        f"{LOSS_MARGIN}); every 10th: "
+        f"{[round(x, 3) for x in nll[::10]]}")
+    log(f"  [train a] resumed from step {resumed_at}: steps "
+        f"{job['every'] + 1}-{job['steps']} nll max |diff| {loss_diff:.3e}, "
+        f"final params max |diff| {param_diff:.3e} (bit-equal expected)")
+    log(train_line("a", cfg, nums, counts, card)
+        + f" {'ok' if ok_a else 'FAIL'}")
+    if not ok_a:
+        failures.append(f"train a: resume equal {loss_diff} / {param_diff}, "
+                        f"nll {first:.4f} -> {last:.4f}, launches {counts}")
+    runs.append({"arch": cfg.name, "variant": timed, "cfg": cfg,
+                 "counts": counts, "n_req": job["steps"],
+                 "shape": (job["batch"] // tcfg.microbatches, job["seq"])})
+    del tr, tr2
+    torch.cuda.empty_cache()
+
+    # (b) yi-9b at its published widths, TRAIN_B["layers"] layers
+    job = TRAIN_B
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=job["layers"])
+    tcfg = TrainConfig(opt=AdamWConfig(lr=job["lr"], warmup_steps=1,
+                                       total_steps=1000),
+                       remat=True, microbatches=job["microbatches"])
+    batches = train_batches(cfg, job["batch"], job["seq"], job["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    tr = Trainer(cfg, tcfg, iter(batches), device="cuda")
+    hist = tr.run(job["steps"], log_every=1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wall = time.monotonic() - t0
+    nums = train_numbers(cfg, hist, job["batch"] * job["seq"])
+    nll = [h["nll"] for h in hist]
+    per_step = cfg.n_layers * tcfg.microbatches
+    ok_b = (all(np.isfinite(nll)) and nll[-1] < nll[0]
+            and counts["flash_attention"] == 2 * per_step * job["steps"]
+            and counts["flash_attention_bwd"] == per_step * job["steps"])
+    log(f"  [train b] yi-9b at published widths (d_model {cfg.d_model}, "
+        f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}), reduced to {cfg.n_layers} of "
+        f"48 layers: {param_count(tr.state['params']):,} params; batch "
+        f"{job['batch']} x seq {job['seq']}, {tcfg.microbatches} "
+        f"microbatches, remat, lr {tcfg.opt.lr}, bf16 compute; "
+        f"{job['steps']} steps in {wall:.1f} s; nll "
+        f"{[round(x, 4) for x in nll]}; grad norm "
+        f"{[round(h['grad_norm'], 3) for h in hist]}")
+    log(train_line("b", cfg, nums, counts, card)
+        + f" {'ok' if ok_b else 'FAIL'}")
+    if not ok_b:
+        failures.append(f"train b: nll {nll}, launches {counts}")
+    runs.append({"arch": "yi-9b-8l", "variant": timed, "cfg": cfg,
+                 "counts": counts, "n_req": job["steps"],
+                 "shape": (job["batch"] // tcfg.microbatches, job["seq"])})
+    del tr
+    torch.cuda.empty_cache()
+
+    # (c) one fp32 gradient at full width, card against CPU
+    job = TRAIN_C
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=job["layers"])
+    tcfg = TrainConfig(remat=False, compute_dtype=torch.float32)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    batch = train_batches(cfg, job["batch"], job["seq"], 1)[0]
+    ops.reset_launch_counts()
+    loss, _, grads = value_and_grad(params, cfg, batch_to_device(batch,
+                                                                  "cuda"),
+                                    tcfg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    loss, grads = float(loss), _to(grads, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    params = _to(init_params(cfg, seed=0, dtype=torch.float32,
+                             device="cuda"), "cpu")
+    loss_cpu, _, grads_cpu = value_and_grad(
+        params, cfg, batch_to_device(batch, "cpu"), tcfg)
+    loss_rel = abs(loss - float(loss_cpu)) / abs(float(loss_cpu))
+    worst, worst_at = 0.0, ""
+    for (path, g), gc in zip(flatten_with_paths(grads),
+                             tree_leaves(grads_cpu)):
+        rel = ((g - gc).abs().max() / gc.abs().max().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, worst_at = rel, path
+    ok_c = (loss_rel <= TRAIN_RTOL and worst <= GRAD_LEAF_RTOL
+            and counts["flash_attention_bwd"] == cfg.n_layers)
+    log(f"  [train c] yi-9b at published widths, {cfg.n_layers} layers, "
+        f"fp32, batch {job['batch']} x seq {job['seq']}: one loss_fn "
+        f"gradient, card {loss:.6f} vs CPU {float(loss_cpu):.6f} (rel "
+        f"{loss_rel:.3e}, rtol {TRAIN_RTOL:.0e}); worst gradient leaf "
+        f"{worst_at} max |diff| / max |leaf| {worst:.3e} (limit "
+        f"{GRAD_LEAF_RTOL:.0e}); B2 backward {counts['flash_attention_bwd']}"
+        f" {'ok' if ok_c else 'FAIL'} ({time.monotonic() - t0:.1f} s)")
+    if not ok_c:
+        failures.append(f"train c: loss rel {loss_rel}, worst leaf {worst_at}"
+                        f" {worst}")
+    del params, grads, grads_cpu
+    return runs, failures
+
+
+# --------------------------------------------------------------------------
 # Phase 6: timing.
 # --------------------------------------------------------------------------
 
@@ -2797,6 +3228,11 @@ KERNEL_FILES = {
                         "src/repro/kernels/flash_attention.py:24"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_scan.py:19"),
+    # no TPU kernel: the JAX package differentiates its plain attention
+    # with XLA's autodiff
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "none: XLA autodiff of src/repro/models/attention.py:104"),
 }
 
 
@@ -3031,6 +3467,62 @@ def time_ssd(gen, ssd, ref, run):
                     t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3))
 
 
+def time_prefill_bwd(gen, fa, fab, ref, run):
+    """B2's backward at a train run's shape (B = its microbatch, S = its
+    sequence, the model's heads), bf16, on the forward kernel's out and lse
+    and a random dO.  Library: autograd of ``scaled_dot_product_attention``
+    (is_causal) with K/V expanded to the query heads, the backward timed
+    (``torch.autograd.grad`` through the kept graph).  Bound: five products
+    of 2 D FLOPs per unmasked (q, k) pair and head at the bf16 rate, or q,
+    k, v, out, dO and lse read and dq, dk, dv written once."""
+    cfg = run["cfg"]
+    B, S = run["shape"]
+    Hq, Hkv, D = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    q = rand(gen, B, S, Hq, D, dtype=torch.bfloat16)
+    k = rand(gen, B, S, Hkv, D, dtype=torch.bfloat16)
+    v = rand(gen, B, S, Hkv, D, dtype=torch.bfloat16)
+    dout = rand(gen, B, S, Hq, D, dtype=torch.bfloat16)
+    out, lse = fa.flash_attention(q, k, v, with_lse=True)
+    got = fab.flash_attention_bwd(q, k, v, out, dout, lse)
+    want = ref.flash_attention_bwd_plain(q, k, v, out, dout, lse)
+    err = rel = 0.0
+    for g, w in zip(got, want):
+        e, r, ok = grad_agreement(g, w, torch.bfloat16)
+        err, rel = max(err, e), max(rel, r)
+        if not ok:
+            raise SystemExit(f"flash_attention_bwd disagrees at the timing "
+                             f"shape: max_row_rel_err {r:.3e}")
+    # 10 groups of 5: the call takes up to ~16 ms at yi-9b's shape
+    ms = time_ms(lambda i: fab.flash_attention_bwd(q, k, v, out, dout, lse),
+                 reps=10, inner=5)
+    device = graph_ms(lambda i: fab.flash_attention_bwd(q, k, v, out, dout,
+                                                        lse), reps=10,
+                      inner=5)
+    plain = time_ms(lambda i: ref.flash_attention_bwd_plain(
+        q, k, v, out, dout, lse), reps=5, inner=2)
+    rep = Hq // Hkv
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1),
+        is_causal=True)
+    dot = dout.transpose(1, 2)
+    lib = time_ms(lambda i: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                retain_graph=True))
+    pairs = B * S * (S + 1) // 2                 # unmasked (q, k) pairs
+    flops = 5 * 2 * pairs * D * Hq
+    nbytes = (2 * (3 * B * S * Hq * D + 2 * B * S * Hkv * D)   # q out dO k v
+              + 4 * B * Hq * S                                  # lse
+              + 2 * (B * S * Hq * D + 2 * B * S * Hkv * D))     # dq dk dv
+    row = _row("flash_attention_bwd", run, err, rel, ms, plain,
+               nbytes / HBM_BYTES_PER_S * 1e3,
+               flops / BF16_FLOPS_PER_S * 1e3, lib,
+               f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16",
+               device_ms=device)
+    row["launches_per_step"] = row.pop("launches_per_request")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3044,6 +3536,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -3075,6 +3568,14 @@ def main() -> int:
     if len(bf16) != len(build.HEAD_DIMS) or not all(bf16.values()):
         raise SystemExit(f"the bf16 prefill kernels do not all run on the "
                          f"tensor cores: HMMA counts {bf16}")
+    hmma = hmma_counts(build, "flash_attention_bwd")
+    for fn, n in sorted(hmma.items()):
+        log(f"    flash_attention_bwd SASS: {n:5d} HMMA in {fn}")
+    # the bf16 backward at D <= 128 (the train path) is the tensor-core one
+    tc = {fn: n for fn, n in hmma.items() if "_tc" in fn}
+    if len(tc) != 2 * 3 or not all(tc.values()):
+        raise SystemExit(f"the bf16 backward kernels at D <= 128 do not all "
+                         f"run on the tensor cores: HMMA counts {tc}")
     hmma = hmma_counts(build, "ssd_chunk")
     for fn, n in sorted(hmma.items()):
         log(f"    ssd_chunk SASS: {n:5d} HMMA in {fn}")
@@ -3095,6 +3596,7 @@ def main() -> int:
     check_split(gen, fd, ref)
     check_prefill(gen, fa, ref)
     check_chunk(gen, fa, ref)
+    check_prefill_bwd(gen, fa, fab, ref)
     check_ssd(gen, ssd, ref)
 
     log("[4] greedy decoding")
@@ -3103,6 +3605,7 @@ def main() -> int:
     phase_cluster_smoke()
     phase_orchestrated_smoke()
     phase_evaluation_smoke(ops)
+    phase_train_smoke(ops)
 
     runs, failures = [], []
     for i, (arch, variants) in enumerate(FULL_WIDTH):
@@ -3119,6 +3622,12 @@ def main() -> int:
         f"at H100 rates, the LSTM in the loop and the predictor study "
         f"(evaluation)")
     failures += phase_evaluation(card)
+    log(f"[5.{len(FULL_WIDTH) + 3}] the trainer: yi-100m with a resume, "
+        f"yi-9b at {TRAIN_B['layers']} layers, a full-width gradient "
+        f"against the CPU (train)")
+    train_runs, failed = phase_train(ops, card)
+    runs += train_runs
+    failures += failed
 
     log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls, "
         "back to back and replayed from a CUDA graph)")
@@ -3127,7 +3636,9 @@ def main() -> int:
               "flash_attention": lambda run: time_prefill(gen, fa, ref, run),
               "flash_attention_chunk": lambda run: time_chunk(gen, fa, ref,
                                                               run),
-              "ssd_chunk": lambda run: time_ssd(gen, ssd, ref, run)}
+              "ssd_chunk": lambda run: time_ssd(gen, ssd, ref, run),
+              "flash_attention_bwd": lambda run: time_prefill_bwd(
+                  gen, fa, fab, ref, run)}
     rows = [timers[name](run) for run in runs
             for name in run["variant"].timed]
     for r in rows:
@@ -3136,7 +3647,10 @@ def main() -> int:
             f"{r['ms']:.4f} (graph replay {r['device_ms']:.4f})  bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']})"
             f"  plain_ms {r['plain_ms']:.4f}  library_ms {lib}  launches "
-            f"{r['launches']} ({r['launches_per_request']:.1f}/request)"
+            f"{r['launches']} ("
+            + (f"{r['launches_per_step']:.1f}/step)"
+               if "launches_per_step" in r
+               else f"{r['launches_per_request']:.1f}/request)")
             + (f"  splits {r['splits']} ({r['ctas']} CTAs)"
                if "splits" in r else "") + f"  [{r['shape']}]")
     log(f"total {time.monotonic() - t_start:.1f} s")
@@ -3146,7 +3660,7 @@ def main() -> int:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
         log(f"chip_smoke: {len(failures)} migrate, prefix, evict, cluster, "
-            f"orchestrated or evaluation check(s) failed: "
+            f"orchestrated, evaluation or train check(s) failed: "
             f"{'; '.join(failures)}")
         return 1
     log(json.dumps({"ok": True, "device": {

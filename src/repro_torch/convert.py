@@ -9,6 +9,8 @@ both packages.  The leaves the JAX package keeps in fp32 (the SSM's
 fp32 whatever ``dtype`` is asked for.  ``lstm_params_from_jax`` does the
 same for the workload predictor's LSTM (``core.predictor``), whose JAX
 parameters have the port's keys, shapes and orientation too.
+``train_state_from_jax`` converts a whole JAX train state (params, AdamW
+moments and step), so that both trainers can start from one state.
 """
 from __future__ import annotations
 
@@ -95,3 +97,20 @@ def lstm_params_from_jax(np_params: dict, device="cuda") -> dict:
                              f"not {shape}")
     return {k: torch.from_numpy(np.array(np_params[k], dtype=np.float32))
             .to(device) for k in LSTM_KEYS}
+
+
+def train_state_from_jax(np_state: dict, cfg: ModelConfig, device="cuda"
+                         ) -> dict:
+    """A JAX train state (``{"params", "opt": {"m", "v", "step"}}``, as
+    numpy arrays) -> the port's train state on ``device``: fp32 params and
+    moments, checked as ``from_jax_params`` checks them, and the int32
+    step."""
+    opt = np_state["opt"]
+    return {"params": from_jax_params(np_state["params"], cfg, device,
+                                      torch.float32),
+            "opt": {"m": from_jax_params(opt["m"], cfg, device,
+                                         torch.float32),
+                    "v": from_jax_params(opt["v"], cfg, device,
+                                         torch.float32),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=device)}}

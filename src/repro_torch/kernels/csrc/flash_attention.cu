@@ -39,8 +39,12 @@
 // D = 256, which keeps registers from spilling. Shared memory: 26 KB at
 // D = 32 to 101 KB at D = 256.
 //
-// fp32 (used only by the card's fp32 parity checks, never on the bf16
-// serving path) keeps the first, CUDA-core version: one CTA of 256 threads
+// Both versions can also write each row's log-sum-exp (fp32 [B, Hq, Sq],
+// natural units) where they store the row, for the backward kernels of
+// flash_attention_bwd.cu; the serving path passes no buffer for it.
+//
+// fp32 (used by the card's fp32 parity checks and fp32 training, never on
+// the bf16 serving path) keeps the first, CUDA-core version: one CTA of 256 threads
 // per (batch, query head, 64-query tile) stages Q and 32-key K/V tiles as
 // fp32 with rows of D + 1 floats, each thread owns 8 scores and D / 4
 // output columns of one query row, and the products are scalar FMAs.
@@ -67,8 +71,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads32)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
-                    int Sq, int Sk, int Hq, int Hkv, int q_offset, int causal,
-                    int window, float softcap, float scale) {
+                    float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                    int q_offset, int causal, int window, float softcap,
+                    float scale) {
   constexpr int LD = D + 1;
   constexpr int NJ = kBK32 / 4;  // scores per thread
   constexpr int NC = D / 4;      // output columns per thread
@@ -184,6 +189,9 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l_i, 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) ob[4 * c] = o[c] * inv;
+    if (lse != nullptr && c0 == 0)
+      lse[(static_cast<int64_t>(b) * Hq + hq) * Sq + q0 + r] =
+          l_i > 0.f ? m_i + logf(l_i) : kNegInf;
   }
 }
 
@@ -193,6 +201,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kThreads = 128;  // four warps, 16 query rows each
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Keys per tile: 32 at D = 256, where registers are scarcest.
 template <int D>
@@ -212,44 +221,6 @@ constexpr size_t smem_bytes_bf16() {
          sizeof(__nv_bfloat16);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // Accumulator fragment layout of m16n8 (lane = 4 * g + t4): c[0], c[1] are
 // row g, columns 2 t4 and 2 t4 + 1; c[2], c[3] the same columns of row
 // g + 8.  An A fragment of m16n8k16 holds rows g and g + 8 at columns
@@ -260,9 +231,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq,
-                     int Hkv, int q_offset, int causal, int window,
-                     float softcap, float scale) {
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                     int q_offset, int causal, int window, float softcap,
+                     float scale) {
   constexpr int BK = key_tile<D>();
   constexpr int LD = smem_ld<D>();
   constexpr int KSTEPS = D / 16;  // k-steps of Q K^T
@@ -465,6 +437,10 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
     const int r = q0 + warp * 16 + g + i * 8;
     if (r >= Sq) continue;
     const float inv = l > 0.f ? 1.f / l : 0.f;
+    // the row's log-sum-exp in natural units (m is in log2 units)
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<int64_t>(b) * Hq + hq) * Sq + r] =
+          l > 0.f ? (m_r[i] + log2f(l)) * kLn2 : kNegInf;
     __nv_bfloat16* orow = out + (static_cast<int64_t>(b) * Sq + r) * q_row +
                           static_cast<int64_t>(hq) * D + 2 * t4;
 #pragma unroll
@@ -483,6 +459,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;
   int B, Sq, Sk, Hq, Hkv, q_offset, causal, window;
   float softcap, scale;
 };
@@ -495,8 +472,8 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B);
   flash_attention_f32<D><<<grid, kThreads32, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Sq, a.Sk,
-      a.Hq, a.Hkv, a.q_offset, a.causal, a.window, a.softcap, a.scale);
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.Sq,
+      a.Sk, a.Hq, a.Hkv, a.q_offset, a.causal, a.window, a.softcap, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -510,7 +487,7 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.out), a.Sq, a.Sk, a.Hq, a.Hkv,
+      static_cast<__nv_bfloat16*>(a.out), a.lse, a.Sq, a.Sk, a.Hq, a.Hkv,
       a.q_offset, a.causal, a.window, a.softcap, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -525,19 +502,22 @@ int launch(int dtype, const Args& a, cudaStream_t s) {
 }  // namespace
 }  // namespace repro_torch
 
-// q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; out [B, Sq, Hq, D].  Contiguous,
-// one device, 16-byte aligned, D in {32, 64, 128, 256}; query row i at
-// position q_offset + i.  Returns cudaGetLastError() after the launch (0
-// on success).
+// q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; out [B, Sq, Hq, D]; lse, when not
+// null, fp32 [B, Hq, Sq]: each row's log-sum-exp of its scaled (softcapped)
+// scores over the unmasked keys, which the backward kernels recompute P
+// from (null on the serving path).  Contiguous, one device, 16-byte
+// aligned, D in {32, 64, 128, 256}; query row i at position q_offset + i.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
-                               const void* v, void* out, int B, int Sq,
-                               int Sk, int Hq, int Hkv, int D, int q_offset,
-                               int causal, int window, float softcap,
-                               float scale, void* stream) {
+                               const void* v, void* out, void* lse, int B,
+                               int Sq, int Sk, int Hq, int Hkv, int D,
+                               int q_offset, int causal, int window,
+                               float softcap, float scale, void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{q,   k,   v,        out,    B,      Sq,      Sk,   Hq,
-               Hkv, q_offset, causal, window, softcap, scale};
+  const Args a{q,      k,      v,     out,      static_cast<float*>(lse),
+               B,      Sq,     Sk,    Hq,       Hkv,
+               q_offset, causal, window, softcap, scale};
   switch (D) {
     case 32:
       return launch<32>(dtype, a, s);

@@ -4,15 +4,66 @@ CPU tensors go to the plain PyTorch version (``ref``); CUDA tensors go to
 the hand-written kernel, which launches or raises — there is no fallback.
 There is no head-dim padding here: pools and activations keep
 ``D = head_dim`` (the 128-lane pad of the JAX package is a TPU matter).
+
+Gradients: on the CPU autograd differentiates the plain versions.  On the
+card the prefill kernel runs inside an ``autograd.Function`` whose backward
+is the hand-written ``flash_attention_bwd`` kernel.  The decode kernels and
+the SSD chunk kernel have no backward yet (ROADMAP Queue A), so their CUDA
+branches raise when autograd would need a gradient through them
+(``grad_guard``) instead of silently dropping it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def grad_guard(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through ``kernel``, a CUDA
+    kernel with no backward: grad mode is on and an input requires grad."""
+    if _needs_grad(*tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward yet (ROADMAP Queue "
+            f"A), so it cannot run where a gradient is needed; call it "
+            f"under torch.no_grad() or on tensors that do not require grad")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The prefill kernel with the hand-written backward kernel: the
+    forward also writes each row's log-sum-exp and saves q, k, v, out and
+    lse for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap, window, q_offset):
+        ctx.params = (causal, softcap, window, q_offset)
+        out, lse = _fa.flash_attention(q, k, v, causal=causal,
+                                       softcap=softcap, window=window,
+                                       q_offset=q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, softcap, window, q_offset = ctx.params
+        # the kernel takes raw, 16-byte aligned pointers: a strided view of
+        # dO would be read as if it were contiguous
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:
+            dout = dout.clone()
+        dq, dk, dv = _fab.flash_attention_bwd(
+            q, k, v, out, dout, lse, causal=causal, softcap=softcap,
+            window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -20,8 +71,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]; query row
     i at position ``q_offset + i`` (a prefill chunk after ``q_offset``
-    resident tokens)."""
+    resident tokens).  Differentiable on both devices (on the card through
+    the backward kernel, which takes no query offset); where no gradient
+    is needed (serving) the card launches the forward kernel alone."""
     if q.is_cuda:
+        if _needs_grad(q, k, v):
+            return _FlashAttention.apply(q, k, v, causal, float(softcap),
+                                         int(window), int(q_offset))
         return _fa.flash_attention(q, k, v, causal=causal, softcap=softcap,
                                    window=window, q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
@@ -37,6 +93,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     scaled by 1/sqrt(D)."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
+        grad_guard("paged_decode", q, k_pages, v_pages)
         return _fd.paged_decode(q, k_pages, v_pages, block_table, lens, start,
                                 softcap, scale)
     return ref.paged_decode_plain(q, k_pages, v_pages, block_table, lens,
@@ -50,6 +107,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Hq, D] over positions [start, len), scores scaled by 1/sqrt(D)."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
+        grad_guard("flash_decode", q, k, v)
         return _fd.flash_decode(q, k, v, lens, start, softcap, scale)
     return ref.flash_decode_plain(q, k, v, lens, start, softcap, scale)
 
@@ -61,6 +119,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B_/C_ [B, Nc, Q, G, N] per group -> (y [B, Nc, Q, H, P],
     S [B, Nc, H, P, N])."""
     if x.is_cuda:
+        grad_guard("ssd_chunk", x, dt, A, B_, C_)
         return _ssd.ssd_chunk(x, dt, A, B_, C_)
     return ref.ssd_chunk_plain(x, dt, A, B_, C_)
 
@@ -70,6 +129,7 @@ def launch_counts() -> dict[str, int]:
     return {"paged_decode": _fd.paged_decode.launches,
             "flash_decode": _fd.flash_decode.launches,
             "flash_attention": _fa.flash_attention.launches,
+            "flash_attention_bwd": _fab.flash_attention_bwd.launches,
             "ssd_chunk": _ssd.ssd_chunk.launches}
 
 
@@ -78,4 +138,5 @@ def reset_launch_counts() -> None:
     _fd.flash_decode.launches = 0
     _fa.flash_attention.launches = 0
     _fa.flash_attention.offset_launches = 0
+    _fab.flash_attention_bwd.launches = 0
     _ssd.ssd_chunk.launches = 0

@@ -16,6 +16,10 @@ positions (``split_ranges``) and its combine step (the same function as
 ``flash_decode_plain``, summed in the kernel's order of splits);
 ``paged_decode_split_plain`` does the same for the paged kernel, whose
 tile is a page.
+``flash_attention_bwd_plain`` is the plain version of the prefill
+attention's backward kernel (the formulas written out, not autograd), and
+``flash_attention_lse_ref`` the log-sum-exp the forward kernel writes for
+it.
 ``ssd_chunk_plain`` is the plain version of the SSD chunk kernel: it takes
 B/C per group, as the kernel does, where ``ssd_chunk_ref`` takes them
 already broadcast to heads.
@@ -39,13 +43,24 @@ def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
     """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D]; query
     row i sits at position ``q_offset + i`` for the causal and window
     masks."""
-    B, Sq, Hq, D = q.shape
+    s, _, _ = _scores(q, k, causal, softcap, window, q_offset)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p,
+                        _expand(v, q.shape[2]).float()).to(q.dtype)
+
+
+def _scores(q, k, causal, softcap, window, q_offset):
+    """(scaled, softcapped scores [B, Hq, Sq, Sk] fp32 with NEG_INF where
+    masked, tanh(z / softcap) or None, the mask [Sq, Sk]) of the prefill
+    attention, K expanded to the query heads."""
+    Sq, Hq, D = q.shape[1], q.shape[2], q.shape[3]
     Sk = k.shape[1]
-    k = _expand(k, Hq)
-    v = _expand(v, Hq)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (D ** 0.5)
+    z = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     _expand(k, Hq).float()) / (D ** 0.5)
+    t = None
     if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
+        t = torch.tanh(z / softcap)
+        z = softcap * t
     qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Sk, device=q.device)[None, :]
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -53,9 +68,53 @@ def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
         ok = ok & (kp <= qp)
     if window > 0:
         ok = ok & (kp > qp - window)
-    s = torch.where(ok[None, None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return torch.where(ok[None, None], z, torch.full_like(z, NEG_INF)), t, ok
+
+
+def flash_attention_lse_ref(q, k, *, causal=True, softcap=0.0, window=0,
+                            q_offset=0):
+    """Each query row's log-sum-exp over its unmasked scaled (softcapped)
+    scores: lse [B, Hq, Sq] fp32, what the prefill kernel writes with
+    ``with_lse``."""
+    s, _, _ = _scores(q, k, causal, softcap, window, q_offset)
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=True,
+                              softcap=0.0, window=0):
+    """Plain version of the prefill attention's backward kernel: the same
+    formulas written out in torch (not autograd), queries at positions 0..
+
+    q, out, dout [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; lse [B, Hq, Sq] fp32.
+    P = exp(s - lse) in fp32, delta = rowsum(dO * O), dS = P (dP - delta)
+    (times 1 - tanh^2(z / softcap) under a softcap); dV = P^T dO,
+    dK = scale dS^T Q, dQ = scale dS K, dK and dV summed over each KV
+    head's group.  In bf16, P and dS are rounded to bf16 as the operands of
+    their products, as the kernel rounds them.  Returns (dq, dk, dv) in the
+    inputs' dtype.
+    """
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / (D ** 0.5)
+    s, t, ok = _scores(q, k, causal, softcap, window, 0)
+    p = torch.where(ok[None, None], torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))                     # [B, Hq, Sq, Sk]
+    do = dout.float()
+    delta = (do * out.float()).sum(-1).transpose(1, 2)      # [B, Hq, Sq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, _expand(v, Hq).float())
+    ds = p * (dp - delta[..., None])
+    if t is not None:
+        ds = ds * (1 - t * t)
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+        ds = ds.to(torch.bfloat16).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand(k, Hq).float()) * scale
+    rep = Hq // Hkv
+    dk = dk.reshape(B, Sk, Hkv, rep, D).sum(3)
+    dv = dv.reshape(B, Sk, Hkv, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_decode_ref(q, k, v, lens, *, softcap=0.0, start=None):

@@ -160,3 +160,12 @@ class ModelConfig:
         if self.local_window:
             changes["local_window"] = 64
         return dataclasses.replace(self, **changes)
+
+
+def flops_per_token_train(cfg: ModelConfig) -> float:
+    """6*N_active*D convention (MODEL_FLOPS numerator for the roofline)."""
+    return 6.0 * cfg.profile().active_param_count
+
+
+def flops_per_token_fwd(cfg: ModelConfig) -> float:
+    return 2.0 * cfg.profile().active_param_count

@@ -15,6 +15,8 @@ weights as ``x @ w`` matrices.  PyTorch runs eagerly, so the JAX layer
 Entry points:
   init_params(cfg, seed, dtype, device)        -> parameter dict
   forward(params, cfg, tokens|embeds)          -> logits [B, S, Vpad]
+      (pos_offset=, remat= and with_aux= as the JAX package's, for the
+      trainer)
   prefill(params, cfg, tokens|embeds)          -> (logits [B, Vpad],
                                                    PrefillCache)
   prefill_chunk(params, cfg, tokens, k, v, table, start, n_valid, trash)
@@ -35,6 +37,7 @@ import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -181,11 +184,15 @@ def layer_params(blocks: dict, layer: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _mlp_residual(x, bp, cfg: ModelConfig):
+def _mlp_residual(x, bp, cfg: ModelConfig, aux: list | None = None):
+    """x + the layer's MLP or MoE; a MoE layer appends its load-balance loss
+    of the MoE input to ``aux`` when one is given."""
     if cfg.is_moe or cfg.d_ff > 0:
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
         m = (moe_lib.moe_block(h, bp["moe"], cfg) if cfg.is_moe
              else mlp(h, bp["mlp"], cfg.mlp_variant))
+        if cfg.is_moe and aux is not None:
+            aux.append(moe_lib.load_balance_loss(h, bp["moe"], cfg))
         if cfg.sandwich_norm:
             m = rms_norm(m, bp["post_ln2"], cfg.norm_eps)
         x = x + m
@@ -206,10 +213,11 @@ def _combine(attn_out, ssm_out, bp, cfg: ModelConfig):
     return attn_out if cfg.has_attn else ssm_out
 
 
-def _block(x, bp, cfg: ModelConfig, layer: int, positions):
+def _block(x, bp, cfg: ModelConfig, layer: int, positions,
+           aux: list | None = None):
     """Full-sequence block: attention and/or SSD mixer + dense or MoE MLP
     with residuals.  Returns (x, per-layer PrefillCache entries k, v, ssm,
-    conv).
+    conv); a MoE layer appends its load-balance loss to ``aux`` if given.
     """
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     attn_out = ssm_out = k = v = state = conv = None
@@ -219,7 +227,7 @@ def _block(x, bp, cfg: ModelConfig, layer: int, positions):
     if cfg.has_ssm:
         ssm_out, state, conv = ssm_lib.ssm_forward(h, bp["ssm"], cfg)
     mix = _combine(attn_out, ssm_out, bp, cfg)
-    x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
+    x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg, aux)
     return x, (k, v, state, conv)
 
 
@@ -267,16 +275,39 @@ def _shape(tokens, embeds):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
-            embeds: torch.Tensor | None = None) -> torch.Tensor:
-    """tokens [B, S] (or embeds [B, S, d]) -> logits [B, S, padded_vocab]
-    (fp32)."""
+            embeds: torch.Tensor | None = None, pos_offset: int = 0,
+            remat: bool = False, with_aux: bool = False):
+    """tokens [B, S] (or embeds [B, S, d]) at positions ``pos_offset +
+    arange(S)`` -> logits [B, S, padded_vocab] (fp32); (logits, aux) if
+    ``with_aux``, aux being the MoE layers' load-balance losses summed over
+    the layers and divided by ``n_layers`` (0 without MoE).
+
+    ``remat`` recomputes each layer's activations in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+    ``jax.checkpoint`` around its layer body does.
+    """
     B, S, device = _shape(tokens, embeds)
-    positions = _positions(B, S, device)
+    positions = _positions(B, S, device, pos_offset)
     x = embed_inputs(params, cfg, tokens, embeds, positions)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=device)
     for layer in range(cfg.n_layers):
-        x, _ = _block(x, layer_params(params["blocks"], layer), cfg, layer,
-                      positions)
-    return lm_logits(params, cfg, x)
+        bp = layer_params(params["blocks"], layer)
+
+        def body(x, bp=bp, layer=layer):
+            aux = []
+            x, _ = _block(x, bp, cfg, layer, positions, aux)
+            return x, (aux[0] if aux else torch.zeros_like(aux_sum))
+
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                body, x, use_reentrant=False)
+        else:
+            x, aux = body(x)
+        aux_sum = aux_sum + aux
+    logits = lm_logits(params, cfg, x)
+    if with_aux:
+        return logits, aux_sum / cfg.n_layers
+    return logits
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,

@@ -67,8 +67,9 @@ def _pick_groups(n_tokens_per_seq: int, batch: int, n_experts: int,
 
 def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     """x [..., d] -> (probs [..., E] fp32, renormalised gates [..., K] fp32,
-    expert ids [..., K] int64, descending)."""
-    probs = torch.softmax(x.float() @ router, dim=-1)
+    expert ids [..., K] int64, descending).  The router is taken in fp32
+    (the trainer's bf16 compute copy is promoted back, as JAX promotes)."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
     gate_vals, topi = torch.topk(probs, top_k, dim=-1, sorted=True)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
@@ -149,8 +150,8 @@ def load_balance_loss(x: torch.Tensor, p: dict, cfg: ModelConfig
     fraction of tokens whose top-k set contains e and P_e the mean router
     probability."""
     E, K = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p["router"],
-                          dim=-1)
+    probs = torch.softmax(
+        x.reshape(-1, x.shape[-1]).float() @ p["router"].float(), dim=-1)
     _, topi = torch.topk(probs, K, dim=-1, sorted=True)
     f = F.one_hot(topi, E).float().sum(1).mean(0)
     return E * torch.sum(f * probs.mean(0)) / K

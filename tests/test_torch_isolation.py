@@ -21,7 +21,8 @@ def _port_files():
         ROOT / "tools" / "b2_rounding.py",
         ROOT / "tools" / "conv_rounding.py",
         ROOT / "tools" / "migrate_agreement.py",
-        ROOT / "tools" / "profile_modes.py"]
+        ROOT / "tools" / "profile_modes.py",
+        ROOT / "tools" / "train_lr_sweep.py"]
 
 
 def _imported_roots(path):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_attention_bwd as tfab
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as tssd
@@ -825,3 +826,108 @@ def test_real_validation_on_the_card_equals_the_cpu(cuda):
     rows, card = cs.real_validation_rows(cuda.type)
     assert card == cs.real_validation_rows("cpu")[1]
     assert len(rows) == 7 and "completed=12/12" in rows[2]
+
+
+# B2's backward: name, B, S, Hq, Hkv, D, softcap, window (every head dim,
+# groups of 1, 3 and 8, ragged S, a window and a softcap)
+BWD_CASES = [
+    ("d32-group1", 2, 77, 4, 4, 32, 0.0, 0),
+    ("d64-group3", 2, 100, 12, 4, 64, 0.0, 0),
+    ("d128-group8-cap", 1, 130, 32, 4, 128, 30.0, 0),
+    ("d256-window-cap", 1, 99, 8, 4, 256, 50.0, 40),
+]
+# a bf16 gradient row's largest value is floored at this share of the
+# tensor's: the first query's dq is zero in exact arithmetic, and both
+# versions return rounding noise there
+GRAD_ROW_FLOOR = 1e-3
+
+
+def grad_close(got, want, dtype):
+    if dtype == torch.float32:
+        close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+              ATOL_FP32)
+        return
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    d = got.shape[-1]
+    err = np.abs(got - want).reshape(-1, d).max(-1)
+    row_max = np.maximum(np.abs(want).reshape(-1, d).max(-1),
+                         GRAD_ROW_FLOOR * np.abs(want).max())
+    assert np.isfinite(got).all()
+    assert (err / row_max).max() <= ROW_RTOL_BF16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,S,Hq,Hkv,D,cap,win", BWD_CASES,
+                         ids=[c[0] for c in BWD_CASES])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, name, B, S,
+                                                  Hq, Hkv, D, cap, win):
+    """The backward kernels against ``ref.flash_attention_bwd_plain`` on
+    the same q, k, v, out, lse and dO; the forward's lse against the plain
+    scores' logsumexp within 1e-4; twice on the same inputs, bit-equal."""
+    q, k, v = (t.to(dtype) for t in to_torch(
+        *flash_inputs(21, B, S, S, Hq, Hkv, D), device=cuda))
+    dout = torch.from_numpy(np.random.RandomState(22).randn(
+        B, S, Hq, D).astype(np.float32)).to(cuda, dtype)
+    out, lse = tfa.flash_attention(q, k, v, softcap=cap, window=win,
+                                   with_lse=True)
+    before = tfab.flash_attention_bwd.launches
+    got = tfab.flash_attention_bwd(q, k, v, out, dout, lse, softcap=cap,
+                                   window=win)
+    again = tfab.flash_attention_bwd(q, k, v, out, dout, lse, softcap=cap,
+                                     window=win)
+    torch.cuda.synchronize()
+    assert tfab.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    close(lse.cpu().numpy(), ref.flash_attention_lse_ref(
+        q, k, softcap=cap, window=win).cpu().numpy(), 1e-4)
+    want = ref.flash_attention_bwd_plain(q, k, v, out, dout, lse, True, cap,
+                                         win)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        grad_close(g, w, dtype)
+
+
+@pytest.mark.gpu
+def test_ops_flash_attention_grad_runs_the_backward_kernel(cuda):
+    """On CUDA tensors that require grad, ``ops.flash_attention``'s
+    backward is the kernel: one launch, the plain version's gradient; a
+    strided dO is made contiguous before the launch."""
+    from repro_torch.kernels import ops
+    q, k, v = to_torch(*flash_inputs(23, 2, 50, 50, 4, 2, 64), device=cuda)
+    live = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention(*live, window=20)
+    dout = torch.randn(2, 4, 50, 64, device=cuda).transpose(1, 2)
+    before = tfab.flash_attention_bwd.launches
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert tfab.flash_attention_bwd.launches == before + 1
+    lse = ref.flash_attention_lse_ref(q, k, window=20)
+    want = ref.flash_attention_bwd_plain(q, k, v, out.detach(),
+                                         dout.contiguous(), lse, True, 0.0,
+                                         20)
+    for t, w in zip(live, want):
+        grad_close(t.grad, w, torch.float32)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_raises_under_grad_on_a_mamba2_train_step(cuda):
+    """The SSD chunk kernel has no backward yet: a mamba2 train step on the
+    card raises its guard's error, where serving (no grad) runs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, packed_batches
+    from repro_torch.models import forward
+    from repro_torch.train.trainer import (TrainConfig, batch_to_device,
+                                           init_train_state,
+                                           make_train_step)
+    cfg = get_smoke_config("mamba2-370m")
+    tcfg = TrainConfig(compute_dtype=torch.float32)
+    state = init_train_state(cfg, 0, tcfg, cuda)
+    batch = batch_to_device(next(packed_batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, batch_size=2))), cuda)
+    with pytest.raises(RuntimeError, match="ssd_chunk: the CUDA kernel has "
+                       "no backward yet"):
+        make_train_step(cfg, tcfg)(state, batch)
+    logits = forward(state["params"], cfg, batch["tokens"])
+    assert torch.isfinite(logits).all()
