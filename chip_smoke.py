@@ -12,11 +12,13 @@ table):
   1. the card's name and power limit, the CUDA version; TF32 off;
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
      and print registers and spills (the prefill backward's instantiations
-     too); count the tensor-core instructions
+     and the SSD chunk backward's three kernels too); count the tensor-core
+     instructions
      (``HMMA``, from ``cuobjdump -sass``) of each prefill, prefill
      backward and SSD chunk instantiation and fail if the bf16 prefill
      ones, the bf16 backward ones at D <= 128 or the SSD chunk one the
-     served models use (P = 64) have none;
+     served models use (P = 64) have none (the SSD chunk backward's count
+     is printed: it runs on the CUDA cores);
   3. hold each kernel against its plain PyTorch version on the card, fp32
      (absolute 1e-4; the SSD chunk kernel 1e-4 of each output row's
      largest value) and bf16 (1e-2 of each output row's largest value), at
@@ -33,7 +35,13 @@ table):
      ragged S, gemma2-2b's heads past its 4096 window with softcap 50, and
      the train job's shapes (yi-100m's 12/4 heads of 64 at S = 256, yi-9b's
      32/4 of 128 at S = 2048), the forward's lse against logsumexp of the
-     plain scores within 1e-4, and each gradient twice, bit-equal;
+     plain scores within 1e-4, and each gradient twice, bit-equal; the SSD
+     chunk kernel's backward (dx, ddt, dA, dB, dC from x, dt, A, B, C, dy
+     and dS) against its plain version in float64 on the forward's cases,
+     dx, dB and dC within 1e-4 of each row's largest value and ddt, dA of
+     the tensor's, each twice, bit-equal, once through ``ops.ssd_chunk``'s
+     autograd.Function with a strided dy and the chunk states unused, and
+     rows >= n of dx, ddt, dB and dC bit-equal when dy changes before n;
   4. greedy decoding: the smoke configs (yi-9b, gemma2-2b, mamba2-370m,
      hymba-1.5b, and the families ported since: olmoe-1b-7b and
      granite-moe-3b-a800m (MoE), opt-30b (sinusoidal positions, biases,
@@ -82,8 +90,12 @@ table):
      fp32 ``make_train_step`` steps (remat, 2 microbatches) on the card and
      on the CPU from one set of weights, losses within 1e-5 relative and
      parameters within 1e-5, B2's forward launched layers x 2 x 2 and its
-     backward layers x 2 times a step; mamba2-370m and hymba-1.5b raise the
-     SSD chunk kernel's grad guard on the card;
+     backward layers x 2 times a step; mamba2-370m and hymba-1.5b likewise
+     (seq 96 over their chunk of 64: a padded last chunk), B4's forward and
+     backward counted as B2's (B2's for hymba's attention, none for
+     mamba2); the decode kernel B1 still raises its grad guard under grad;
+     ``python -m repro_torch.quickstart`` runs on the card and finishes its
+     6 requests with 12 tokens each;
   5. the served models at full width, one after another: yi-9b (48
      layers) three times on the same weights (paged decode, the dense
      decode mode, chunked prefill in 256-token budgets), hymba-1.5b (32)
@@ -181,9 +193,19 @@ table):
      2048, batch 2, 2 microbatches, remat, 10 steps: finite losses, the
      last below the first; (c) yi-9b at 2 layers, fp32, one ``loss_fn``
      gradient on the card and the CPU: loss within 1e-5 relative, every
-     gradient leaf within 1e-3 of its largest value; each run prints its
-     median step time, tokens/s, model-FLOPs share, peak memory and B2's
-     forward and backward launches beside the card's line;
+     gradient leaf within 1e-3 of its largest value; (d) mamba2-370m at
+     its published widths, all 48 layers (368 M parameters), seq 2048,
+     batch 2, 2 microbatches, remat, lr 3e-4, 12 steps with a checkpoint
+     at 6 and a fresh ``Trainer`` resumed from it: steps 7-12 and the
+     final parameters equal to the uninterrupted run's to the bit, the
+     last 3 steps' mean nll below the first 3's less 0.05; (e) hymba-1.5b,
+     lr 3e-5, all 32
+     layers (1.34 B parameters), the same batch, 10 steps: finite losses,
+     the last below the first; (f) mamba2-370m and hymba-1.5b at 2 layers,
+     fp32, seq 320 (a padded chunk), one gradient on the card and the CPU
+     as (c); each run prints its median step time, tokens/s, model-FLOPs
+     share, peak memory and B2's and B4's forward and backward launches
+     (each exactly what the steps imply) beside the card's line;
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
@@ -194,7 +216,8 @@ table):
      give their split counts and CTAs, as the wrappers launched them; B2's
      backward at the train runs' shapes beside autograd of
      ``scaled_dot_product_attention`` with K/V expanded, its launches a
-     step.
+     step; B4's backward at (d)'s and (e)'s microbatch shapes (no library
+     call computes it), its launches a step.
 
 The last three lines are the card line, one JSON object with the kernel
 table (one row per kernel and timed run) and ``{"ok": true, "device":
@@ -335,15 +358,36 @@ LSE_ATOL = 1e-4
 # zero in exact arithmetic (one key, so dP = delta and dS = 0), and both
 # versions return rounding noise there, which no row-relative limit holds
 GRAD_ROW_FLOOR = 1e-3
-# phase 4's train smoke: the smoke configs that run no SSD chunk kernel
-# take TRAIN_SMOKE["steps"] fp32 steps on the card and on the CPU from one
-# set of weights (remat, 2 microbatches, AdamW's defaults); losses within a
-# relative TRAIN_RTOL, parameters within TRAIN_ATOL.  The SSD kernel has
-# no backward yet, so the SSM models must raise its grad guard on the card
+# phase 3's cases for B4 and its backward: name, B, Nc, Q, H, P, N, G
+SSD_CASES = [
+    ("smoke", 2, 2, 64, 4, 16, 16, 1),
+    ("ragged-q100", 1, 1, 100, 4, 32, 16, 1),
+    ("groups2", 1, 2, 64, 8, 32, 16, 2),
+    ("mamba2", 1, 4, 256, 32, 64, 128, 1),
+    ("mamba2-q195", 2, 1, 195, 32, 64, 128, 1),
+    ("hymba", 1, 4, 256, 25, 64, 16, 1),
+    ("hymba-batch", 3, 2, 256, 25, 64, 16, 1),
+    # chunks longer than 256 and P = 128
+    ("q300", 1, 2, 300, 6, 64, 128, 2),
+    ("q1024", 1, 1, 1024, 4, 128, 64, 1),
+    # B/C rows off 16 bytes: 4-byte staging (N % 4 != 0); every input 4
+    # bytes past a 16-byte boundary
+    ("ragged-n13", 1, 2, 130, 8, 32, 13, 2),
+    ("n200-p128", 1, 1, 256, 4, 128, 200, 1),
+    ("p16-n256", 1, 2, 77, 4, 16, 256, 1),
+]
+# phase 3's independence checks (B4 causal to the bit; its backward's rows
+# >= n do not move with dy in the rows before n): name, H, P, N, n at Q 256
+SSD_CUT_CASES = (("hymba", 25, 64, 16, 203), ("mamba2", 32, 64, 128, 77))
+# phase 4's train smoke: every smoke config takes TRAIN_SMOKE["steps"]
+# fp32 steps on the card and on the CPU from one set of weights (remat, 2
+# microbatches, AdamW's defaults); losses within a relative TRAIN_RTOL,
+# parameters within TRAIN_ATOL.  seq 96 over the SSM smoke configs' chunk
+# of 64 gives a padded last chunk
 TRAIN_SMOKE_ARCHS = ("yi-9b", "gemma2-2b", "olmoe-1b-7b",
                      "granite-moe-3b-a800m", "starcoder2-3b", "opt-30b",
-                     "qwen1.5-110b", "chameleon-34b", "musicgen-medium")
-TRAIN_GUARDED_ARCHS = ("mamba2-370m", "hymba-1.5b")
+                     "qwen1.5-110b", "chameleon-34b", "musicgen-medium",
+                     "mamba2-370m", "hymba-1.5b")
 TRAIN_SMOKE = dict(steps=3, batch=4, seq=96, microbatches=2)
 TRAIN_RTOL = TRAIN_ATOL = 1e-5
 # phase 5's "train" job (bf16 compute over fp32 master weights): (a)
@@ -364,6 +408,26 @@ TRAIN_B = dict(layers=8, steps=10, batch=2, seq=2048, microbatches=2,
                lr=3e-6)
 TRAIN_C = dict(layers=2, batch=1, seq=128)
 GRAD_LEAF_RTOL = 1e-3
+# (d) mamba2-370m at its published widths, all 48 layers (368 M
+# parameters, 5.9 GB of master weights, moments and gradients): TRAIN_D
+# ["steps"] steps with a checkpoint at TRAIN_D["every"], then a fresh
+# Trainer resumed from it to the end, bit-equal to the uninterrupted run
+# (B4's backward is deterministic); (e) hymba-1.5b, all 32 layers (1.34 B
+# parameters, 21.5 GB); (f) each at 2 layers, one fp32 gradient on the
+# card and on the CPU (seq 320: a chunk of 256 and a padded one).  All bf16
+# compute over fp32 master weights, a constant learning rate after one
+# warmup step.  The rates are the largest that fell without a spike in
+# tools/train_lr_sweep.py (bf16; 20 steps of (d), before it was cut to
+# 12, and 10 of (e)): mamba2 at 1e-3 jumped to nll 11.97 at step 4 (grad
+# norm 20) and diverged at 3e-3, while 3e-4 fell 11.03 -> 10.62; hymba at
+# 1e-4 jumped to 12.19 at step 3 (grad norm 55), while 3e-5 fell 10.71 ->
+# 10.36.  A step takes ~1.3-1.5 s (host-bound), so (d) runs 12 steps,
+# resumed at 6
+TRAIN_D = dict(arch="mamba2-370m", steps=12, every=6, batch=2, seq=2048,
+               microbatches=2, lr=3e-4)
+TRAIN_E = dict(arch="hymba-1.5b", steps=10, batch=2, seq=2048,
+               microbatches=2, lr=3e-5)
+TRAIN_F = dict(layers=2, batch=1, seq=320)
 # test_training_reduces_loss's margin: the last 10 steps' mean nll below
 # the first 10's by this much
 LOSS_MARGIN = 0.05
@@ -797,27 +861,9 @@ def unaligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_ssd(gen, ssd, ref) -> None:
-    cases = [
-        # name, B, Nc, Q, H, P, N, G
-        ("smoke", 2, 2, 64, 4, 16, 16, 1),
-        ("ragged-q100", 1, 1, 100, 4, 32, 16, 1),
-        ("groups2", 1, 2, 64, 8, 32, 16, 2),
-        ("mamba2", 1, 4, 256, 32, 64, 128, 1),
-        ("mamba2-q195", 2, 1, 195, 32, 64, 128, 1),
-        ("hymba", 1, 4, 256, 25, 64, 16, 1),
-        ("hymba-batch", 3, 2, 256, 25, 64, 16, 1),
-        # chunks longer than 256 and P = 128
-        ("q300", 1, 2, 300, 6, 64, 128, 2),
-        ("q1024", 1, 1, 1024, 4, 128, 64, 1),
-        # B/C rows off 16 bytes: 4-byte staging (N % 4 != 0)
-        ("ragged-n13", 1, 2, 130, 8, 32, 13, 2),
-        ("n200-p128", 1, 1, 256, 4, 128, 200, 1),
-        ("p16-n256", 1, 2, 77, 4, 16, 256, 1),
-    ]
-    for name, B, Nc, Q, H, P, N, G in cases:
+    for name, B, Nc, Q, H, P, N, G in SSD_CASES:
         x, dt, A, Bm, Cm = ssd_inputs(gen, B, Nc, Q, H, P, N, G)
         if name == "ragged-n13":
-            # and every input 4 bytes past a 16-byte boundary
             x, dt, A, Bm, Cm = (unaligned(t) for t in (x, dt, A, Bm, Cm))
         y, S = ssd.ssd_chunk(x, dt, A, Bm, Cm)
         torch.cuda.synchronize()
@@ -832,8 +878,7 @@ def check_ssd(gen, ssd, ref) -> None:
                 raise SystemExit(f"ssd_chunk {name} {out} disagrees")
     # causal to the bit: a row's y does not move with the rows after it,
     # zeros (a prefill's padded last chunk) or the tokens that follow
-    for name, H, P, N, n in (("hymba", 25, 64, 16, 203),
-                             ("mamba2", 32, 64, 128, 77)):
+    for name, H, P, N, n in SSD_CUT_CASES:
         x, dt, A, Bm, Cm = ssd_inputs(gen, 1, 1, 256, H, P, N, 1)
         cut = [t.clone() for t in (x, dt, Bm, Cm)]
         for t in cut:
@@ -846,6 +891,100 @@ def check_ssd(gen, ssd, ref) -> None:
         if not same:
             raise SystemExit(f"ssd_chunk {name}: a row's y moves with the "
                              "rows after it")
+
+
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def ssd_bwd_agreement(got, want):
+    """(max absolute error, max relative error, within ROW_RTOL_SSD) of
+    B4's backward (dx, ddt, dA, dB, dC) against its plain version: dx rows
+    [P] and dB, dC rows [N] against their own row's largest |value|; ddt
+    and dA against their tensor's largest |value| (dcs is a difference of
+    two sums and cancels within a row)."""
+    err = rel = 0.0
+    ok = True
+    for name, g, w in zip(SSD_GRADS, got, want):
+        if name in ("ddt", "dA"):
+            e = (g.double() - w.double()).abs().max().item()
+            r = e / max(w.abs().max().item(), 1e-30)
+            finite = bool(torch.isfinite(g).all())
+        else:
+            e, r, finite = row_rel(g, w)
+        err, rel = max(err, e), max(rel, r)
+        ok = ok and finite and r <= ROW_RTOL_SSD
+    return err, rel, ok
+
+
+def ssd_bwd_plain(ref, inputs, dy, dS):
+    """The plain backward in float64 on the same inputs: its own fp32
+    rounding in the suffix sums of dcs would be a large part of the 1e-4
+    limit at Q = 1024."""
+    return ref.ssd_chunk_bwd_plain(*(t.double() for t in (*inputs, dy, dS)))
+
+
+def check_ssd_bwd(gen, ops, ssb, ref) -> None:
+    """B4's backward against its plain version on SSD_CASES (random dy and
+    dS; ragged-n13 with every input off a 16-byte boundary), each twice,
+    bit-equal; through ``ops.ssd_chunk``'s autograd.Function with a
+    strided dy and the chunk states unused (dS arrives as zeros); and the
+    independence check: dy changed in rows < n leaves rows >= n of dx,
+    ddt, dB and dC bit-equal."""
+    for name, B, Nc, Q, H, P, N, G in SSD_CASES:
+        inputs = ssd_inputs(gen, B, Nc, Q, H, P, N, G)
+        dy = rand(gen, B, Nc, Q, H, P, scale=1.0)
+        dS = rand(gen, B, Nc, H, P, N, scale=1.0)
+        if name == "ragged-n13":
+            inputs = [unaligned(t) for t in inputs]
+            dy, dS = unaligned(dy), unaligned(dS)
+        got = ssb.ssd_chunk_bwd(*inputs, dy, dS)
+        again = ssb.ssd_chunk_bwd(*inputs, dy, dS)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        err, rel, ok = ssd_bwd_agreement(got, ssd_bwd_plain(ref, inputs, dy,
+                                                            dS))
+        ok = ok and same
+        log(f"  ssd_chunk_bwd {name:12s} max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} (dx/dB/dC rows, ddt/dA tensors) "
+            f"rtol={ROW_RTOL_SSD:.0e}; twice bit-equal {same} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"ssd_chunk_bwd {name} disagrees")
+        del inputs, got, again
+    # the Function: y's gradient a strided view, S unused
+    inputs = ssd_inputs(gen, 1, 2, 256, 32, 64, 128, 1)
+    live = [t.clone().requires_grad_(True) for t in inputs]
+    y, _ = ops.ssd_chunk(*live)
+    dy = rand(gen, 1, 2, 256, 64, 32, scale=1.0).transpose(-1, -2)
+    before = ssb.ssd_chunk_bwd.launches
+    y.backward(dy)
+    torch.cuda.synchronize()
+    launched = ssb.ssd_chunk_bwd.launches - before
+    dS = torch.zeros((1, 2, 32, 64, 128), device="cuda")
+    err, rel, ok = ssd_bwd_agreement(
+        [t.grad for t in live], ssd_bwd_plain(ref, inputs, dy.contiguous(),
+                                              dS))
+    ok = ok and launched == 1 and not dy.is_contiguous()
+    log(f"  ssd_chunk_bwd via ops.ssd_chunk (strided dy, dS zeros) "
+        f"max_abs_err={err:.3e} max_rel_err={rel:.3e}; launches {launched} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("ssd_chunk_bwd through ops.ssd_chunk disagrees")
+    for name, H, P, N, n in SSD_CUT_CASES:
+        inputs = ssd_inputs(gen, 1, 1, 256, H, P, N, 1)
+        dy = rand(gen, 1, 1, 256, H, P, scale=1.0)
+        dS = rand(gen, 1, 1, H, P, N, scale=1.0)
+        dy2 = dy.clone()
+        dy2[:, :, :n] = rand(gen, 1, 1, n, H, P, scale=1.0)
+        got = ssb.ssd_chunk_bwd(*inputs, dy, dS)
+        moved = ssb.ssd_chunk_bwd(*inputs, dy2, dS)
+        same = all(torch.equal(a[:, :, n:], b[:, :, n:])
+                   for i, (a, b) in enumerate(zip(got, moved)) if i != 2)
+        log(f"  ssd_chunk_bwd {name:12s} rows >= {n} of dx, ddt, dB, dC "
+            f"bit-equal with dy changed in the rows before: {same}")
+        if not same:
+            raise SystemExit(f"ssd_chunk_bwd {name}: a row's gradient moves "
+                             "with dy in the rows before it")
 
 
 # --------------------------------------------------------------------------
@@ -2963,14 +3102,29 @@ def max_leaf_diff(a, b) -> float:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
+def train_launches(cfg, microbatches: int, steps: int, remat=True) -> dict:
+    """The kernel launches ``steps`` train steps must make: each attention
+    layer B2's forward once a microbatch (twice under remat, which
+    recomputes it) and its backward once, each SSD layer B4's likewise."""
+    k = microbatches * steps
+    fwd = 2 * k if remat else k
+    attn = cfg.n_layers if cfg.has_attn else 0
+    ssd = cfg.n_layers if cfg.has_ssm else 0
+    return {"flash_attention": attn * fwd, "flash_attention_bwd": attn * k,
+            "ssd_chunk": ssd * fwd, "ssd_chunk_bwd": ssd * k}
+
+
+def launches_text(counts: dict, want: dict) -> str:
+    return ", ".join(f"{k} {counts[k]} (want {v})" for k, v in want.items())
+
+
 def phase_train_smoke(ops) -> None:
     """Phase 4's train check: TRAIN_SMOKE["steps"] fp32 steps of every
-    smoke config without SSD layers on the card and on the CPU from one set
-    of weights agree (losses within a relative TRAIN_RTOL, parameters
-    within TRAIN_ATOL), and the card's steps launch B2's forward layers x
-    microbatches x 2 (remat recomputes it) and its backward layers x
-    microbatches times a step; the SSM models raise the SSD kernel's grad
-    guard on the card."""
+    smoke config on the card and on the CPU from one set of weights agree
+    (losses within a relative TRAIN_RTOL, parameters within TRAIN_ATOL),
+    and the card's steps launch B2's and B4's forward and backward as
+    ``train_launches`` says; the decode kernel B1 still raises its grad
+    guard under grad."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.train.trainer import TrainConfig, init_train_state
     job = TRAIN_SMOKE
@@ -2991,38 +3145,56 @@ def phase_train_smoke(ops) -> None:
                        for c, p in zip(card_m, cpu_m)
                        for k in ("nll", "aux_loss") if p[k] or c[k])
         param_err = max_leaf_diff(card["params"], cpu["params"])
-        per_step = cfg.n_layers * job["microbatches"]
-        fwd, bwd = counts["flash_attention"], counts["flash_attention_bwd"]
-        launched = (fwd == 2 * per_step * job["steps"]
-                    and bwd == per_step * job["steps"]
-                    and counts["ssd_chunk"] == 0)
+        want = train_launches(cfg, job["microbatches"], job["steps"])
+        launched = all(counts[k] == v for k, v in want.items())
         ok = loss_rel <= TRAIN_RTOL and param_err <= TRAIN_ATOL and launched
         log(f"  [train smoke] {arch:22s} {job['steps']} steps fp32 (B "
             f"{job['batch']}, S {job['seq']}, {job['microbatches']} "
             f"microbatches, remat): nll {[round(m['nll'], 5) for m in card_m]}"
             f" card vs CPU loss rel {loss_rel:.3e} (rtol {TRAIN_RTOL:.0e}), "
-            f"params max abs {param_err:.3e} (atol {TRAIN_ATOL:.0e}); B2 "
-            f"forward {fwd} (want {2 * per_step * job['steps']}), backward "
-            f"{bwd} (want {per_step * job['steps']}) "
-            f"{'ok' if ok else 'FAIL'} ({time.monotonic() - t0:.1f} s)")
+            f"params max abs {param_err:.3e} (atol {TRAIN_ATOL:.0e}); "
+            f"{launches_text(counts, want)} {'ok' if ok else 'FAIL'} "
+            f"({time.monotonic() - t0:.1f} s)")
         if not ok:
             raise SystemExit(f"train smoke {arch}: the card's steps disagree "
                              f"with the CPU's or launched {counts}")
-    for arch in TRAIN_GUARDED_ARCHS:
-        cfg = get_smoke_config(arch)
-        batches = train_batches(cfg, job["batch"], job["seq"], 1)
-        state = init_train_state(cfg, 0, tcfg, "cuda")
-        try:
-            train_steps(cfg, tcfg, state, batches, "cuda")
-            err = ""
-        except RuntimeError as e:
-            err = str(e)
-        ok = err.startswith("ssd_chunk: the CUDA kernel has no backward")
-        log(f"  [train smoke] {arch:22s} on the card raises the SSD chunk "
-            f"kernel's grad guard: {ok} ({err[:60]}...)")
-        if not ok:
-            raise SystemExit(f"train smoke {arch}: a train step through the "
-                             f"SSD chunk kernel did not raise its grad guard")
+    # the decode kernels have no backward: B1 under grad raises
+    q = torch.zeros((1, 4, 32), device="cuda", requires_grad=True)
+    pages = torch.zeros((2, 2, 8, 32), device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    try:
+        ops.paged_decode(q, pages, pages, one[:, None] * 0, one, one * 0)
+        err = ""
+    except RuntimeError as e:
+        err = str(e)
+    ok = err.startswith("paged_decode: the CUDA kernel has no backward")
+    log(f"  [train smoke] B1 under grad on the card raises its grad guard: "
+        f"{ok} ({err[:60]}...)")
+    if not ok:
+        raise SystemExit("paged_decode under grad did not raise its guard")
+
+
+def phase_quickstart() -> None:
+    """``python -m repro_torch.quickstart`` on the card (its default
+    device): every one of its 6 requests finishes with its 12 tokens."""
+    t0 = time.monotonic()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.quickstart"],
+                         cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=300)
+    lines = out.stdout.splitlines()
+    done = {int(m.group(1)): len(m.group(2).split(","))
+            for m in map(re.compile(r"  req (\d+): prompt\[\d+\] -> "
+                                    r"\[(.*)\]$").match, lines) if m}
+    ok = out.returncode == 0 and done == {i: 12 for i in range(6)} \
+        and lines[-1].endswith("tok/s on cuda)")
+    log(f"  [quickstart] python -m repro_torch.quickstart: exit "
+        f"{out.returncode}, requests finished {sorted(done)}, tokens "
+        f"{sorted(set(done.values()))}; {lines[-1] if lines else ''} "
+        f"{'ok' if ok else 'FAIL'} ({time.monotonic() - t0:.1f} s)")
+    if not ok:
+        raise SystemExit(f"quickstart on the card failed:\n{out.stdout}\n"
+                         f"{out.stderr}")
 
 
 def train_numbers(cfg, hist: list, tokens_per_step: int) -> dict:
@@ -3042,142 +3214,122 @@ def train_line(tag, cfg, nums, counts, card: str) -> str:
             f"{nums['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
             f"{nums['mfu']:.4f} of 989 TFLOP/s bf16 "
             f"({cfg.profile().active_param_count:,} active params x 6); "
-            f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; B2 "
-            f"forward {counts['flash_attention']}, backward "
-            f"{counts['flash_attention_bwd']}; {card}")
+            f"peak mem {nums['peak_gb']:.2f} GB; B2 forward "
+            f"{counts['flash_attention']}, backward "
+            f"{counts['flash_attention_bwd']}; B4 forward "
+            f"{counts['ssd_chunk']}, backward {counts['ssd_chunk_bwd']}; "
+            f"{card}")
 
 
-def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
-    """Phase 5's "train" job: (a) yi-100m as ``train_100m --full-100m``
-    with its resume, (b) yi-9b at 8 layers, (c) a full-width gradient on
-    the card against the CPU.  Returns the runs (phase 6 times B2's
-    backward at their shapes) and the failed checks."""
+def train_run(ops, cfg, tcfg, batches, every: int = 0) -> dict:
+    """One ``Trainer`` run over ``batches`` on the card, the launch
+    counters set to 0 just before it and read just after; with ``every``,
+    checkpointed every ``every`` steps and followed by a fresh Trainer
+    resumed from the checkpoint at ``every`` and run to the end, whose
+    losses and final parameters must equal the first run's to the bit."""
     import shutil
     import tempfile
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_params, param_count
-    from repro_torch.train.checkpoint import flatten_with_paths
-    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
-    from repro_torch.train.trainer import (TrainConfig, Trainer,
-                                           batch_to_device, value_and_grad)
-    from repro_torch.train_100m import build_config, train_config
-    failures, runs = [], []
-    timed = Variant("train", {}, ("flash_attention", "flash_attention_bwd"),
-                    ("ssd_chunk",), ("flash_attention_bwd",))
-
-    # (a) yi-100m, resumed half-way
-    job = TRAIN_A
-    cfg = build_config(True)
-    tcfg = train_config(job["steps"])
-    batches = train_batches(cfg, job["batch"], job["seq"], job["steps"])
+    from repro_torch.models import param_count
+    from repro_torch.train.trainer import Trainer
+    steps = len(batches)
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.monotonic()
         tr = Trainer(cfg, tcfg, iter(batches),
-                     checkpoint_dir=os.path.join(root, "run"),
-                     checkpoint_every=job["every"], device="cuda")
-        hist = tr.run(job["steps"], log_every=1)
+                     checkpoint_dir=os.path.join(root, "run") if every
+                     else None, checkpoint_every=every, device="cuda")
+        hist = tr.run(steps, log_every=1)
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        wall = time.monotonic() - t0
-        nums = train_numbers(cfg, hist, job["batch"] * job["seq"])
-        # a fresh trainer from the checkpoint at job["every"]
-        name = f"step_{job['every']:09d}"
-        shutil.copytree(os.path.join(root, "run", name),
-                        os.path.join(root, "resume", name))
-        tr2 = Trainer(cfg, tcfg, iter(batches[job["every"]:]),
-                      checkpoint_dir=os.path.join(root, "resume"),
-                      device="cuda")
-        resumed_at = tr2.step
-        hist2 = tr2.run(job["steps"] - tr2.step, log_every=1)
-        loss_diff = max(abs(a["nll"] - b["nll"])
-                        for a, b in zip(hist[job["every"]:], hist2))
-        param_diff = max_leaf_diff(tr.state["params"], tr2.state["params"])
+        out = {"hist": hist, "counts": ops.launch_counts(),
+               "wall": time.monotonic() - t0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "params": param_count(tr.state["params"])}
+        if every:
+            name = f"step_{every:09d}"
+            shutil.copytree(os.path.join(root, "run", name),
+                            os.path.join(root, "resume", name))
+            tr2 = Trainer(cfg, tcfg, iter(batches[every:]),
+                          checkpoint_dir=os.path.join(root, "resume"),
+                          device="cuda")
+            out["resumed_at"] = tr2.step
+            hist2 = tr2.run(steps - tr2.step, log_every=1)
+            out["resumed_steps"] = len(hist2)
+            out["loss_diff"] = max(abs(a["nll"] - b["nll"])
+                                   for a, b in zip(hist[every:], hist2))
+            out["param_diff"] = max_leaf_diff(tr.state["params"],
+                                              tr2.state["params"])
+            del tr2
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    nll = [h["nll"] for h in hist]
-    first, last = float(np.mean(nll[:10])), float(np.mean(nll[-10:]))
-    per_step = cfg.n_layers * tcfg.microbatches
-    launched = (counts["flash_attention"] == 2 * per_step * job["steps"]
-                and counts["flash_attention_bwd"] == per_step * job["steps"])
-    ok_a = (resumed_at == job["every"] and len(hist2) == len(hist)
-            - job["every"] and loss_diff == 0.0 and param_diff == 0.0
-            and last < first - LOSS_MARGIN and launched
-            and all(np.isfinite(nll)))
-    log(f"  [train a] {cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads of "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
-        f"{cfg.param_count():,} params; batch {job['batch']} x seq "
-        f"{job['seq']}, {tcfg.microbatches} microbatches, remat, lr "
-        f"{tcfg.opt.lr}, warmup {tcfg.opt.warmup_steps}, bf16 compute; "
-        f"{job['steps']} steps in {wall:.1f} s")
-    log(f"  [train a] nll steps 1-10 mean {first:.4f}, steps "
-        f"{job['steps'] - 9}-{job['steps']} mean {last:.4f} (must fall by "
-        f"{LOSS_MARGIN}); every 10th: "
-        f"{[round(x, 3) for x in nll[::10]]}")
-    log(f"  [train a] resumed from step {resumed_at}: steps "
-        f"{job['every'] + 1}-{job['steps']} nll max |diff| {loss_diff:.3e}, "
-        f"final params max |diff| {param_diff:.3e} (bit-equal expected)")
-    log(train_line("a", cfg, nums, counts, card)
-        + f" {'ok' if ok_a else 'FAIL'}")
-    if not ok_a:
-        failures.append(f"train a: resume equal {loss_diff} / {param_diff}, "
-                        f"nll {first:.4f} -> {last:.4f}, launches {counts}")
-    runs.append({"arch": cfg.name, "variant": timed, "cfg": cfg,
-                 "counts": counts, "n_req": job["steps"],
-                 "shape": (job["batch"] // tcfg.microbatches, job["seq"])})
-    del tr, tr2
-    torch.cuda.empty_cache()
-
-    # (b) yi-9b at its published widths, TRAIN_B["layers"] layers
-    job = TRAIN_B
-    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=job["layers"])
-    tcfg = TrainConfig(opt=AdamWConfig(lr=job["lr"], warmup_steps=1,
-                                       total_steps=1000),
-                       remat=True, microbatches=job["microbatches"])
-    batches = train_batches(cfg, job["batch"], job["seq"], job["steps"])
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.monotonic()
-    tr = Trainer(cfg, tcfg, iter(batches), device="cuda")
-    hist = tr.run(job["steps"], log_every=1)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    wall = time.monotonic() - t0
-    nums = train_numbers(cfg, hist, job["batch"] * job["seq"])
-    nll = [h["nll"] for h in hist]
-    per_step = cfg.n_layers * tcfg.microbatches
-    ok_b = (all(np.isfinite(nll)) and nll[-1] < nll[0]
-            and counts["flash_attention"] == 2 * per_step * job["steps"]
-            and counts["flash_attention_bwd"] == per_step * job["steps"])
-    log(f"  [train b] yi-9b at published widths (d_model {cfg.d_model}, "
-        f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}), reduced to {cfg.n_layers} of "
-        f"48 layers: {param_count(tr.state['params']):,} params; batch "
-        f"{job['batch']} x seq {job['seq']}, {tcfg.microbatches} "
-        f"microbatches, remat, lr {tcfg.opt.lr}, bf16 compute; "
-        f"{job['steps']} steps in {wall:.1f} s; nll "
-        f"{[round(x, 4) for x in nll]}; grad norm "
-        f"{[round(h['grad_norm'], 3) for h in hist]}")
-    log(train_line("b", cfg, nums, counts, card)
-        + f" {'ok' if ok_b else 'FAIL'}")
-    if not ok_b:
-        failures.append(f"train b: nll {nll}, launches {counts}")
-    runs.append({"arch": "yi-9b-8l", "variant": timed, "cfg": cfg,
-                 "counts": counts, "n_req": job["steps"],
-                 "shape": (job["batch"] // tcfg.microbatches, job["seq"])})
     del tr
     torch.cuda.empty_cache()
+    return out
 
-    # (c) one fp32 gradient at full width, card against CPU
-    job = TRAIN_C
-    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=job["layers"])
+
+def check_resumed(tag, cfg, tcfg, job, run, card) -> tuple[bool, str]:
+    """(a)'s and (d)'s checks and lines: the resume bit-equal, the mean nll
+    of the last quarter of the steps (at most 10) below the first's by
+    LOSS_MARGIN, the launches ``train_launches`` gives."""
+    hist, counts = run["hist"], run["counts"]
+    nll = [h["nll"] for h in hist]
+    win = min(10, job["steps"] // 4)
+    first, last = float(np.mean(nll[:win])), float(np.mean(nll[-win:]))
+    want = train_launches(cfg, tcfg.microbatches, job["steps"])
+    launched = all(counts[k] == v for k, v in want.items())
+    ok = (run["resumed_at"] == job["every"]
+          and run["resumed_steps"] == job["steps"] - job["every"]
+          and run["loss_diff"] == 0.0 and run["param_diff"] == 0.0
+          and last < first - LOSS_MARGIN and launched
+          and all(np.isfinite(nll)))
+    nums = train_numbers(cfg, hist, job["batch"] * job["seq"])
+    nums["peak_gb"] = run["peak_gb"]
+    log(f"  [train {tag}] nll steps 1-{win} mean {first:.4f}, steps "
+        f"{job['steps'] - win + 1}-{job['steps']} mean {last:.4f} (must "
+        f"fall by {LOSS_MARGIN}); every {max(1, job['steps'] // 12)}th: "
+        f"{[round(x, 3) for x in nll[::max(1, job['steps'] // 12)]]}")
+    log(f"  [train {tag}] resumed from step {run['resumed_at']}: steps "
+        f"{job['every'] + 1}-{job['steps']} nll max |diff| "
+        f"{run['loss_diff']:.3e}, final params max |diff| "
+        f"{run['param_diff']:.3e} (bit-equal expected)")
+    log(train_line(tag, cfg, nums, counts, card) + f" {'ok' if ok else 'FAIL'}")
+    return ok, (f"train {tag}: resume equal {run['loss_diff']} / "
+                f"{run['param_diff']}, nll {first:.4f} -> {last:.4f}, "
+                f"launches {counts}")
+
+
+def check_falls(tag, cfg, tcfg, job, run, card) -> tuple[bool, str]:
+    """(b)'s and (e)'s checks and lines: finite losses, the last below the
+    first, the launches ``train_launches`` gives."""
+    hist, counts = run["hist"], run["counts"]
+    nll = [h["nll"] for h in hist]
+    want = train_launches(cfg, tcfg.microbatches, job["steps"])
+    ok = (all(np.isfinite(nll)) and nll[-1] < nll[0]
+          and all(counts[k] == v for k, v in want.items()))
+    nums = train_numbers(cfg, hist, job["batch"] * job["seq"])
+    nums["peak_gb"] = run["peak_gb"]
+    log(f"  [train {tag}] {job['steps']} steps in {run['wall']:.1f} s; nll "
+        f"{[round(x, 4) for x in nll]}; grad norm "
+        f"{[round(h['grad_norm'], 3) for h in hist]}")
+    log(train_line(tag, cfg, nums, counts, card) + f" {'ok' if ok else 'FAIL'}")
+    return ok, f"train {tag}: nll {nll}, launches {counts}"
+
+
+def check_gradient(tag, ops, cfg, batch) -> tuple[bool, str]:
+    """(c)'s and (f)'s check: one fp32 ``loss_fn`` gradient (no remat) on
+    the card and on the CPU from the same seed-0 weights, the loss within
+    a relative TRAIN_RTOL, every gradient leaf within GRAD_LEAF_RTOL of
+    the leaf's largest |value|, B2's and B4's launches one forward and one
+    backward a layer."""
+    from repro_torch.models import init_params
+    from repro_torch.train.checkpoint import flatten_with_paths
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import (TrainConfig, batch_to_device,
+                                           value_and_grad)
     tcfg = TrainConfig(remat=False, compute_dtype=torch.float32)
     t0 = time.monotonic()
     params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
-    batch = train_batches(cfg, job["batch"], job["seq"], 1)[0]
     ops.reset_launch_counts()
     loss, _, grads = value_and_grad(params, cfg, batch_to_device(batch,
                                                                   "cuda"),
@@ -3185,10 +3337,8 @@ def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     loss, grads = float(loss), _to(grads, "cpu")
-    del params
+    params = _to(params, "cpu")
     torch.cuda.empty_cache()
-    params = _to(init_params(cfg, seed=0, dtype=torch.float32,
-                             device="cuda"), "cpu")
     loss_cpu, _, grads_cpu = value_and_grad(
         params, cfg, batch_to_device(batch, "cpu"), tcfg)
     loss_rel = abs(loss - float(loss_cpu)) / abs(float(loss_cpu))
@@ -3198,19 +3348,121 @@ def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
         rel = ((g - gc).abs().max() / gc.abs().max().clamp_min(1e-30)).item()
         if rel >= worst:
             worst, worst_at = rel, path
-    ok_c = (loss_rel <= TRAIN_RTOL and worst <= GRAD_LEAF_RTOL
-            and counts["flash_attention_bwd"] == cfg.n_layers)
-    log(f"  [train c] yi-9b at published widths, {cfg.n_layers} layers, "
-        f"fp32, batch {job['batch']} x seq {job['seq']}: one loss_fn "
-        f"gradient, card {loss:.6f} vs CPU {float(loss_cpu):.6f} (rel "
-        f"{loss_rel:.3e}, rtol {TRAIN_RTOL:.0e}); worst gradient leaf "
-        f"{worst_at} max |diff| / max |leaf| {worst:.3e} (limit "
-        f"{GRAD_LEAF_RTOL:.0e}); B2 backward {counts['flash_attention_bwd']}"
-        f" {'ok' if ok_c else 'FAIL'} ({time.monotonic() - t0:.1f} s)")
-    if not ok_c:
-        failures.append(f"train c: loss rel {loss_rel}, worst leaf {worst_at}"
-                        f" {worst}")
-    del params, grads, grads_cpu
+    want = train_launches(cfg, 1, 1, remat=False)
+    ok = (loss_rel <= TRAIN_RTOL and worst <= GRAD_LEAF_RTOL
+          and all(counts[k] == v for k, v in want.items()))
+    S = batch["labels"].shape
+    log(f"  [train {tag}] {cfg.name} at published widths, {cfg.n_layers} "
+        f"layers, fp32, batch {S[0]} x seq {S[1]}: one loss_fn gradient, "
+        f"card {loss:.6f} vs CPU {float(loss_cpu):.6f} (rel {loss_rel:.3e}, "
+        f"rtol {TRAIN_RTOL:.0e}); worst gradient leaf {worst_at} max |diff| "
+        f"/ max |leaf| {worst:.3e} (limit {GRAD_LEAF_RTOL:.0e}); "
+        f"{launches_text(counts, want)} {'ok' if ok else 'FAIL'} "
+        f"({time.monotonic() - t0:.1f} s)")
+    return ok, f"train {tag}: loss rel {loss_rel}, worst leaf {worst_at} {worst}"
+
+
+def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
+    """Phase 5's "train" job: (a) yi-100m as ``train_100m --full-100m``
+    with its resume, (b) yi-9b at 8 layers, (c) a full-width yi-9b
+    gradient on the card against the CPU, (d) mamba2-370m at all 48 layers
+    with its resume, (e) hymba-1.5b at all 32 layers, (f) 2-layer
+    full-width mamba2-370m and hymba-1.5b gradients on the card against
+    the CPU.  Returns the runs (phase 6 times B2's and B4's backwards at
+    their shapes) and the failed checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig
+    from repro_torch.train_100m import build_config, train_config
+    failures, runs = [], []
+
+    def record(ok, why):
+        if not ok:
+            failures.append(why)
+
+    def timed_run(arch, cfg, tcfg, job, run, timed):
+        runs.append({"arch": arch, "cfg": cfg, "counts": run["counts"],
+                     "n_req": job["steps"],
+                     "variant": Variant("train", {}, (), (), timed),
+                     "shape": (job["batch"] // tcfg.microbatches,
+                               job["seq"])})
+
+    # (a) yi-100m, resumed half-way
+    job = TRAIN_A
+    cfg = build_config(True)
+    tcfg = train_config(job["steps"])
+    t0 = time.monotonic()
+    batches = train_batches(cfg, job["batch"], job["seq"], job["steps"])
+    built = time.monotonic() - t0
+    run = train_run(ops, cfg, tcfg, batches, job["every"])
+    log(f"  [train a] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{cfg.param_count():,} params; batch {job['batch']} x seq "
+        f"{job['seq']}, {tcfg.microbatches} microbatches, remat, lr "
+        f"{tcfg.opt.lr}, warmup {tcfg.opt.warmup_steps}, bf16 compute; "
+        f"{job['steps']} steps in {run['wall']:.1f} s (batches built on "
+        f"the host in {built:.2f} s)")
+    record(*check_resumed("a", cfg, tcfg, job, run, card))
+    timed_run(cfg.name, cfg, tcfg, job, run, ("flash_attention_bwd",))
+
+    # (b) yi-9b at its published widths, TRAIN_B["layers"] layers
+    job = TRAIN_B
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=job["layers"])
+    tcfg = TrainConfig(opt=AdamWConfig(lr=job["lr"], warmup_steps=1,
+                                       total_steps=1000),
+                       remat=True, microbatches=job["microbatches"])
+    run = train_run(ops, cfg, tcfg, train_batches(cfg, job["batch"],
+                                                  job["seq"], job["steps"]))
+    log(f"  [train b] yi-9b at published widths (d_model {cfg.d_model}, "
+        f"{cfg.n_q_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}), reduced to {cfg.n_layers} of "
+        f"48 layers: {run['params']:,} params; batch {job['batch']} x seq "
+        f"{job['seq']}, {tcfg.microbatches} microbatches, remat, lr "
+        f"{tcfg.opt.lr}, bf16 compute")
+    record(*check_falls("b", cfg, tcfg, job, run, card))
+    timed_run("yi-9b-8l", cfg, tcfg, job, run, ("flash_attention_bwd",))
+
+    # (c) one fp32 gradient at full width, card against CPU
+    job = TRAIN_C
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=job["layers"])
+    record(*check_gradient("c", ops, cfg, train_batches(
+        cfg, job["batch"], job["seq"], 1)[0]))
+
+    # (d) mamba2-370m, all 48 layers, resumed half-way; (e) hymba-1.5b,
+    # all 32 layers; the SSM models at their published widths
+    ssm_batches = {}
+    for tag, job in (("d", TRAIN_D), ("e", TRAIN_E)):
+        cfg = get_config(job["arch"])
+        tcfg = TrainConfig(opt=AdamWConfig(lr=job["lr"], warmup_steps=1,
+                                           total_steps=1000),
+                           remat=True, microbatches=job["microbatches"])
+        t0 = time.monotonic()
+        batches = train_batches(cfg, job["batch"], job["seq"], job["steps"])
+        built = time.monotonic() - t0
+        ssm_batches[job["arch"]] = batches[0]
+        run = train_run(ops, cfg, tcfg, batches, job.get("every", 0))
+        log(f"  [train {tag}] {cfg.name} at published widths, all "
+            f"{cfg.n_layers} layers (d_model {cfg.d_model}, {cfg.ssm_heads} "
+            f"SSM heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}"
+            + (f", {cfg.n_q_heads}/{cfg.n_kv_heads} attention heads of "
+               f"{cfg.head_dim}, d_ff {cfg.d_ff}" if cfg.has_attn else "")
+            + f", vocab {cfg.vocab_size}): {run['params']:,} params; batch "
+            f"{job['batch']} x seq {job['seq']}, {tcfg.microbatches} "
+            f"microbatches, remat, lr {tcfg.opt.lr}, bf16 compute; batches "
+            f"built on the host in {built:.2f} s")
+        check = check_resumed if "every" in job else check_falls
+        record(*check(tag, cfg, tcfg, job, run, card))
+        timed_run(cfg.name, cfg, tcfg, job, run, ("ssd_chunk_bwd",))
+
+    # (f) 2 layers of each at their published widths, fp32 gradient
+    job = TRAIN_F
+    for arch, batch in ssm_batches.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=job["layers"])
+        batch = {k: np.ascontiguousarray(v[:job["batch"], :job["seq"]])
+                 for k, v in batch.items()}
+        record(*check_gradient("f", ops, cfg, batch))
     return runs, failures
 
 
@@ -3229,10 +3481,13 @@ KERNEL_FILES = {
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_scan.py:19"),
     # no TPU kernel: the JAX package differentiates its plain attention
-    # with XLA's autodiff
+    # and its plain chunked SSD with XLA's autodiff
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "none: XLA autodiff of src/repro/models/attention.py:104"),
+    "ssd_chunk_bwd": (
+        "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "none: XLA autodiff of src/repro/models/ssm.py:70"),
 }
 
 
@@ -3523,6 +3778,56 @@ def time_prefill_bwd(gen, fa, fab, ref, run):
     return row
 
 
+def time_ssd_bwd(gen, ssb, ref, run):
+    """B4's backward at a train run's microbatch shape (B = its microbatch,
+    L = its sequence, chunked as ``ssd_chunked`` chunks it), fp32, random
+    dy and dS.  Bound: x, dt, A, B, C, dy and dS read and dx, ddt, dA, dB
+    and dC written once; operations the five Q x Q products over each
+    causal pair (C.B^T, dC and dB once per group, their dCB summed over the
+    group's heads first; dy.x^T and W^T dy per head) and the state's two
+    (dS B and dS^T x per head and position), at the TF32 tensor-core rate
+    as B4's forward row counts them; beside it, the same operations at the
+    fp32 rate outside the tensor cores, where this kernel runs
+    (``bound_ms_fp32_cuda_cores``).  No single PyTorch call computes it
+    (autograd of ``ref.ssd_chunk_plain`` is a chain of calls)."""
+    cfg = run["cfg"]
+    Bsz, L = run["shape"]
+    Q = min(cfg.ssm_chunk, L)
+    Nc = -(-L // Q)
+    H, P, N, G = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                  cfg.ssm_groups)
+    inputs = ssd_inputs(gen, Bsz, Nc, Q, H, P, N, G)
+    dy = rand(gen, Bsz, Nc, Q, H, P, scale=1.0)
+    dS = rand(gen, Bsz, Nc, H, P, N, scale=1.0)
+    got = ssb.ssd_chunk_bwd(*inputs, dy, dS)
+    err, rel, ok = ssd_bwd_agreement(got, ssd_bwd_plain(ref, inputs, dy,
+                                                        dS))
+    if not ok:
+        raise SystemExit(f"ssd_chunk_bwd disagrees at the timing shape: "
+                         f"max_rel_err {rel:.3e}")
+    ms = time_ms(lambda i: ssb.ssd_chunk_bwd(*inputs, dy, dS))
+    device = graph_ms(lambda i: ssb.ssd_chunk_bwd(*inputs, dy, dS))
+    plain = time_ms(lambda i: ref.ssd_chunk_bwd_plain(*inputs, dy, dS),
+                    reps=5, inner=2)
+    chunks = Bsz * Nc
+    pairs = Q * (Q + 1) // 2
+    flops = chunks * (3 * pairs * 2 * N * G + 2 * pairs * 2 * P * H
+                      + 2 * 2 * Q * P * N * H)
+    nbytes = 4 * (3 * chunks * Q * H * P            # x, dy in; dx out
+                  + chunks * H * P * N             # dS in
+                  + 2 * 2 * chunks * Q * G * N     # B, C in; dB, dC out
+                  + 2 * chunks * Q * H + 2 * H)    # dt in, ddt out; A, dA
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = _row("ssd_chunk_bwd", run, err, rel, ms, plain, t_bytes,
+               flops / TF32_FLOPS_PER_S * 1e3, None,
+               f"B={Bsz} Nc={Nc} Q={Q} H={H} P={P} N={N} G={G} (L={L}) fp32",
+               device_ms=device,
+               bound_ms_fp32_cuda_cores=max(
+                   t_bytes, flops / FP32_FLOPS_PER_S * 1e3))
+    row["launches_per_step"] = row.pop("launches_per_request")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3538,6 +3843,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd_chunk_bwd as ssb
     from repro_torch.kernels import ssd_scan as ssd
 
     t_start = time.monotonic()
@@ -3586,6 +3892,9 @@ def main() -> int:
     if not served or not all(served.values()):
         raise SystemExit(f"the SSD chunk kernel at P = 64 does not run on "
                          f"the tensor cores: HMMA counts {served}")
+    # B4's backward runs on the CUDA cores (fp32 FMA)
+    for fn, n in sorted(hmma_counts(build, "ssd_chunk_bwd").items()):
+        log(f"    ssd_chunk_bwd SASS: {n:5d} HMMA in {fn}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -3598,6 +3907,7 @@ def main() -> int:
     check_chunk(gen, fa, ref)
     check_prefill_bwd(gen, fa, fab, ref)
     check_ssd(gen, ssd, ref)
+    check_ssd_bwd(gen, ops, ssb, ref)
 
     log("[4] greedy decoding")
     phase_greedy()
@@ -3606,6 +3916,7 @@ def main() -> int:
     phase_orchestrated_smoke()
     phase_evaluation_smoke(ops)
     phase_train_smoke(ops)
+    phase_quickstart()
 
     runs, failures = [], []
     for i, (arch, variants) in enumerate(FULL_WIDTH):
@@ -3624,7 +3935,9 @@ def main() -> int:
     failures += phase_evaluation(card)
     log(f"[5.{len(FULL_WIDTH) + 3}] the trainer: yi-100m with a resume, "
         f"yi-9b at {TRAIN_B['layers']} layers, a full-width gradient "
-        f"against the CPU (train)")
+        f"against the CPU, mamba2-370m (48 layers) with a resume, "
+        f"hymba-1.5b (32 layers), 2-layer SSM gradients against the CPU "
+        f"(train)")
     train_runs, failed = phase_train(ops, card)
     runs += train_runs
     failures += failed
@@ -3638,7 +3951,8 @@ def main() -> int:
                                                               run),
               "ssd_chunk": lambda run: time_ssd(gen, ssd, ref, run),
               "flash_attention_bwd": lambda run: time_prefill_bwd(
-                  gen, fa, fab, ref, run)}
+                  gen, fa, fab, ref, run),
+              "ssd_chunk_bwd": lambda run: time_ssd_bwd(gen, ssb, ref, run)}
     rows = [timers[name](run) for run in runs
             for name in run["variant"].timed]
     for r in rows:

@@ -38,10 +38,14 @@ class SyntheticCorpus:
         V = dc.vocab_size
         # sparse deterministic successor table: each (a, b) -> c
         self._succ = rng.randint(1, V, size=(min(V, 4096), min(V, 4096)))
-        # zipf unigram fallback
+        # zipf unigram fallback, drawn as ``rng.choice(V, p=unigram)`` draws
+        # it (the same cdf, one uniform each), with the cdf summed once
+        # here rather than over all V tokens at every draw
         ranks = np.arange(1, V + 1)
         p = 1.0 / ranks ** 1.1
         self._unigram = p / p.sum()
+        cdf = self._unigram.cumsum()
+        self._cdf = cdf / cdf[-1]
 
     def doc(self, rng: np.random.RandomState, length: int) -> np.ndarray:
         V = self.dc.vocab_size
@@ -52,7 +56,8 @@ class SyntheticCorpus:
             if rng.rand() < self.dc.ngram_strength:
                 c = int(self._succ[a % n, b % n])
             else:
-                c = int(rng.choice(V, p=self._unigram))
+                c = int(self._cdf.searchsorted(rng.random_sample(),
+                                               side="right"))
             out[i] = c
             a, b = b, c
         return out

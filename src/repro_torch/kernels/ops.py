@@ -6,11 +6,12 @@ There is no head-dim padding here: pools and activations keep
 ``D = head_dim`` (the 128-lane pad of the JAX package is a TPU matter).
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
-card the prefill kernel runs inside an ``autograd.Function`` whose backward
-is the hand-written ``flash_attention_bwd`` kernel.  The decode kernels and
-the SSD chunk kernel have no backward yet (ROADMAP Queue A), so their CUDA
-branches raise when autograd would need a gradient through them
-(``grad_guard``) instead of silently dropping it.
+card the prefill kernel and the SSD chunk kernel run inside
+``autograd.Function``s whose backwards are the hand-written
+``flash_attention_bwd`` and ``ssd_chunk_bwd`` kernels.  The decode kernels
+have no backward (decoding does not train), so their CUDA branches raise
+when autograd would need a gradient through them (``grad_guard``) instead
+of silently dropping it.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk_bwd as _ssb
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -29,11 +31,12 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
 
 def grad_guard(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise if autograd would need a gradient through ``kernel``, a CUDA
-    kernel with no backward: grad mode is on and an input requires grad."""
+    decode kernel, which has no backward: grad mode is on and an input
+    requires grad."""
     if _needs_grad(*tensors):
         raise RuntimeError(
-            f"{kernel}: the CUDA kernel has no backward yet (ROADMAP Queue "
-            f"A), so it cannot run where a gradient is needed; call it "
+            f"{kernel}: the CUDA kernel has no backward (decoding does not "
+            f"train), so it cannot run where a gradient is needed; call it "
             f"under torch.no_grad() or on tensors that do not require grad")
 
 
@@ -112,14 +115,36 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.flash_decode_plain(q, k, v, lens, start, softcap, scale)
 
 
+class _SSDChunk(torch.autograd.Function):
+    """The SSD chunk kernel with the hand-written backward kernel: the
+    forward saves x, dt, A, B and C for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_):
+        y, S = _ssd.ssd_chunk(x, dt, A, B_, C_)
+        ctx.save_for_backward(x, dt, A, B_, C_)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        # an unused output's gradient arrives as zeros (materialized); a
+        # used one may be a strided view (``ssd_chunked`` slices y after a
+        # reshape), and the kernel reads raw contiguous rows
+        return _ssb.ssd_chunk_bwd(*ctx.saved_tensors, dy.contiguous(),
+                                  dS.contiguous())
+
+
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               B_: torch.Tensor, C_: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Within-chunk SSD, fp32: x [B, Nc, Q, H, P], dt [B, Nc, Q, H], A [H],
     B_/C_ [B, Nc, Q, G, N] per group -> (y [B, Nc, Q, H, P],
-    S [B, Nc, H, P, N])."""
+    S [B, Nc, H, P, N]).  Differentiable on both devices (on the card
+    through the backward kernel); where no gradient is needed (serving)
+    the card launches the forward kernel alone."""
     if x.is_cuda:
-        grad_guard("ssd_chunk", x, dt, A, B_, C_)
+        if _needs_grad(x, dt, A, B_, C_):
+            return _SSDChunk.apply(x, dt, A, B_, C_)
         return _ssd.ssd_chunk(x, dt, A, B_, C_)
     return ref.ssd_chunk_plain(x, dt, A, B_, C_)
 
@@ -130,7 +155,8 @@ def launch_counts() -> dict[str, int]:
             "flash_decode": _fd.flash_decode.launches,
             "flash_attention": _fa.flash_attention.launches,
             "flash_attention_bwd": _fab.flash_attention_bwd.launches,
-            "ssd_chunk": _ssd.ssd_chunk.launches}
+            "ssd_chunk": _ssd.ssd_chunk.launches,
+            "ssd_chunk_bwd": _ssb.ssd_chunk_bwd.launches}
 
 
 def reset_launch_counts() -> None:
@@ -140,3 +166,4 @@ def reset_launch_counts() -> None:
     _fa.flash_attention.offset_launches = 0
     _fab.flash_attention_bwd.launches = 0
     _ssd.ssd_chunk.launches = 0
+    _ssb.ssd_chunk_bwd.launches = 0

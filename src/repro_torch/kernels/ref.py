@@ -302,6 +302,63 @@ def ssd_chunk_plain(x, dt, A, B_, C_):
                          torch.repeat_interleave(C_, rep, dim=3))
 
 
+def ssd_chunk_bwd_plain(x, dt, A, B_, C_, dy, dS):
+    """Plain version of the SSD chunk kernel's backward: the formulas
+    written out in torch (not autograd), in the inputs' dtype.
+
+    Per (batch, chunk) and head h of group g, with cs the inclusive cumsum
+    of dt * A[h], L_ts = exp(cs_t - cs_s) for t >= s (else 0),
+    CB_ts = C_t . B_s, W_ts = CB_ts L_ts dt_s and
+    w_s = exp(cs_{Q-1} - cs_s) dt_s (so y = W x, S = sum_s w_s x_s B_s^T):
+    dW = dy x^T (t >= s), dCB = dW L dt_s, R = dW W, dw_s = x_s . (dS B_s),
+    Z = dw w; dx = W^T dy + w (dS B), dC = dCB B, dB = dCB^T C
+    + w (dS^T x), dcs_t = sum_s R_ts - sum_t' R_t't - Z_t (+ sum Z at
+    t = Q - 1), ddt_s = sum_t dW CB L + dw_s exp(cs_{Q-1} - cs_s)
+    + A sum_{t >= s} dcs_t, dA = sum over batch, chunks and s of
+    dt_s sum_{t >= s} dcs_t.
+
+    x, dy [B,Nc,Q,H,P]; dt [B,Nc,Q,H]; A [H]; B_/C_ [B,Nc,Q,G,N] per group;
+    dS [B,Nc,H,P,N].  Returns (dx, ddt, dA, dB, dC), dB and dC per group
+    (summed over the group's heads).
+    """
+    Bsz, Nc, Q, H, P = x.shape
+    G, N = B_.shape[3], B_.shape[4]
+    rep = H // G
+    Bh = torch.repeat_interleave(B_, rep, dim=3)
+    Ch = torch.repeat_interleave(C_, rep, dim=3)
+    cs = torch.cumsum(dt * A, dim=2)                       # [B,Nc,Q,H]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    diff = (cs[:, :, :, None, :] - cs[:, :, None, :, :]).permute(0, 1, 4, 2,
+                                                                 3)
+    L = torch.where(tri, torch.exp(torch.where(tri, diff,
+                                               torch.zeros_like(diff))),
+                    torch.zeros_like(diff))                # [B,Nc,H,t,s]
+    dts = dt.permute(0, 1, 3, 2)[:, :, :, None, :]         # [B,Nc,H,1,s]
+    CB = torch.einsum("bcthn,bcshn->bchts", Ch, Bh)
+    W = CB * L * dts
+    decay = torch.exp(cs[:, :, -1:] - cs)                  # [B,Nc,Q,H]
+    w = decay * dt
+    dW = torch.einsum("bcthp,bcshp->bchts", dy, x) * tri
+    dCB = dW * L * dts
+    dSB = torch.einsum("bchpn,bcshn->bcshp", dS, Bh)       # dS B_s
+    dSx = torch.einsum("bchpn,bcshp->bcshn", dS, x)        # dS^T x_s
+    dx = torch.einsum("bchts,bcthp->bcshp", W, dy) + w[..., None] * dSB
+    dC = torch.einsum("bchts,bcshn->bcthn", dCB, Bh)
+    dB = torch.einsum("bchts,bcthn->bcshn", dCB, Ch) + w[..., None] * dSx
+    dw = (x * dSB).sum(-1)                                 # [B,Nc,Q,H]
+    R = dW * W
+    Z = dw * w
+    dcs = (R.sum(-1) - R.sum(-2)).permute(0, 1, 3, 2) - Z
+    dcs[:, :, -1] += Z.sum(2)
+    suf = torch.flip(torch.cumsum(torch.flip(dcs, [2]), dim=2), [2])
+    K = (dW * CB * L).sum(-2).permute(0, 1, 3, 2)          # [B,Nc,Q,H]
+    ddt = K + dw * decay + A * suf
+    dA = (dt * suf).sum((0, 1, 2))
+    dB = dB.reshape(Bsz, Nc, Q, G, rep, N).sum(4)
+    dC = dC.reshape(Bsz, Nc, Q, G, rep, N).sum(4)
+    return dx, ddt, dA, dB, dC
+
+
 def ssd_reference(xs, dt, A, B_, C_, init_state=None):
     """Token-by-token recurrent SSD oracle: xs [B,L,H,P], dt [B,L,H], A [H],
     B_/C_ [B,L,G,N] -> (y [B,L,H,P], final state [B,H,P,N])."""

@@ -33,18 +33,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-              B_: torch.Tensor, C_: torch.Tensor
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the SSD chunk kernel on CUDA tensors.
-
-    x: [B, Nc, Q, H, P]; dt: [B, Nc, Q, H]; A: [H]; B_/C_: [B, Nc, Q, G, N];
-    all fp32.  P in ``HEAD_DIMS``, N <= ``MAX_STATE``, Q <= ``MAX_CHUNK``,
-    H a multiple of G.  Returns (y [B, Nc, Q, H, P], S [B, Nc, H, P, N]).
-    """
-    if not x.is_cuda:
-        raise ValueError("ssd_chunk launches a CUDA kernel; "
-                         "use ops.ssd_chunk for CPU tensors")
+def check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B_: torch.Tensor, C_: torch.Tensor) -> tuple[int, ...]:
+    """Raise unless x, dt, A, B_ and C_ are what the SSD chunk kernels
+    take (this kernel and its backward): fp32, contiguous, on x's device,
+    of consistent shapes within the limits.  Returns (B, Nc, Q, H, P, G,
+    N)."""
     Bsz, Nc, Q, H, P = x.shape
     G, N = B_.shape[3], B_.shape[4]
     if P not in HEAD_DIMS:
@@ -61,8 +55,25 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     check_tensor("A", A, dev, f32, (H,))
     check_tensor("B_", B_, dev, f32, (Bsz, Nc, Q, G, N))
     check_tensor("C_", C_, dev, f32, (Bsz, Nc, Q, G, N))
+    return Bsz, Nc, Q, H, P, G, N
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B_: torch.Tensor, C_: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the SSD chunk kernel on CUDA tensors.
+
+    x: [B, Nc, Q, H, P]; dt: [B, Nc, Q, H]; A: [H]; B_/C_: [B, Nc, Q, G, N];
+    all fp32.  P in ``HEAD_DIMS``, N <= ``MAX_STATE``, Q <= ``MAX_CHUNK``,
+    H a multiple of G.  Returns (y [B, Nc, Q, H, P], S [B, Nc, H, P, N]).
+    """
+    if not x.is_cuda:
+        raise ValueError("ssd_chunk launches a CUDA kernel; "
+                         "use ops.ssd_chunk for CPU tensors")
+    Bsz, Nc, Q, H, P, G, N = check_inputs(x, dt, A, B_, C_)
+    dev = x.device
     y = torch.empty_like(x)
-    S = torch.empty((Bsz, Nc, H, P, N), dtype=f32, device=dev)
+    S = torch.empty((Bsz, Nc, H, P, N), dtype=torch.float32, device=dev)
     if Bsz * Nc == 0 or H == 0:
         return y, S
     stream = torch.cuda.current_stream(dev).cuda_stream

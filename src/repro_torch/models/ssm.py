@@ -112,7 +112,9 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int, init_state=None):
     Args:
       xs: [B, L, H, P] inputs (post-conv, activated), fp32.
       dt: [B, L, H] softplus'd step sizes, fp32.
-      A:  [H] negative decay rates, fp32.
+      A:  [H] negative decay rates, fp32 or the compute dtype (bf16
+        training casts the layer-stacked ``A_log``, as the JAX package
+        does); promoted to fp32 here, as ``dt * A`` promotes it in JAX.
       B_, C_: [B, L, G, N] input/output projections, fp32.
       chunk: the chunk length; Q = min(chunk, L) and L is zero-padded to a
         multiple of Q with dt = 0 (decay 1, no input), which leaves the
@@ -138,7 +140,8 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int, init_state=None):
     C_c = C_.reshape(Bsz, Nc, Q, G, N).contiguous()
 
     # within-chunk: the kernel (groups resolved inside it)
-    y_intra, S_chunk = ops.ssd_chunk(xs_c, dt_c, A.contiguous(), B_c, C_c)
+    A = A.float().contiguous()
+    y_intra, S_chunk = ops.ssd_chunk(xs_c, dt_c, A, B_c, C_c)
 
     # across chunks: state entering chunk c, then state' = state * a + S_c
     cs = torch.cumsum(dt_c * A, dim=2)                  # [B, Nc, Q, H]

@@ -141,7 +141,8 @@ def batch_to_device(batch: dict, device) -> dict:
 
 class Trainer:
     """Host loop: data -> step -> metrics -> periodic checkpoint, with
-    resume-from-latest restart (fault tolerance)."""
+    resume-from-latest restart (fault tolerance).  ``checkpoint_every`` 0
+    saves only at the end of ``run``."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
                  data_iter, checkpoint_dir: str | None = None,
@@ -174,7 +175,8 @@ class Trainer:
                 m["step"] = self.step
                 m["wall"] = time.time() - t0
                 history.append(m)
-            if self.ckpt is not None and self.step % self.checkpoint_every == 0:
+            if (self.ckpt is not None and self.checkpoint_every
+                    and self.step % self.checkpoint_every == 0):
                 self.ckpt.save(self.state, self.step)
         if self.ckpt is not None:
             self.ckpt.save(self.state, self.step)

@@ -136,14 +136,14 @@ def test_attention_layer_grad_matches_jax(arch, S, local):
 
 def test_grad_guard_raises_only_where_a_gradient_is_needed():
     """The condition under which the CUDA branches of the kernels without
-    a backward (B1, B3, B4) raise: grad mode on and an input requiring
-    grad."""
+    a backward (the decode kernels B1, B3) raise: grad mode on and an
+    input requiring grad."""
     x = torch.zeros(3, requires_grad=True)
     y = torch.zeros(3)
-    with pytest.raises(RuntimeError, match="ssd_chunk: the CUDA kernel has "
-                       "no backward yet"):
-        ops.grad_guard("ssd_chunk", y, x)
-    ops.grad_guard("ssd_chunk", y, y)           # serving: nothing needs grad
+    with pytest.raises(RuntimeError, match="paged_decode: the CUDA kernel "
+                       "has no backward"):
+        ops.grad_guard("paged_decode", y, x)
+    ops.grad_guard("paged_decode", y, y)        # serving: nothing needs grad
     with torch.no_grad():
         ops.grad_guard("paged_decode", x, y)    # or grad mode is off
     with pytest.raises(RuntimeError, match="flash_decode"):

@@ -18,6 +18,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_attention_bwd as tfab
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk_bwd as tssb
 from repro_torch.kernels import ssd_scan as tssd
 
 PAGED_CASES = [
@@ -189,6 +190,13 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    """fp32 matmuls on the card without TF32 for one test, restored after
+    it, so that no later test in the process depends on the order."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
 
 
 @pytest.mark.gpu
@@ -730,13 +738,12 @@ def test_cluster_switch_and_crash_on_the_card(cuda, arch, lose_pages):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("window,hidden,epochs", [(3, 8, 40), (50, 32, 20)])
-def test_lstm_predictions_on_the_card_equal_the_cpu(cuda, window, hidden,
-                                                    epochs):
+def test_lstm_predictions_on_the_card_equal_the_cpu(cuda, no_tf32, window,
+                                                    hidden, epochs):
     """The LSTM trained and run on the card predicts what the same code
     predicts on the CPU, within a relative 1e-4 (fp32, TF32 off)."""
     from repro_torch.core.predictor import LSTMWorkloadPredictor
     from repro_torch.serve_orchestrated import forecast
-    torch.backends.cuda.matmul.allow_tf32 = False
     if window == 3:
         got, want = forecast(12, cuda.type), forecast(12, "cpu")
         w = got["window"]
@@ -756,12 +763,11 @@ def test_lstm_predictions_on_the_card_equal_the_cpu(cuda, window, hidden,
 
 
 @pytest.mark.gpu
-def test_run_real_spans_on_the_card_equals_the_cpu(cuda):
+def test_run_real_spans_on_the_card_equals_the_cpu(cuda, no_tf32):
     """``run_real_spans`` (llama2-70b smoke, 6 chips, 3 spans, a switch each
     span with requests in flight) gives the same plans, reports and tokens
     on the card as on the CPU (fp32)."""
     cs = _chip_smoke()
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.real_spans_twin(cuda.type)
     assert card == cs.real_spans_twin("cpu")
     assert sum(s["migrated"] for s in card["switches"]) >= 1
@@ -769,25 +775,23 @@ def test_run_real_spans_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_run_real_spans_opt_30b_on_the_card_equals_the_cpu(cuda):
+def test_run_real_spans_opt_30b_on_the_card_equals_the_cpu(cuda, no_tf32):
     """``run_real_spans`` on the default model's smoke config, opt-30b
     (sinusoidal positions, biases, GELU; 6 chips, 3 spans): the same
     plans, reports and tokens on the card as on the CPU (fp32)."""
     cs = _chip_smoke()
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.real_spans_twin(cuda.type, "opt-30b")
     assert card == cs.real_spans_twin("cpu", "opt-30b")
     assert len(card["tokens"]) == 18
 
 
 @pytest.mark.gpu
-def test_moe_capacity_path_on_the_card_equals_the_cpu(cuda):
+def test_moe_capacity_path_on_the_card_equals_the_cpu(cuda, no_tf32):
     """One olmoe-1b-7b MoE layer at its published widths on 4096 tokens in
     one group at capacity factor 1.25: the card drops the CPU's (token,
     slot) pairs and its output is the CPU's within 1e-4 (fp32); at a
     drop-free factor it is ``moe_ref``'s."""
     cs = _chip_smoke()
-    torch.backends.cuda.matmul.allow_tf32 = False
     r = cs.moe_capacity_twin()
     assert r["groups"] == 1 and r["dropped"] > 0 and r["same_drops"]
     assert r["max_abs_err"] <= 1e-4 and r["drop_free_err"] <= 1e-4
@@ -801,13 +805,12 @@ def test_moe_capacity_path_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_lstm_in_the_loop_on_the_card_equals_the_cpu(cuda):
+def test_lstm_in_the_loop_on_the_card_equals_the_cpu(cuda, no_tf32):
     """``OServePolicy`` with the LSTM in the loop (window 6, hidden 8) on
     ``Bench("opt-30b", 8, 10, 2)``: each span's prediction on the card is
     the CPU's within a relative 1e-4 (fp32, TF32 off)."""
     from repro_torch.benchmarks.common import Bench
     cs = _chip_smoke()
-    torch.backends.cuda.matmul.allow_tf32 = False
     bench = Bench("opt-30b", 8, n_spans=10, trace_id=2)
     card = cs.lstm_in_the_loop(bench, cuda.type)
     cpu = cs.lstm_in_the_loop(bench, "cpu")
@@ -818,11 +821,10 @@ def test_lstm_in_the_loop_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_real_validation_on_the_card_equals_the_cpu(cuda):
+def test_real_validation_on_the_card_equals_the_cpu(cuda, no_tf32):
     """``bench_e2e.real_validation(n_spans=2)`` (opt-30b smoke, 6 chips):
     the card's rows are the CPU's but for the wall-clock fields (fp32)."""
     cs = _chip_smoke()
-    torch.backends.cuda.matmul.allow_tf32 = False
     rows, card = cs.real_validation_rows(cuda.type)
     assert card == cs.real_validation_rows("cpu")[1]
     assert len(rows) == 7 and "completed=12/12" in rows[2]
@@ -911,23 +913,143 @@ def test_ops_flash_attention_grad_runs_the_backward_kernel(cuda):
         grad_close(t.grad, w, torch.float32)
 
 
+# B4's backward on phase 3's cases (``chip_smoke.SSD_CASES``, one table for
+# both) and this file's Q = 1 case; ragged-n13 with every input (dy and dS
+# too) off a 16-byte boundary
+SSD_BWD_CASES = _chip_smoke().SSD_CASES + [c for c in SSD_CASES
+                                           if c[0] == "q1"]
+
+
+def ssd_bwd_inputs(seed, B, Nc, Q, H, P, N, G, device):
+    """x, dt, A, B, C as ``ssd_inputs`` and the cotangents dy, dS."""
+    r = np.random.RandomState(seed + 1)
+    dy = r.randn(B, Nc, Q, H, P).astype(np.float32)
+    dS = r.randn(B, Nc, H, P, N).astype(np.float32)
+    return to_torch(*ssd_inputs(seed, B, Nc, Q, H, P, N, G), dy, dS,
+                    device=device)
+
+
+def ssd_bwd_close(got, want):
+    """dx rows [P] and dB, dC rows [N] within ROW_RTOL_SSD of their own
+    row's largest |value|; ddt and dA within it of their tensor's (dcs is
+    a difference of two sums and cancels within a row)."""
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == torch.float32, name
+        if name in ("ddt", "dA"):
+            # (dA is exactly zero at Q = 1: dcs cancels)
+            err = (g.double() - w).abs().max() / w.abs().max().clamp_min(
+                1e-30)
+            assert torch.isfinite(g).all() and err <= ROW_RTOL_SSD, name
+        else:
+            assert row_rel_err(g, w) <= ROW_RTOL_SSD, name
+
+
+def ssd_bwd_want(args):
+    """The plain backward in float64 on the same inputs."""
+    return ref.ssd_chunk_bwd_plain(*(t.double() for t in args))
+
+
 @pytest.mark.gpu
-def test_ssd_kernel_raises_under_grad_on_a_mamba2_train_step(cuda):
-    """The SSD chunk kernel has no backward yet: a mamba2 train step on the
-    card raises its guard's error, where serving (no grad) runs."""
+@pytest.mark.parametrize("name,B,Nc,Q,H,P,N,G", SSD_BWD_CASES,
+                         ids=[c[0] for c in SSD_BWD_CASES])
+def test_ssd_chunk_bwd_kernel_matches_plain(cuda, name, B, Nc, Q, H, P, N,
+                                            G):
+    """The backward kernels against ``ref.ssd_chunk_bwd_plain`` on the
+    same x, dt, A, B, C, dy and dS; one wrapper call, one count."""
+    args = ssd_bwd_inputs(31, B, Nc, Q, H, P, N, G, cuda)
+    if name == "ragged-n13":
+        args = [unaligned(t) for t in args]
+    before = tssb.ssd_chunk_bwd.launches
+    got = tssb.ssd_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    assert tssb.ssd_chunk_bwd.launches == before + 1
+    ssd_bwd_close(got, ssd_bwd_want(args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,Nc,Q,H,P,N,G", [
+    ("mamba2", 2, 4, 256, 32, 64, 128, 1),
+    ("groups2-ragged", 1, 3, 100, 8, 32, 16, 2),
+], ids=["mamba2", "groups2-ragged"])
+def test_ssd_chunk_bwd_kernel_repeats_to_the_bit(cuda, name, B, Nc, Q, H, P,
+                                                 N, G):
+    """No atomics: two calls on the same inputs give the same bits (dA and
+    the group sums of dB and dC included)."""
+    args = ssd_bwd_inputs(32, B, Nc, Q, H, P, N, G, cuda)
+    got = tssb.ssd_chunk_bwd(*args)
+    again = tssb.ssd_chunk_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,H,P,N,n", [
+    (256, 25, 64, 16, 203),     # hymba
+    (256, 32, 64, 128, 77),     # mamba2
+    (100, 4, 32, 16, 9),
+], ids=["hymba", "mamba2", "ragged-q"])
+def test_ssd_chunk_bwd_rows_do_not_depend_on_earlier_dy(cuda, Q, H, P, N,
+                                                        n):
+    """dy changed in rows < n leaves rows >= n of dx, ddt, dB and dC
+    bit-equal: each sum over t >= s is a true suffix sum, never a total
+    less a prefix."""
+    args = ssd_bwd_inputs(33, 1, 1, Q, H, P, N, 1, cuda)
+    moved = list(args)
+    moved[5] = args[5].clone()
+    moved[5][:, :, :n] = torch.randn_like(moved[5][:, :, :n])
+    got = tssb.ssd_chunk_bwd(*args)
+    again = tssb.ssd_chunk_bwd(*moved)
+    for i in (0, 1, 3, 4):
+        assert torch.equal(got[i][:, :, n:], again[i][:, :, n:]), i
+
+
+@pytest.mark.gpu
+def test_ops_ssd_chunk_grad_runs_the_backward_kernel(cuda):
+    """On CUDA tensors that require grad, ``ops.ssd_chunk``'s backward is
+    the kernel: one launch, the plain version's gradient, with a strided
+    dy made contiguous and the unused S's gradient arriving as zeros."""
+    from repro_torch.kernels import ops
+    args = ssd_bwd_inputs(34, 1, 2, 100, 4, 32, 16, 1, cuda)
+    live = [t.clone().requires_grad_(True) for t in args[:5]]
+    y, _ = ops.ssd_chunk(*live)
+    dy = args[5].transpose(-1, -2).contiguous().transpose(-1, -2)
+    before = tssb.ssd_chunk_bwd.launches
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert tssb.ssd_chunk_bwd.launches == before + 1
+    ssd_bwd_close([t.grad for t in live],
+                  ssd_bwd_want(args[:5] + [dy.contiguous(),
+                                           torch.zeros_like(args[6])]))
+
+
+@pytest.mark.gpu
+def test_mamba2_train_step_on_the_card_equals_the_cpu(cuda, no_tf32):
+    """A mamba2 smoke train step (fp32, remat, 2 microbatches, a padded
+    last chunk) on the card, through B4 and its backward, gives the CPU's
+    loss within a relative 1e-5 and its parameters within 1e-5."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.pipeline import DataConfig, packed_batches
-    from repro_torch.models import forward
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import tree_leaves, tree_map
     from repro_torch.train.trainer import (TrainConfig, batch_to_device,
                                            init_train_state,
                                            make_train_step)
     cfg = get_smoke_config("mamba2-370m")
-    tcfg = TrainConfig(compute_dtype=torch.float32)
-    state = init_train_state(cfg, 0, tcfg, cuda)
-    batch = batch_to_device(next(packed_batches(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=32, batch_size=2))), cuda)
-    with pytest.raises(RuntimeError, match="ssd_chunk: the CUDA kernel has "
-                       "no backward yet"):
-        make_train_step(cfg, tcfg)(state, batch)
-    logits = forward(state["params"], cfg, batch["tokens"])
-    assert torch.isfinite(logits).all()
+    tcfg = TrainConfig(microbatches=2, compute_dtype=torch.float32)
+    batch = next(packed_batches(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=96, batch_size=4)))
+    # one set of weights: a generator on the card draws other numbers
+    cpu = init_train_state(cfg, 0, tcfg, "cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    cpu, m_cpu = make_train_step(cfg, tcfg)(cpu, batch_to_device(batch,
+                                                                 "cpu"))
+    ops.reset_launch_counts()
+    card, m_card = make_train_step(cfg, tcfg)(card, batch_to_device(batch,
+                                                                    cuda))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk_bwd"] == cfg.n_layers * 2
+    assert counts["ssd_chunk"] == cfg.n_layers * 2 * 2
+    np.testing.assert_allclose(float(m_card["nll"]), float(m_cpu["nll"]),
+                               rtol=1e-5)
+    for a, b in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])):
+        close(a.detach().cpu().numpy(), b.numpy(), 1e-5)

@@ -243,6 +243,18 @@ def test_trainer_restart_equals_the_uninterrupted_run(tmp_path):
         assert torch.equal(a, b)
 
 
+def test_trainer_checkpoint_every_0_saves_only_at_the_end(tmp_path):
+    """``checkpoint_every=0`` with a checkpoint directory: no periodic
+    save, one at the end of ``run``."""
+    cfg = get_smoke_config("yi-9b")
+    tcfg = ttr.TrainConfig(remat=False, microbatches=1)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, batch_size=2)
+    tr = ttr.Trainer(cfg, tcfg, packed_batches(dc), str(tmp_path),
+                     checkpoint_every=0, device="cpu")
+    tr.run(2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_000000002"]
+
+
 def test_cast_for_compute_casts_what_jax_casts():
     """Every fp32 leaf with ndim >= 2 (the stacked gains and the MoE
     router too) becomes bf16, the rest stays; the casts carry gradients

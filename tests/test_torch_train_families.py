@@ -2,8 +2,8 @@
 the JAX package on the CPU, fp32 compute: olmoe-1b-7b (MoE, with the
 load-balance loss in the total), opt-30b (sinusoidal positions, biases,
 GELU), musicgen-medium (stub-frontend ``embeds``), mamba2-370m and
-hymba-1.5b (the SSD mixer through its plain version: on the card its kernel
-has no backward yet).  Loss within 1e-5 relative, every gradient leaf
+hymba-1.5b (the SSD mixer through its plain version, as on the CPU
+everywhere).  Loss within 1e-5 relative, every gradient leaf
 within 1e-4 of its largest |value|; and one AdamW step of each, parameters
 within 1e-5.
 """

@@ -1,18 +1,20 @@
-"""How phase 5's "train" run (b) behaves at other learning rates and in
-fp32 compute.
+"""How phase 5's "train" runs (b), (d) and (e) behave at other learning
+rates and in fp32 compute.
 
-    python3 tools/train_lr_sweep.py [--runs 3e-5:fp32,1e-5:bf16,3e-6:bf16]
+    python3 tools/train_lr_sweep.py [--job b] [--runs 3e-5:fp32,1e-5:bf16]
+    python3 tools/train_lr_sweep.py --job d --runs 1e-4:bf16,3e-4:bf16
 
-Needs one CUDA card and ``nvcc``, as ``chip_smoke.py`` does.  Trains
-yi-9b at its published widths cut to 8 of 48 layers (``chip_smoke.py``'s
-TRAIN_B: seq 2048, batch 2, 2 microbatches, remat, the same 10 seeded
-batches and seed-0 weights) for 10 steps once per run, each at a constant
-learning rate (one warmup step) and a compute dtype, and prints every
-step's nll and gradient norm.  A loss that jumps in fp32 as in bf16 comes
-from the optimizer's step size at this width, not from bf16 rounding or
-the attention backward kernel's; the fp32 kernels are held to 1e-5
-against the CPU (``chip_smoke.py`` phases 3 and 4).  The last line is one
-JSON object with the card and every run.
+Needs one CUDA card and ``nvcc``, as ``chip_smoke.py`` does.  Trains the
+job's model as ``chip_smoke.py`` does (``--job b``: TRAIN_B, yi-9b at its
+published widths cut to 8 of 48 layers; ``d``: TRAIN_D, mamba2-370m at all
+48 layers; ``e``: TRAIN_E, hymba-1.5b at all 32 layers; seq 2048, batch 2,
+2 microbatches, remat, the same seeded batches and seed-0 weights) for the
+job's steps once per run, each at a constant learning rate (one warmup
+step) and a compute dtype, and prints every step's nll and gradient norm.
+A loss that jumps in fp32 as in bf16 comes from the optimizer's step size
+at this width, not from bf16 rounding or the backward kernels'; the fp32
+kernels are held to 1e-5 against the CPU (``chip_smoke.py`` phases 3 and
+4).  The last line is one JSON object with the card and every run.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ ROOT = os.path.dirname(HERE)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--job", default="b", choices=("b", "d", "e"))
     ap.add_argument("--runs", default="3e-5:fp32,1e-5:bf16,3e-6:bf16",
                     help="comma-separated lr:dtype pairs (dtype fp32|bf16)")
     args = ap.parse_args()
@@ -46,8 +49,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
-    job = cs.TRAIN_B
-    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=job["layers"])
+    if args.job == "b":
+        job = cs.TRAIN_B
+        cfg = dataclasses.replace(get_config("yi-9b"),
+                                  n_layers=job["layers"])
+    else:
+        job = cs.TRAIN_D if args.job == "d" else cs.TRAIN_E
+        cfg = get_config(job["arch"])
     batches = cs.train_batches(cfg, job["batch"], job["seq"], job["steps"])
     dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
     out = []
@@ -62,15 +70,16 @@ def main() -> int:
         hist = tr.run(job["steps"], log_every=1)
         nll = [h["nll"] for h in hist]
         gnorm = [h["grad_norm"] for h in hist]
-        print(f"lr {lr} {dtype}: nll {[round(x, 4) for x in nll]}; grad "
-              f"norm {[round(x, 2) for x in gnorm]} "
+        print(f"{cfg.name} lr {lr} {dtype}: nll "
+              f"{[round(x, 4) for x in nll]}; grad norm "
+              f"{[round(x, 2) for x in gnorm]} "
               f"({time.monotonic() - t0:.1f} s); {card}", flush=True)
         out.append({"lr": float(lr), "dtype": dtype, "nll": nll,
                     "grad_norm": gnorm})
         del tr
         torch.cuda.empty_cache()
     print(card)
-    print(json.dumps({"card": card, "runs": out}))
+    print(json.dumps({"card": card, "job": args.job, "runs": out}))
     return 0
 
 
