@@ -3454,7 +3454,9 @@ def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
             f"built on the host in {built:.2f} s")
         check = check_resumed if "every" in job else check_falls
         record(*check(tag, cfg, tcfg, job, run, card))
-        timed_run(cfg.name, cfg, tcfg, job, run, ("ssd_chunk_bwd",))
+        timed_run(cfg.name, cfg, tcfg, job, run,
+                  ("ssd_chunk_bwd", "flash_attention_bwd") if cfg.has_attn
+                  else ("ssd_chunk_bwd",))
 
     # (f) 2 layers of each at their published widths, fp32 gradient
     job = TRAIN_F
@@ -3786,10 +3788,13 @@ def time_ssd_bwd(gen, ssb, ref, run):
     causal pair (C.B^T, dC and dB once per group, their dCB summed over the
     group's heads first; dy.x^T and W^T dy per head) and the state's two
     (dS B and dS^T x per head and position), at the TF32 tensor-core rate
-    as B4's forward row counts them; beside it, the same operations at the
-    fp32 rate outside the tensor cores, where this kernel runs
-    (``bound_ms_fp32_cuda_cores``).  No single PyTorch call computes it
-    (autograd of ``ref.ssd_chunk_plain`` is a chain of calls)."""
+    as B4's forward row counts them; beside it, the three TF32 products
+    its 3xTF32 issues for each (``bound_ms_3xtf32``).  The kernel itself
+    forms C.B^T once per block of 256 / P heads (4 at P = 64; half that
+    where N <= 32), not once a group, and whole 64 x 64 tiles on the
+    diagonal: ``gflop_issued`` counts that, ``gflop`` the bound's
+    operations.  No single PyTorch call computes it (autograd of
+    ``ref.ssd_chunk_plain`` is a chain of calls)."""
     cfg = run["cfg"]
     Bsz, L = run["shape"]
     Q = min(cfg.ssm_chunk, L)
@@ -3818,12 +3823,19 @@ def time_ssd_bwd(gen, ssb, ref, run):
                   + 2 * 2 * chunks * Q * G * N     # B, C in; dB, dC out
                   + 2 * chunks * Q * H + 2 * H)    # dt in, ddt out; A, dA
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    n_rt = -(-Q // 64)
+    tiles = n_rt * (n_rt + 1) // 2 * 64 * 64    # tile pairs' (t, s) entries
+    hb = (256 // P if P >= 32 else 8) // (2 if N <= 32 else 1)
+    blocks = G * -(-(H // G) // hb)             # head blocks (C.B^T each)
+    issued = chunks * (tiles * 2 * N * (blocks + 2 * G)
+                       + tiles * 2 * 2 * P * H + 2 * 2 * Q * P * N * H)
     row = _row("ssd_chunk_bwd", run, err, rel, ms, plain, t_bytes,
                flops / TF32_FLOPS_PER_S * 1e3, None,
                f"B={Bsz} Nc={Nc} Q={Q} H={H} P={P} N={N} G={G} (L={L}) fp32",
                device_ms=device,
-               bound_ms_fp32_cuda_cores=max(
-                   t_bytes, flops / FP32_FLOPS_PER_S * 1e3))
+               bound_ms_3xtf32=max(
+                   t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3),
+               gflop=flops / 1e9, gflop_issued=issued / 1e9)
     row["launches_per_step"] = row.pop("launches_per_request")
     return row
 
@@ -3892,9 +3904,15 @@ def main() -> int:
     if not served or not all(served.values()):
         raise SystemExit(f"the SSD chunk kernel at P = 64 does not run on "
                          f"the tensor cores: HMMA counts {served}")
-    # B4's backward runs on the CUDA cores (fp32 FMA)
-    for fn, n in sorted(hmma_counts(build, "ssd_chunk_bwd").items()):
+    hmma = hmma_counts(build, "ssd_chunk_bwd")
+    for fn, n in sorted(hmma.items()):
         log(f"    ssd_chunk_bwd SASS: {n:5d} HMMA in {fn}")
+    # its tile kernel at the served models' P = 64 (3xTF32 mma.sync)
+    served = {fn: n for fn, n in hmma.items()
+              if "ssd_bwd_tiles_kernelILi64E" in fn}
+    if not served or not all(served.values()):
+        raise SystemExit(f"the SSD backward's tile kernel at P = 64 does not "
+                         f"run on the tensor cores: HMMA counts {served}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

@@ -4,8 +4,10 @@ Every ``csrc/*.cu`` is one shared library with a plain C interface, built by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 (no PyTorch headers, so a build takes seconds).  Libraries land in
 ``build/repro_torch/<hash>/`` at the repository root, keyed by a hash of
-the sources and flags, and are built at first use.  ``build_all`` starts
-one ``nvcc`` per source, all at once.  A failed build raises.
+the sources (every ``csrc/*.cu`` and the ``*.cuh`` headers they include,
+so a changed header rebuilds each library) and flags, and are built at
+first use.  ``build_all`` starts one ``nvcc`` per source, all at once.  A
+failed build raises.
 """
 from __future__ import annotations
 

@@ -51,10 +51,11 @@
 // Tiles move by 16-byte `cp.async` into a ring of two slots, so the next
 // step's tiles are in flight while one step is multiplied (three or four
 // slots were slower on the card: the steps are not bound by the copies'
-// latency).  Shared-memory rows are
-// padded so the fragment loads hit distinct banks: rows read along k (C, B
-// chunks and the C.B^T tile) are 4 mod 32 floats long, rows read across k
-// (x, and B in the state CTAs) 8 mod 32.  Where B/C rows are not 16-byte
+// latency); the split, the products and the ring are in tf32_mma.cuh,
+// shared with the backward.  Shared-memory rows are padded so the fragment
+// loads hit distinct banks: rows read along k (C, B chunks and the C.B^T
+// tile) are 4 mod 32 floats long, rows read across k (x, and B in the
+// state CTAs) 8 mod 32.  Where B/C rows are not 16-byte
 // aligned (N not a multiple of 4, or a base pointer off 16 bytes) the same
 // kernel stages them with 4-byte copies instead.  Every CTA gathers dt of
 // its heads with one round of 4-byte copies and recomputes cs with a warp
@@ -63,7 +64,7 @@
 // stored, so the caller pads nothing.  8 warps: a row CTA's warp holds a
 // 16 x P/2 tile of each head's y (and a 16 x 32 tile of C.B^T), a state
 // CTA's warp an even share of the P x 64 tile of S.
-#include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace repro_torch {
 namespace {
@@ -108,111 +109,6 @@ size_t smem_bytes(int cs_len) {
          (2 * static_cast<size_t>(cs_len) +
           imax(kT * kLdCB + kSlots * row_slot<P>(),
                kSlots * state_slot<P>()));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-// Copy rows [0, rows) x columns [0, cols) of a tile whose element (r, c)
-// is src[r * ld + c] into dst (rows dld floats apart); elements with
-// r >= rows_ok or c >= cols_ok are zero-filled and not read.  cols is a
-// multiple of 8.  vec: 16-byte copies (src and ld 16-byte aligned, cols_ok
-// a multiple of 4), else 4-byte ones.
-__device__ __forceinline__ void stage_tile(float* dst, int dld,
-                                           const float* src, int64_t ld,
-                                           int rows, int rows_ok, int cols,
-                                           int cols_ok, bool vec, int tid) {
-  if (vec) {
-    const int c4 = cols / 4;
-    for (int i = tid; i < rows * c4; i += kThreads) {
-      const int r = i / c4;
-      const int c = (i - r * c4) * 4;
-      const bool ok = r < rows_ok && c < cols_ok;
-      cp_async16(dst + r * dld + c, ok ? src + r * ld + c : src, ok);
-    }
-  } else {
-    for (int i = tid; i < rows * cols; i += kThreads) {
-      const int r = i / cols;
-      const int c = i - r * cols;
-      const bool ok = r < rows_ok && c < cols_ok;
-      cp_async4(dst + r * dld + c, ok ? src + r * ld + c : src, ok);
-    }
-  }
-}
-
-// The ring: stage(i, slot) issues step i's copies into a slot; run() keeps
-// kSlots - 1 steps in flight and calls compute(i, slot) once step i has
-// landed.  Every thread commits one group a step (empty past the end), so
-// the wait counts hold.  The caller puts a barrier before prefetch() when
-// the slots were in use.
-template <typename Stage>
-__device__ __forceinline__ void prefetch(int n, Stage&& stage) {
-#pragma unroll
-  for (int i = 0; i < kSlots - 1; ++i) {
-    if (i < n) stage(i, i);
-    cp_async_commit();
-  }
-}
-
-template <typename Stage, typename Compute>
-__device__ __forceinline__ void run(int n, Stage&& stage,
-                                    Compute&& compute) {
-  for (int i = 0; i < n; ++i) {
-    cp_async_wait<kSlots - 2>();
-    __syncthreads();  // step i visible; step i - 1's slot is free
-    const int next = i + kSlots - 1;
-    if (next < n) stage(next, next % kSlots);
-    cp_async_commit();
-    compute(i, i % kSlots);
-  }
-}
-
-// a = hi + lo, each rounded to TF32 (cvt.rna: to nearest, ties away)
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
-  asm("cvt.rna.tf32.f32 %0, %1;\n"
-      : "=r"(lo)
-      : "f"(a - __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A 16 x 8 (m x k) operand fragment split into its TF32 parts.  Element i
-// of `v` is the fragment's register i: (row g, col t), (g + 8, t),
-// (g, t + 4), (g + 8, t + 4) for lane = 4 g + t.
-struct FragA {
-  uint32_t hi[4], lo[4];
-  FragA() = default;
-  __device__ __forceinline__ explicit FragA(const float (&v)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
-  }
-};
-
-// d += a . b in 3xTF32, b the 8 x 8 (k x n) fragment (row t, col g) and
-// (t + 4, g); the small cross terms first
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
-                                           float b0, float b1) {
-  uint32_t h0, l0, h1, l1;
-  split_tf32(b0, h0, l0);
-  split_tf32(b1, h1, l1);
-  mma_tf32(d, a.lo, h0, h1);
-  mma_tf32(d, a.hi, l0, l1);
-  mma_tf32(d, a.hi, h0, h1);
 }
 
 // All threads: dt of heads [h0, h0 + nh) into dts[k * Qpad + s], by 4-byte
@@ -323,15 +219,16 @@ __device__ __forceinline__ void row_cta(
     if (k < nkc) {  // C and B chunk k of tile c
       const int kc = k * kKC;
       const int cols = min(kKC, (N - kc + 7) / 8 * 8);
-      stage_tile(dst, kLdK, Cb + kc, sh.b_row, kT, Q - t0, cols, N - kc,
-                 sh.vec_bc, tid);
-      stage_tile(dst + kT * kLdK, kLdK, Bb + c * kT * sh.b_row + kc,
-                 sh.b_row, kT, Q - c * kT, cols, N - kc, sh.vec_bc, tid);
+      stage_tile<kThreads>(dst, kLdK, Cb + kc, sh.b_row, kT, Q - t0, cols,
+                           N - kc, sh.vec_bc, tid);
+      stage_tile<kThreads>(dst + kT * kLdK, kLdK,
+                           Bb + c * kT * sh.b_row + kc, sh.b_row, kT,
+                           Q - c * kT, cols, N - kc, sh.vec_bc, tid);
     } else {  // head k - nkc's x rows of tile c
-      stage_tile(dst, LDX,
-                 xb + c * kT * sh.x_row +
-                     static_cast<int64_t>(h0 + k - nkc) * P,
-                 sh.x_row, kT, Q - c * kT, P, P, sh.vec_x, tid);
+      stage_tile<kThreads>(dst, LDX,
+                           xb + c * kT * sh.x_row +
+                               static_cast<int64_t>(h0 + k - nkc) * P,
+                           sh.x_row, kT, Q - c * kT, P, P, sh.vec_x, tid);
     }
   };
 
@@ -402,8 +299,8 @@ __device__ __forceinline__ void row_cta(
   };
 
   const int steps = (r + 1) * per;
-  prefetch(steps, stage);
-  run(steps, stage, [&](int st, int slot) {
+  prefetch<kSlots>(steps, stage);
+  run<kSlots>(steps, stage, [&](int st, int slot) {
     if (st == 0 && warp < nh)  // dt has landed
       scan_head(A[h0 + warp], Q, Qpad, cs + warp * Qpad, dts + warp * Qpad,
                 lane);
@@ -487,13 +384,13 @@ __device__ __forceinline__ void state_cta(
   auto stage = [&](int st, int slot) {
     float* Xs = ring + slot * SLOT;
     const int s0 = st * kS;
-    stage_tile(Xs, LDX, xb + s0 * sh.x_row, sh.x_row, kS, Q - s0, P, P,
-               sh.vec_x, tid);
-    stage_tile(Xs + XS, kLdS, Bb + s0 * sh.b_row, sh.b_row, kS, Q - s0,
-               cols, N - n0, sh.vec_bc, tid);
+    stage_tile<kThreads>(Xs, LDX, xb + s0 * sh.x_row, sh.x_row, kS, Q - s0,
+                         P, P, sh.vec_x, tid);
+    stage_tile<kThreads>(Xs + XS, kLdS, Bb + s0 * sh.b_row, sh.b_row, kS,
+                         Q - s0, cols, N - n0, sh.vec_bc, tid);
   };
   const int steps = (Q + kS - 1) / kS;
-  prefetch(steps, stage);
+  prefetch<kSlots>(steps, stage);
   cp_async_wait<kSlots - 1>();  // dt has landed
   __syncthreads();
   if (warp == 0) {
@@ -512,7 +409,7 @@ __device__ __forceinline__ void state_cta(
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   // this warp's columns start past the state width: nothing to multiply
   const bool idle = n0 + wn * NS * 8 >= N;
-  run(steps, stage, [&](int st, int slot) {
+  run<kSlots>(steps, stage, [&](int st, int slot) {
     if (idle) return;
     const float* Xs = ring + slot * SLOT;
     const float* Bs = Xs + XS;

@@ -116,8 +116,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _SSDChunk(torch.autograd.Function):
-    """The SSD chunk kernel with the hand-written backward kernel: the
-    forward saves x, dt, A, B and C for the backward."""
+    """The SSD chunk kernel with the hand-written backward kernel (3xTF32
+    on the tensor cores, ``kernels/ssd_chunk_bwd.py``): the forward saves
+    x, dt, A, B and C for the backward."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_, C_):

@@ -2,20 +2,26 @@
 ``csrc/ssd_chunk_bwd.cu``.
 
 Replaces no TPU kernel: the JAX package differentiates its plain
-``ssd_chunked`` with XLA's autodiff and has no backward kernel; this is
-the port's counterpart of that autodiff for the SSD chunk kernel
-(``ssd_scan.ssd_chunk``).  From the forward's inputs x, dt, A, B, C and the
-gradients dy of y and dS of the chunk states, three launches (the 64-row
-tiles of each chunk and head; ddt and dA a head at a time; dB and dC
-summed over each group's heads) give dx, ddt, dA, dB and dC on the CUDA
-cores in fp32, with no atomics, so the same inputs give the same bits.
-Shape limits as the forward's (``ssd_scan.check_inputs``; ragged Q masked
-inside).  The kernel reads every input with 4-byte loads, so an input need
-only be contiguous, not 16-byte aligned.  Its plain version is ``ref.ssd_chunk_bwd_plain``;
+``ssd_chunked`` (``src/repro/models/ssm.py:70``) with XLA's autodiff and
+has no backward kernel; this is the port's counterpart of that autodiff
+for the SSD chunk kernel (``ssd_scan.ssd_chunk``).  From the forward's
+inputs x, dt, A, B, C and the gradients dy of y and dS of the chunk
+states it gives dx, ddt, dA, dB and dC in fp32.  Operations bound it on
+the card, so every product runs on the tensor cores in 3xTF32 (one TF32
+pass would miss the 1e-4 row limit: ``tests/test_torch_ssd_bwd_tf32.py``)
+and each is formed once: C.B^T once a block of heads, dy.x^T once a head,
+dB and dC once a group on dCB summed over the group's heads first.  Three
+launches (the state's terms, which the second takes itself where N <= 32;
+the 64-column tiles of each chunk and head block; ddt and dA a head at a
+time beside dB and dC a group at a time), no atomics, so the same inputs
+give the same bits.  Shape limits as the forward's
+(``ssd_scan.check_inputs``; ragged Q masked inside).  An input need only
+be contiguous, not 16-byte aligned (unaligned rows are staged with 4-byte
+copies).  Its plain version is ``ref.ssd_chunk_bwd_plain``;
 ``ops.ssd_chunk`` calls this from its ``autograd.Function``.
 
 ``ssd_chunk_bwd.launches`` counts the wrapper's calls this process made
-(one call, three kernel launches).
+(one call, two or three kernel launches).
 """
 from __future__ import annotations
 
