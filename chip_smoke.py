@@ -5,7 +5,8 @@
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; it exits non-zero without them.  Phases, in order (a failure exits
 non-zero before the result lines; a failed check of phase 5's "migrate",
-"prefix", "evict", "cluster", "orchestrated", "evaluation" or "train" runs
+"prefix", "evict", "cluster", "sharded", "orchestrated", "evaluation" or
+"train" runs
 is reported, and exits non-zero, after phase 6 has run and printed its
 table):
 
@@ -24,8 +25,9 @@ table):
      largest value) and bf16 (1e-2 of each output row's largest value), at
      smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m,
      and the model families' heads: opt-30b's 56/56 and olmoe-1b-7b's
-     16/16 heads of 128, a group of 1, and granite-moe's 24/8 of 64, a
-     group of 3), the prefill kernel also at a chunk's query offset, both
+     16/16 heads of 128, a group of 1, granite-moe's 24/8 of 64, a
+     group of 3, and yi-9b's shard-local heads, 16/2 at tp 2 and 4/1 at
+     tp 8), the prefill kernel also at a chunk's query offset, both
      decode kernels also split over many CTAs and, at fixed split counts,
      against the plain split-and-combine, the SSD chunk kernel also at
      ragged state widths, long chunks and unaligned inputs, and causal to
@@ -147,8 +149,24 @@ table):
      handoffs, nothing recomputed); each run must launch the paged
      decode and prefill kernels, finish 16 x 32 tokens, leave the pool
      whole and meet the 90 % agreement, and prints its switch or
-     recovery stalls, TTFT and decode rate beside the card's line; last
-     the "orchestrated" job, OServe's control loop (predict -> plan ->
+     recovery stalls, TTFT and decode rate beside the card's line; last,
+     on the same weights, the "sharded" job: the paged job on replica
+     meshes of virtual chips, every entry this card (``SHARDED_RUNS``):
+     (tp 1, pp 1) gives the paged run's tokens to the bit, (tp 2, pp 2)
+     at all 48 layers and tp 8 (4 query heads a shard over one
+     replicated KV head, a 512-page pool) meet the 90 % agreement, and
+     each launches B1 and B2 at exactly its shards' head counts and no
+     B3; the "cluster" job sharded over 8 virtual chips, a switch from
+     (tp 2) + (tp 1) to (tp 1) + (tp 2, pp 2) with every request in
+     flight moved by ``reshard_blocks`` (nothing re-prefilled or
+     recomputed), and a crash of the tp-2 replica (its requests moved by
+     reshard) and its repair onto the same chips, each finishing 16 x 32
+     tokens with every pool whole and the 90 % agreement; and
+     ``psum_compressed`` in a world of one under NCCL equal to
+     ``compress_roundtrip`` to the bit; each run prints its wall, TTFT
+     and decode rate beside the card's line, and the job its total
+     (co-located shards run the sharded path, not tensor parallelism's
+     speed); last the "orchestrated" job, OServe's control loop (predict -> plan ->
      switch): ``serve_orchestrated``'s analytic loop with its LSTM on the
      card (12 spans of a synthetic trace typed by k-means, llama2-70b
      planned on 16 chips), the card's predictions within a relative 1e-4
@@ -218,6 +236,9 @@ table):
      ``scaled_dot_product_attention`` with K/V expanded, its launches a
      step; B4's backward at (d)'s and (e)'s microbatch shapes (no library
      call computes it), its launches a step.
+
+Phase 6 also times B1 and B2 at the (tp 2, pp 2) run's shard shape
+(16/2 heads).
 
 The last three lines are the card line, one JSON object with the kernel
 table (one row per kernel and timed run) and ``{"ok": true, "device":
@@ -605,6 +626,12 @@ def check_paged(gen, fd, ref) -> None:
          [1, 15, 16, 17, 336, 512, 979, 2048], 0.0, 0, ()),
         ("granite-moe", 8, 24, 8, 64, 16,
          [1, 15, 16, 17, 336, 512, 979, 2048], 0.0, 0, (5,)),
+        # yi-9b's shard-local heads (the "sharded" job): tp 2 (16 over 2,
+        # a group of 8) and tp 8 (4 over one replicated KV head)
+        ("yi-9b-tp2", 8, 16, 2, 128, 16,
+         [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 0, (3,)),
+        ("yi-9b-tp8", 8, 4, 1, 128, 16,
+         [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 0, (3,)),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Hq, Hkv, D, page, lens, cap, win, trash in cases:
@@ -680,6 +707,8 @@ def check_prefill(gen, fa, ref) -> None:
         ("opt-30b-963", 1, 963, 963, 56, 56, 128, True, 0.0, 0),
         ("olmoe-1024", 2, 1024, 1024, 16, 16, 128, True, 0.0, 0),
         ("granite-200", 4, 200, 200, 24, 8, 64, True, 0.0, 0),
+        ("yi-9b-tp2-1024", 2, 1024, 1024, 16, 2, 128, True, 0.0, 0),
+        ("yi-9b-tp8-1024", 2, 1024, 1024, 4, 1, 128, True, 0.0, 0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Sq, Sk, Hq, Hkv, D, causal, cap, win in cases:
@@ -712,6 +741,8 @@ def check_chunk(gen, fa, ref) -> None:
         ("opt-30b", 1, CHUNK, CHUNK_OFFSET, 56, 56, 128, 0.0, 0),
         ("olmoe-1b-7b", 1, CHUNK, CHUNK_OFFSET, 16, 16, 128, 0.0, 0),
         ("granite-ragged", 2, 100, 77, 24, 8, 64, 0.0, 0),
+        ("yi-9b-tp2", 1, CHUNK, CHUNK_OFFSET, 16, 2, 128, 0.0, 0),
+        ("yi-9b-tp8", 1, CHUNK, CHUNK_OFFSET, 4, 1, 128, 0.0, 0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, C, off, Hq, Hkv, D, cap, win in cases:
@@ -1897,6 +1928,320 @@ def phase_cluster(ops, cfg, params) -> list[str]:
 
 
 # --------------------------------------------------------------------------
+# The "sharded" job: replica meshes of virtual chips on the one card.
+# --------------------------------------------------------------------------
+
+
+# phase 5's "sharded" job, on yi-9b's weights after its other runs: the
+# paged job (PAGED, FULL_WIDTH_ENGINE) on replica meshes whose entries are
+# all this card, at (tp, pp, pool pages or None for the job's): (1, 1) must
+# give the paged run's tokens to the bit; (2, 2) runs all 48 layers as two
+# stages of two head shards; tp 8 puts 4 query heads on each shard over
+# one of the 4 KV heads, which do not divide 8, so the spec replicates
+# them (each shard keeps the KV head its query heads read) on a 512-page
+# pool.  No depth is cut: co-located shards are views of the one weight
+# copy.  Then the "cluster" job sharded over 8 virtual chips: a switch
+# from (tp 2) + (tp 1) to (tp 1) + (tp 2, pp 2) with drain window 0, so
+# every request in flight moves by reshard_blocks, and a crash of the tp-2
+# replica (pages kept, moved to the tp-1 one) and its repair.  The
+# replicas share the one weight copy, so nothing is cut there either; a
+# tp-1 replica's 1024 pages and 16 slots hold all 16 requests when the
+# other dies
+SHARDED_MODELS = ("yi-9b",)
+SHARDED_RUNS = ((1, 1, None), (2, 2, None), (8, 1, 512))
+SHARDED_CLUSTER = dict(CLUSTER_RUNTIME, total_chips=8, blocks_per_chip=1024,
+                       seqs_per_chip=16, drain_steps=0)
+SHARDED_PLAN_A = (((2, 1), (1, 1)), [[0.5, 0.5], [0.5, 0.5]])
+SHARDED_PLAN_B = (((1, 1), (2, 2)), [[0.25, 0.25], [0.75, 0.75]])
+# psum_compressed in a world of one under NCCL: gradient leaves of odd
+# sizes (a padded last block, one under a block)
+PSUM_SHAPES = {"a": (3, 300), "b": (17,), "c": (4096, 1024)}
+
+
+@contextlib.contextmanager
+def kernel_heads(ops):
+    """Record (query heads, KV heads) of every ``ops.paged_decode`` and
+    ``ops.flash_attention`` call made inside: the shapes the model's
+    attention hands B1 and B2."""
+    seen = {"paged_decode": set(), "flash_attention": set()}
+    pd, fa = ops.paged_decode, ops.flash_attention
+
+    def paged(q, k_pages, *a, **kw):
+        seen["paged_decode"].add((q.shape[1], k_pages.shape[1]))
+        return pd(q, k_pages, *a, **kw)
+
+    def prefill(q, k, *a, **kw):
+        seen["flash_attention"].add((q.shape[2], k.shape[2]))
+        return fa(q, k, *a, **kw)
+
+    ops.paged_decode, ops.flash_attention = paged, prefill
+    try:
+        yield seen
+    finally:
+        ops.paged_decode, ops.flash_attention = pd, fa
+
+
+def phase_sharded(ops, cfg, params, prompts, paged_streams
+                  ) -> tuple[list[str], list[dict]]:
+    """The "sharded" job (see SHARDED_RUNS): the engine runs, then the
+    sharded cluster and ``psum_compressed``.  Returns the checks that
+    failed and the (tp 2, pp 2) run for phase 6's rows at its shard
+    shapes."""
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.launch.sharding import local_config, make_plan
+    t_start = time.monotonic()
+    card = card_line()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    failed, runs = [], []
+    lens = [len(p) for p in prompts]
+    for tp, pp, blocks in SHARDED_RUNS:
+        name = f"tp {tp} pp {pp}"
+        plan, run_cfg = make_plan(cfg, "serve", False, 1, tp=tp, pp=pp)
+        kw = dict(FULL_WIDTH_ENGINE, **PAGED)
+        if blocks:
+            kw["num_blocks"] = blocks
+        kw.update(mesh=make_replica_mesh([dev] * (tp * pp), tp, pp),
+                  shard_plan=plan)
+        serve(run_cfg, params, [np.arange(64, dtype=np.int32)], 4, "cuda",
+              **kw)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with kernel_heads(ops) as heads:
+            fin, eng, wall = serve(run_cfg, params, prompts, 32, "cuda",
+                                   **kw)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ttft, rate = serving_times(fin, wall)
+        streams = {r: fin[r].generated for r in fin}
+        sm = eng.params
+        local = {(c.n_q_heads, c.n_kv_heads) for c in sm.local_cfgs}
+        pool = sorted({tuple(k.shape) for _, _, k in eng.cache.k})
+        same = float(np.mean([a == b for r in sorted(streams)
+                              for a, b in zip(streams[r],
+                                              paged_streams[r])]))
+        per_req = [teacher_forced_agreement(cfg, params, prompts[r],
+                                            streams[r])
+                   for r in sorted(streams)]
+        agree = float(np.mean(per_req))
+        full = (sorted(streams) == list(range(len(prompts)))
+                and all(len(t) == 32 for t in streams.values()))
+        launched = (counts["paged_decode"] > 0
+                    and counts["flash_attention"] > 0
+                    and counts["flash_decode"] == 0)
+        shapes = (heads["paged_decode"] == local
+                  and heads["flash_attention"] == local)
+        log(f"  [sharded {name}] attn {plan.attn_mode}, kv_heads "
+            f"{plan.rules['kv_heads']}, layers {plan.rules['layers']}: "
+            f"shard heads {sorted(local)}, pool shards {pool}, "
+            f"{kw['num_blocks']} pages; wall {wall:.3f} s  TTFT mean "
+            f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms  "
+            f"decode {rate:.1f} tok/s (after the last first token)  peak "
+            f"mem {peak:.2f} GB; {card}")
+        log(f"  [sharded {name}] launches {counts}; B1 saw (Hq, Hkv) "
+            f"{sorted(heads['paged_decode'])}, B2 "
+            f"{sorted(heads['flash_attention'])}; tokens equal to the "
+            f"paged run's {same:.4f}; teacher-forced agreement (bf16) "
+            f"{agree:.4f}, min {min(per_req):.4f}; limit "
+            f"{MIN_TEACHER_FORCED}")
+        if not (full and launched and shapes):
+            failed.append(f"{cfg.name} sharded {name}: a check failed (32 "
+                          f"tokens each {full}, B1/B2 and no B3 {launched}, "
+                          f"shard shapes {shapes})")
+        if (tp, pp) == (1, 1) and streams != paged_streams:
+            failed.append(f"{cfg.name} sharded {name}: tokens differ from "
+                          f"the unsharded paged run's ({same:.4f} equal)")
+        if agree < MIN_TEACHER_FORCED:
+            failed.append(f"{cfg.name} sharded {name}: decode agrees with "
+                          f"the teacher-forced forward on {agree:.4f} of "
+                          f"the tokens, under {MIN_TEACHER_FORCED}")
+        if (tp, pp) == (2, 2):
+            runs.append({"arch": cfg.name, "cfg": local_config(
+                             cfg, sm.heads[0]),
+                         "variant": Variant(
+                             "sharded tp 2 pp 2", dict(PAGED), (), (),
+                             ("paged_decode", "flash_attention")),
+                         "counts": counts, "n_req": len(fin), "lens": lens,
+                         "streams": streams})
+        del fin, eng, sm
+        torch.cuda.empty_cache()
+    failed += phase_sharded_cluster(ops, cfg, params)
+    failed += phase_psum(card)
+    log(f"  [sharded] the job took {time.monotonic() - t_start:.1f} s; "
+        f"{card}")
+    return failed, runs
+
+
+def phase_sharded_cluster(ops, cfg, params) -> list[str]:
+    """The "cluster" job on per-replica sharded pools (SHARDED_CLUSTER):
+    a switch whose moves all ride ``reshard_blocks``, then a crash of the
+    tp-2 replica and its repair.  Returns the checks that failed."""
+    pkg = cluster_package("cuda")
+    prompts = cluster_prompts(cfg)
+    rids = list(range(len(prompts)))
+    total_prompt = sum(len(p) for p in prompts)
+    new = CLUSTER_JOB["new_tokens"]
+    card = card_line()
+    failed = []
+
+    def start(plan):
+        (rcs, fractions) = plan
+        tm = pkg.Telemetry()
+        rt = pkg.ClusterRuntime(cfg, params,
+                                router=pkg.FlowRouter(fractions),
+                                telemetry=tm, shard=True, **SHARDED_CLUSTER)
+        rt.apply_plan(span_plan(pkg, [pkg.ReplicaConfig(*rc) for rc in rcs],
+                                fractions))
+        for rid, p in enumerate(prompts):
+            rt.submit(rid, p, new, type_id=rid % 2)
+        return rt, tm
+
+    def finish(name, rt, tm, t0, exact):
+        rt.run_until_idle()
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        counts = ops.launch_counts()
+        line, streams, full = _cluster_numbers(rt, tm, t_end - t0, t_end,
+                                               prompts, counts)
+        per_req = [teacher_forced_agreement(cfg, params, prompts[r],
+                                            streams[r])
+                   for r in sorted(streams)] if full else [0.0]
+        agree = float(np.mean(per_req))
+        pools = [h.engine.cache.pool for h in rt.replicas if not h.dead]
+        whole = all(p.allocator.n_free == p.num_blocks and p.reserved == 0
+                    for p in pools)
+        launched = (counts["paged_decode"] > 0
+                    and counts["flash_attention"] > 0
+                    and counts["flash_decode"] == 0)
+        log(f"  [sharded cluster {name}] {line}")
+        log(f"  [sharded cluster {name}] 16 requests x 32 tokens {full}; "
+            f"pools whole {whole}; B1 and B2 launched {launched}; exact "
+            f"counts {exact}; teacher-forced agreement (bf16) {agree:.4f}, "
+            f"min {min(per_req):.4f}; limit {MIN_TEACHER_FORCED}; {card}")
+        if not (full and whole and launched and exact):
+            failed.append(f"{cfg.name} sharded cluster {name}: a check "
+                          f"failed (32 tokens each {full}, pools whole "
+                          f"{whole}, B1/B2 launched {launched}, exact "
+                          f"counts {exact})")
+        if agree < MIN_TEACHER_FORCED:
+            failed.append(f"{cfg.name} sharded cluster {name}: decode "
+                          f"agrees with the teacher-forced forward on "
+                          f"{agree:.4f} of the tokens, under "
+                          f"{MIN_TEACHER_FORCED}")
+        return streams
+
+    # switch: plan A until every request has 8 tokens, then plan B; both
+    # replicas change, so every request moves between unlike meshes
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    rt, tm = start(SHARDED_PLAN_A)
+    _serve_until(rt, rids, CLUSTER_AFTER[0])
+    held = _held(rt, rids)
+    moving = sum(len(v) for v in held.values())
+    torch.cuda.synchronize()
+    t_switch = time.perf_counter()
+    rcs, fractions = SHARDED_PLAN_B
+    report = rt.apply_plan(span_plan(
+        pkg, [pkg.ReplicaConfig(*rc) for rc in rcs], fractions))
+    torch.cuda.synchronize()
+    stall = (time.perf_counter() - t_switch) * 1e3
+    if report.rolled_back:
+        failed.append(f"{cfg.name} sharded cluster switch rolled back: "
+                      f"{report.failure}")
+    exact = (not report.rolled_back and report.changed == [0, 1]
+             and report.copied == report.migrated == moving
+             and report.handoff == report.reprefilled == 0
+             and report.requeued == 0 and report.recompute_tokens == 0
+             and report.pages_copied > 0)
+    meshes = [h.engine._mesh for h in rt.replicas]
+    log(f"  [sharded cluster switch] {SHARDED_PLAN_A[0]} -> "
+        f"{SHARDED_PLAN_B[0]} (tp, pp) on 8 virtual chips at >= "
+        f"{CLUSTER_AFTER[0]} tokens: chips {[m.chips for m in meshes]}; "
+        f"{moving} requests in flight, copied by reshard {report.copied} "
+        f"({report.pages_copied} pages), handoff {report.handoff}, "
+        f"reprefilled {report.reprefilled}, recompute "
+        f"{report.recompute_tokens}, rolled back {report.rolled_back}; "
+        f"switch stall {stall:.3f} ms (apply_plan, synchronized); {card}")
+    finish("switch", rt, tm, t0,
+           exact and rt.total_prefill_tokens == total_prompt)
+
+    # crash: the tp-2 replica dies at 8 tokens with its pages kept; its
+    # requests move to the tp-1 replica by reshard; then it is repaired
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    rt, tm = start(SHARDED_PLAN_A)
+    _serve_until(rt, rids, CLUSTER_AFTER[0])
+    held = _held(rt, rids)[0]
+    before = {r: list(rt.request_log[r].emitted) for r in rids}
+    chips = rt._replica_devices[0]
+    torch.cuda.synchronize()
+    t_fail = time.perf_counter()
+    rep = rt.fail_replica(0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t_fail) * 1e3
+    n_dead = len(rt.devices)
+    next_ms = _next_token_ms(rt, held, t_fail)
+    rt.repair_replica(0)
+    repaired = (len(rt.devices) == 8 and n_dead == 8 - len(chips)
+                and rt.replicas[0].engine._mesh.chips == chips)
+    exact = (rep.copied == rep.migrated == len(held)
+             and rep.handoff == rep.reprefilled == rep.dropped == 0
+             and rep.recompute_tokens == 0 and repaired)
+    log(f"  [sharded cluster crash] replica 0 (tp 2, chips {chips}) dies at "
+        f">= {CLUSTER_AFTER[0]} tokens with its pages kept: {len(held)} "
+        f"requests, copied by reshard {rep.copied} ({rep.pages_copied} "
+        f"pages), reprefilled {rep.reprefilled}, recompute "
+        f"{rep.recompute_tokens}; devices {n_dead} after, repaired "
+        f"{repaired}; recovery stall {ms:.3f} ms in fail_replica, "
+        f"{next_ms:.3f} ms until each of its requests emitted its next "
+        f"token; {card}")
+    streams = finish("crash", rt, tm, t0,
+                     exact and rt.total_prefill_tokens == total_prompt)
+    if not all(streams.get(r, [])[:len(t)] == t for r, t in before.items()):
+        failed.append(f"{cfg.name} sharded cluster crash: a stream changed "
+                      "across the recovery")
+    return failed
+
+
+def phase_psum(card: str) -> list[str]:
+    """``train.optimizer.psum_compressed`` in a world of one under NCCL
+    (a ``FileStore`` in a fresh temporary directory) against
+    ``compress_roundtrip``, to the bit."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.train.optimizer import (compress_roundtrip,
+                                             psum_compressed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    grads = {k: rand(gen, *s, scale=1.0) for k, s in PSUM_SHAPES.items()}
+    tmp = tempfile.mkdtemp()
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            got = psum_compressed(grads)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            psum_compressed(grads)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = compress_roundtrip(grads)
+    equal = all(torch.equal(got[k], want[k]) for k in grads)
+    n = sum(g.numel() for g in grads.values())
+    log(f"  [sharded psum] psum_compressed, world of 1 (NCCL), {n:,} fp32 "
+        f"gradients in {len(grads)} leaves: equal to compress_roundtrip to "
+        f"the bit {equal}; {ms:.3f} ms a call (host clock, one call); "
+        f"{card}")
+    return [] if equal else ["psum_compressed differs from "
+                             "compress_roundtrip in a world of one"]
+
+
+# --------------------------------------------------------------------------
 # The orchestrated path: the workload predictor, ``Orchestrator.plan_span``
 # and ``ClusterRuntime.apply_plan`` (phase 4's twin of ``run_real_spans`` on
 # the card and the CPU, phase 5's "orchestrated" job at full width).
@@ -2678,6 +3023,12 @@ def phase_full_width(ops, arch: str, variants: tuple,
         torch.cuda.empty_cache()
     if arch in CLUSTER_MODELS:
         failures += phase_cluster(ops, cfg, params)
+        torch.cuda.empty_cache()
+    if arch in SHARDED_MODELS:
+        failed, sharded_runs = phase_sharded(ops, cfg, params, prompts,
+                                             runs[0]["streams"])
+        failures += failed
+        runs += sharded_runs
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -3992,7 +4343,7 @@ def main() -> int:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
         log(f"chip_smoke: {len(failures)} migrate, prefix, evict, cluster, "
-            f"orchestrated, evaluation or train check(s) failed: "
+            f"sharded, orchestrated, evaluation or train check(s) failed: "
             f"{'; '.join(failures)}")
         return 1
     log(json.dumps({"ok": True, "device": {

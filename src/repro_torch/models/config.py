@@ -100,6 +100,13 @@ class ModelConfig:
     def padded_vocab(self, multiple: int = 256) -> int:
         return _round_up(self.vocab_size, multiple)
 
+    def padded_heads(self, tp: int) -> int:
+        return _round_up(self.n_q_heads, tp)
+
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k shape (SSM/hybrid archs only)."""
+        return self.family in ("ssm", "hybrid")
+
     def local_is_local(self, layer: int) -> bool:
         """gemma2 alternation: even layers local, odd layers global."""
         return self.local_window > 0 and layer % 2 == 0

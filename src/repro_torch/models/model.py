@@ -184,13 +184,20 @@ def layer_params(blocks: dict, layer: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _mlp_residual(x, bp, cfg: ModelConfig, aux: list | None = None):
+def _mlp_residual(x, bp, cfg: ModelConfig, aux: list | None = None,
+                  ffn=None):
     """x + the layer's MLP or MoE; a MoE layer appends its load-balance loss
-    of the MoE input to ``aux`` when one is given."""
+    of the MoE input to ``aux`` when one is given.  ``ffn(h)``, when given,
+    computes the dense MLP in place of ``mlp`` (the sharded executor's
+    reduced one)."""
     if cfg.is_moe or cfg.d_ff > 0:
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        m = (moe_lib.moe_block(h, bp["moe"], cfg) if cfg.is_moe
-             else mlp(h, bp["mlp"], cfg.mlp_variant))
+        if ffn is not None:
+            m = ffn(h)
+        elif cfg.is_moe:
+            m = moe_lib.moe_block(h, bp["moe"], cfg)
+        else:
+            m = mlp(h, bp["mlp"], cfg.mlp_variant)
         if cfg.is_moe and aux is not None:
             aux.append(moe_lib.load_balance_loss(h, bp["moe"], cfg))
         if cfg.sandwich_norm:
@@ -436,7 +443,7 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor | None,
 def decode_loop_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                       state: PagedDecodeState, horizon: int, *,
                       temperature: float = 0.0, seed: int = 0,
-                      step0: int = 0):
+                      step0: int = 0, step=None):
     """``horizon`` decode steps with the tokens kept on the device.
 
     The scatter-first loop: each step writes its K/V token into the pool
@@ -446,12 +453,15 @@ def decode_loop_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     capacity for ``horizon`` more tokens per sequence must already be in
     the block table.  With ``temperature > 0`` step ``step0 + i`` samples from
     ``step_generator(seed, step0 + i)``, so sampled streams do not depend
-    on the horizon.
+    on the horizon.  ``step`` replaces ``decode_step_paged``
+    (``models.sharded`` passes its own, with ``params`` its
+    ``ShardedModel``).
     Returns (tokens [B, horizon] int32, state with lens + horizon).
     """
+    step = step or decode_step_paged
     out = []
     for i in range(horizon):
-        logits, state = decode_step_paged(params, cfg, tokens, state)
+        logits, state = step(params, cfg, tokens, state)
         gen = (step_generator(seed, step0 + i, tokens.device)
                if temperature > 0 else None)
         tokens = sample(logits, cfg, gen, temperature=temperature)

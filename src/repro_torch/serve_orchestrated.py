@@ -23,9 +23,16 @@ in Perfetto / ``chrome://tracing``; the export is validated in-process and
 a latency-histogram summary plus the planner's prediction calibration
 error are printed.
 
+``--shard`` (with ``--real``) executes each replica's (tp, pp) for real:
+its chips are carved out of ``--chips`` virtual chips on ``--device`` and
+its params and KV pool are sharded over them; switches move in-flight
+pages by ``reshard_blocks``.  On one card this runs the sharded path, not
+tensor parallelism's speed.
+
+    PYTHONPATH=src python -m repro_torch.serve_orchestrated --real --shard --device cpu
+
 The default model is the JAX example's, opt-30b: its full config is the
 planning profile and, with ``--real``, its smoke config runs the engines.
-``--shard`` is not ported.
 """
 from __future__ import annotations
 
@@ -115,9 +122,10 @@ def run_real(args) -> None:
     outcomes, runtime = run_real_spans(
         model=args.model, chips=args.chips, n_spans=args.spans,
         requests_per_span=args.requests_per_span, seed=args.seed,
-        telemetry=telemetry, rebalance=args.rebalance, disagg=args.disagg,
-        device=args.device)
-    print(f"{runtime.cfg.name} (real engines, {args.device}) planning as "
+        shard=args.shard, telemetry=telemetry, rebalance=args.rebalance,
+        disagg=args.disagg, device=args.device)
+    mode = "sharded engines" if args.shard else "real engines"
+    print(f"{runtime.cfg.name} ({mode}, {args.device}) planning as "
           f"{args.model} on {args.chips} chips")
     for o in outcomes:
         switch, report = o.switch, o.report
@@ -196,6 +204,10 @@ def main(argv=None):
                          "(cuda or cpu)")
     ap.add_argument("--real", action="store_true",
                     help="execute plans on real engines (smoke-scale model)")
+    ap.add_argument("--shard", action="store_true",
+                    help="with --real: execute each replica's (tp, pp) on a "
+                         "sub-mesh of its own --chips virtual chips on "
+                         "--device")
     ap.add_argument("--rebalance", action="store_true",
                     help="with --real: enable the live rebalancer (watchdog "
                          "straggler drains, hot-spot relief, priority "

@@ -1,6 +1,6 @@
 """ClusterRuntime: execute span plans on live serving engines, on one card.
 
-The port of the JAX package's ``serving/cluster.py`` (its unsharded path).
+The port of the JAX package's ``serving/cluster.py``.
 ``docs/architecture.md`` is the narrative guide — the request lifecycle
 end to end, the migration ladder and who reuses it, and the failure
 model; ``docs/telemetry.md`` explains how to read an exported trace.
@@ -57,9 +57,20 @@ prospective switch would trigger.
 ``set_throttle`` injects a straggler (a replica that only steps a fraction
 of the ticks) for chaos/regression testing of the health feedback loop.
 
-Not ported: ``shard=True`` (a replica's (tp, pp) executed on a sub-mesh of
-its own devices with a per-replica pool, migrations by reshard).  Passing
-``shard=True`` or ``devices=`` raises ``NotImplementedError``.
+With ``shard=True`` a replica's (tp, pp) is *executed*, not just modeled:
+the runtime carves its chips into one contiguous sub-mesh per replica
+(``launch.mesh.make_replica_mesh``), shards each replica's params and paged
+KV pool per the serve ``ShardingPlan`` (heads/d_ff/vocab over tp, layers
+over pp, KV pools along the KV-head axis; ``models.sharded`` runs them),
+and deployment switches rebuild meshes.  Replicas then hold per-replica
+pools, so switch-time migrations ride the cross-pool ``reshard_blocks``
+path (dense gather, the hop, head-sharded scatter): bytes move, but still
+zero tokens recomputed.  On one card the chips are virtual: ``devices``
+defaults to the runtime's device repeated ``total_chips`` times, and each
+chip keeps an id of its own, so slices, failures and repairs track chips
+even where their devices are equal.  Co-located shards run the sharded
+path, not tensor parallelism's speed.  MoE and SSM models raise (ROADMAP
+Queue A item 9b).
 
 Failure model
 -------------
@@ -184,6 +195,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import ReplicaConfig
+from repro_torch.launch.mesh import make_replica_mesh
+from repro_torch.launch.sharding import (check_executable, make_plan,
+                                         pad_attention_params)
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import (EngineRequest, InflightSnapshot,
                                         ServingEngine)
@@ -364,9 +378,20 @@ class ClusterRuntime:
             prefilled anywhere warms the whole cluster and survives
             replica death.  Per-type hit rates flow back through
             ``finish_span`` into ``observe_prefix_hits``.
-          shard / devices: not ported (a replica's (tp, pp) on a sub-mesh
-            of its own devices); anything but the defaults raises
-            ``NotImplementedError``.
+          shard: execute each replica's (tp, pp) for real — the chips
+            (``devices``; ``devices=None`` means the runtime's ``device``
+            repeated ``total_chips`` times, the counterpart of
+            ``jax.devices()`` under a forced host device count) are carved
+            into one contiguous sub-mesh per replica
+            (``launch.mesh.make_replica_mesh``), params/KV pools are
+            sharded per the serve ``ShardingPlan``, and deployment
+            switches rebuild meshes.  Replicas then hold *per-replica*
+            pools (a shared pool cannot span disjoint meshes), so in-flight
+            migrations ride the cross-pool reshard path
+            (``kvcache.reshard_blocks``) instead of the free same-pool page
+            handoff — still zero recompute.  Paged decode only; MoE and SSM
+            models raise ``NotImplementedError`` (ROADMAP Queue A item
+            9b).  ``devices`` is ignored without ``shard``.
           faults: optional ``serving.faults.FaultPlan`` consulted at each
             injection site (dispatch, admission, switch) — the
             deterministic chaos source; see the module docstring's
@@ -386,12 +411,6 @@ class ClusterRuntime:
             every engine live (``params`` must already be there); CUDA
             unless ``device="cpu"`` is passed.
         """
-        if shard or devices is not None:
-            raise NotImplementedError(
-                "shard=True / devices= (each replica's (tp, pp) on a "
-                "sub-mesh of its own devices) is not ported: ROADMAP.md "
-                "Queue A item 9 (make_replica_mesh, make_plan, "
-                "pad_attention_params, _carve, reshard_blocks)")
         if total_chips is None:
             if orch is None:
                 raise ValueError("need total_chips when no orchestrator")
@@ -416,8 +435,25 @@ class ClusterRuntime:
         self.dtype = dtype
         self.seed = seed
         self.device = device
-        self.pool = BlockPool(cfg, blocks_per_chip * total_chips,
-                              block_size, dtype, device)
+        self.shard = shard
+        # chip ids: a replica's slice and a dead replica's stash are tuples
+        # of ids into ``_chip_devices``, so chips on one device stay apart
+        self._chip_devices: list = []
+        self._chips: list[int] = []
+        self._replica_devices: dict[int, tuple] = {}
+        # (q_heads, kv_heads) -> head-padded params, reused across switches
+        self._padded_params: dict[tuple, object] = {}
+        if shard:
+            if decode_mode != "paged":
+                raise ValueError("shard=True needs decode_mode='paged'")
+            check_executable(cfg)
+            self._chip_devices = [torch.device(d) for d in (
+                devices if devices is not None else [device] * total_chips)]
+            self._chips = list(range(len(self._chip_devices)))
+            self.pool = None    # per-replica pools, one per sub-mesh
+        else:
+            self.pool = BlockPool(cfg, blocks_per_chip * total_chips,
+                                  block_size, dtype, device)
         self.router: Router = router if router is not None else FlowRouter(
             [[1.0]])
         self.replicas: list[ReplicaHandle] = []
@@ -447,6 +483,8 @@ class ClusterRuntime:
         self.max_retries = max_retries
         self.request_log: dict[int, _RequestLog] = {}
         self.dead_replicas: list[int] = []    # cluster-lifetime death list
+        # chip slices of dead sharded replicas, kept for repair_replica
+        self._dead_devices: dict[int, tuple] = {}
         self.repaired_replicas: list[int] = []  # lifetime repair/rejoin list
         self.lost_chips = 0                   # chips on dead replicas
         self._span_dead: list[int] = []
@@ -492,18 +530,61 @@ class ClusterRuntime:
         max_bps = max(1, min(cfg_cap, quota))
         return max_seqs, quota, max_bps
 
-    def _build_engine(self, rc: ReplicaConfig, index: int = 0
-                      ) -> ServingEngine:
+    @property
+    def devices(self) -> list | None:
+        """The live chips' devices (None unless ``shard``)."""
+        if not self.shard:
+            return None
+        return [self._chip_devices[c] for c in self._chips]
+
+    def _build_engine(self, rc: ReplicaConfig, chips=None,
+                      index: int = 0) -> ServingEngine:
         max_seqs, quota, max_bps = self._sizing(rc)
-        return ServingEngine(
-            self.cfg, self.params, pool=self.pool, kv_quota=quota,
+        common = dict(
             block_size=self.block_size, max_seqs=max_seqs, dtype=self.dtype,
             greedy=True, seed=self.seed, decode_mode=self.decode_mode,
             max_blocks_per_seq=max_bps,
             prefill_chunk_tokens=self.prefill_chunk_tokens,
             decode_horizon=self.decode_horizon,
-            prefix_cache=self.prefix_cache, device=self.device,
+            prefix_cache=self.prefix_cache,
             telemetry=self.telemetry, trace_id=index, role=rc.role)
+        if not self.shard:
+            return ServingEngine(self.cfg, self.params, pool=self.pool,
+                                 kv_quota=quota, device=self.device,
+                                 **common)
+        # real intra-replica parallelism: a sub-mesh of rc.chips chips, the
+        # serve-mode sharding plan for (tp, pp), a private head-sharded
+        # pool sized to this replica's quota
+        mesh = make_replica_mesh([self._chip_devices[c] for c in chips],
+                                 rc.tp, rc.pp, chips=chips)
+        plan, run_cfg = make_plan(self.cfg, "serve", False, 1,
+                                  tp=rc.tp, pp=rc.pp)
+        params = self.params
+        if (run_cfg.n_q_heads != self.cfg.n_q_heads
+                or run_cfg.n_kv_heads != self.cfg.n_kv_heads):
+            # head padding depends only on the padded head counts: cache it
+            # so repeated switches don't re-pad the whole tree inside the
+            # switch window
+            key = (run_cfg.n_q_heads, run_cfg.n_kv_heads)
+            params = self._padded_params.get(key)
+            if params is None:
+                params = pad_attention_params(self.params, self.cfg, run_cfg)
+                self._padded_params[key] = params
+        return ServingEngine(run_cfg, params, num_blocks=quota,
+                             mesh=mesh, shard_plan=plan, **common)
+
+    def _carve(self, rcs: list[ReplicaConfig]) -> list[tuple]:
+        """Contiguous per-replica chip slices, in replica-index order."""
+        need = sum(rc.chips for rc in rcs)
+        if need > len(self._chips):
+            raise ValueError(
+                f"deployment needs {need} devices but this runtime has "
+                f"{len(self._chips)} (pass devices= or shrink the plan)")
+        slices, off = [], 0
+        for rc in rcs:
+            slices.append(tuple(self._chips[off:off + rc.chips]))
+            off += rc.chips
+        return slices
 
     def _make_handle(self, k: int, rc: ReplicaConfig,
                      engine: ServingEngine) -> ReplicaHandle:
@@ -570,11 +651,18 @@ class ClusterRuntime:
             self._span_hit_tokens = np.zeros(self.n_types)
             self._span_ctx_tokens = np.zeros(self.n_types)
         old = self.replicas
+        # sharded runtimes carve chips contiguously in replica order, so a
+        # replica whose config is unchanged must ALSO keep its chip slice
+        # to count as unchanged
+        slices = self._carve(new_rcs) if self.shard else None
+        old_devices = dict(self._replica_devices)
         # a dead replica always counts as changed: its engine is gone and
         # must be rebuilt (its requests were already recovered at death)
         changed = [k for k in range(len(new_rcs))
                    if k >= len(old) or old[k].rc != new_rcs[k]
-                   or old[k].dead]
+                   or old[k].dead
+                   or (self.shard
+                       and self._replica_devices.get(k) != slices[k])]
         torn_down = [old[k] for k in changed
                      if k < len(old) and not old[k].dead]
         torn_down += [h for h in old[len(new_rcs):] if not h.dead]
@@ -607,12 +695,13 @@ class ClusterRuntime:
         self._switch_count += 1
         self._switching = True
         try:
-            return self._apply_txn(plan, new_rcs, old, changed, torn_down)
+            return self._apply_txn(plan, new_rcs, old, slices, old_devices,
+                                   changed, torn_down)
         finally:
             self._switching = False
 
-    def _apply_txn(self, plan, new_rcs, old, changed, torn_down
-                   ) -> SwitchReport:
+    def _apply_txn(self, plan, new_rcs, old, slices, old_devices, changed,
+                   torn_down) -> SwitchReport:
         fault = (self.faults.switch_fault(self._switch_count)
                  if self.faults is not None else None)
         tm = self.telemetry
@@ -631,7 +720,8 @@ class ClusterRuntime:
                     f"injected engine-build failure "
                     f"(switch {self._switch_count})")
             for k in changed:
-                built[k] = self._build_engine(new_rcs[k], index=k)
+                built[k] = self._build_engine(
+                    new_rcs[k], slices[k] if self.shard else None, index=k)
         except Exception as e:   # noqa: BLE001 — the abort must never wedge
             if tm.enabled and reconfiguring:
                 tm.emit("switch_prepare", phase="end",
@@ -672,6 +762,8 @@ class ClusterRuntime:
             for k in range(len(new_rcs))
         ]
         self.router.reconfigure(plan.fractions)
+        if self.shard:
+            self._replica_devices = dict(enumerate(slices))
 
         # 4) re-route exported requests through the new assignment, batched
         #    per destination replica, and restore them via the migration
@@ -708,8 +800,8 @@ class ClusterRuntime:
                 tm.emit("switch_rollback", phase="begin",
                         span=self._switch_count)
             try:
-                return self._rollback_switch(old, torn_down, origin,
-                                             migrate, drained, e)
+                return self._rollback_switch(old, old_devices, torn_down,
+                                             origin, migrate, drained, e)
             finally:
                 if tm.enabled and reconfiguring:
                     tm.emit("switch_rollback", phase="end",
@@ -729,8 +821,8 @@ class ClusterRuntime:
             tm.metrics.observe("switch_stall_s", tm.clock() - t_switch)
         return report
 
-    def _rollback_switch(self, old, torn_down, origin, exported, drained,
-                         err) -> SwitchReport:
+    def _rollback_switch(self, old, old_devices, torn_down, origin,
+                         exported, drained, err) -> SwitchReport:
         """Undo a failed commit: pull every request back off the new
         engines (their pages ride another free handoff), rebuild the old
         configuration, and restore each request to its origin replica."""
@@ -753,9 +845,13 @@ class ClusterRuntime:
         # 3) rebuild the torn-down replicas under their OLD configs; the
         #    handles (and their span counters) survive, only engines swap
         for h in torn_down:
-            h.engine = self._build_engine(h.rc, index=h.index)
+            h.engine = self._build_engine(
+                h.rc, old_devices.get(h.index) if self.shard else None,
+                index=h.index)
             self._wire_faults(h)
         self.replicas = list(old)
+        if self.shard:
+            self._replica_devices = old_devices
         if self._applied_fractions is not None:
             self.router.reconfigure(self._applied_fractions)
         # 4) hand every request back to the replica it came from (pages
@@ -1050,6 +1146,16 @@ class ClusterRuntime:
                 self._span_handoffs += 1
                 self.rid_owner[snap.rid] = dst.index
 
+    def _caches(self) -> list:
+        """Distinct ``PrefixCache`` objects behind the live engines (one for
+        a shared pool, one per replica when sharded)."""
+        seen: dict[int, object] = {}
+        for h in self.replicas:
+            pc = h.engine.prefix_cache
+            if pc is not None:
+                seen[id(pc)] = pc
+        return list(seen.values())
+
     def _drain_prefix_events(self) -> None:
         """Fold every engine's per-admission cache events into the span's
         per-type token accounting (dead engines included — their events may
@@ -1200,9 +1306,11 @@ class ClusterRuntime:
             if resident:
                 if len(e.active) >= e.max_seqs:
                     continue
-                # every replica is a view of the one pool: a handoff
-                if not e.cache.can_adopt(n_blocks, total,
-                                         n_shared=n_shared):
+                if e.cache.pool is eng.cache.pool:
+                    if not e.cache.can_adopt(n_blocks, total,
+                                             n_shared=n_shared):
+                        continue
+                elif not e.cache.can_admit(ctx, total):
                     continue
             load = e.load_stats()["load"]
             if max_load is not None and load > max_load:
@@ -1457,6 +1565,14 @@ class ClusterRuntime:
         self._prefill_tokens_retired += eng.prefill_tokens
         eng.prefill_tokens = 0
         eng.pause_admission()
+        if self.shard:
+            slice_ = self._replica_devices.pop(h.index, ())
+            if slice_:
+                # keep the slice around: repair_replica re-admits it (the
+                # chaos model fails replicas, not the silicon under them)
+                self._dead_devices[h.index] = tuple(slice_)
+                gone = set(slice_)
+                self._chips = [c for c in self._chips if c not in gone]
         rep = self._recover(snaps, src=h.index)
         self._span_recovery.merge(rep)
         if tm.enabled:
@@ -1481,7 +1597,16 @@ class ClusterRuntime:
         h = self.replicas[k]
         if not h.dead:
             return
-        h.engine = self._build_engine(h.rc, index=k)
+        chips = None
+        if self.shard:
+            chips = self._dead_devices.pop(k, None)
+            if chips is None:
+                raise ValueError(
+                    f"replica {k}: no stashed device slice to rejoin "
+                    f"(its devices were never recorded at failure)")
+            self._chips.extend(chips)
+            self._replica_devices[k] = tuple(chips)
+        h.engine = self._build_engine(h.rc, chips, index=k)
         self._wire_faults(h)
         h.dead = False
         h.failures = 0
@@ -1611,14 +1736,16 @@ class ClusterRuntime:
         # (NaN = type saw no admissions, the orchestrator keeps its EWMA)
         # plus span deltas of the monotonic byte/hit counters
         self._drain_prefix_events()
-        pc = self.pool.prefix_cache      # the one index of the shared pool
+        caches = self._caches()
         hit_rate = None
         d_hits = d_miss = d_evict = d_restore = 0
-        if pc is not None:
+        if caches:
             with np.errstate(invalid="ignore"):
                 hit_rate = self._span_hit_tokens / self._span_ctx_tokens
-            totals = (pc.hits, pc.misses, pc.evicted_bytes,
-                      pc.restored_bytes)
+            totals = (sum(c.hits for c in caches),
+                      sum(c.misses for c in caches),
+                      sum(c.evicted_bytes for c in caches),
+                      sum(c.restored_bytes for c in caches))
             d_hits, d_miss, d_evict, d_restore = (
                 t - m for t, m in zip(totals, self._prefix_mark))
             self._prefix_mark = totals
@@ -1657,10 +1784,11 @@ class ClusterRuntime:
                 self.orch.observe_failures(self._span_dead,
                                            self.surviving_chips)
             # what a switch decided *now* would have to migrate; with one
-            # shared pool migrations ride the free page-handoff path
+            # shared pool migrations ride the free page-handoff path,
+            # sharded runtimes pay the cross-pool reshard
             lens = [c for h in self.replicas if not h.dead
                     for c in h.engine.inflight_context_lens()]
-            self.orch.observe_inflight(lens, shared_pool=True)
+            self.orch.observe_inflight(lens, shared_pool=not self.shard)
             if self.rebalance is not None:
                 # churn feedback: mid-span moves raise the planner's
                 # switch-hysteresis bar so the two loops don't fight

@@ -94,7 +94,18 @@ cluster routes and hands off).  ``fault_hook``, when set, is called as
 (the cluster's injected OOM).
 
 ``load_stats()`` returns every key of the frozen ``LOAD_STATS_KEYS``
-schema (the JAX package's table).  Not ported: meshes.
+schema (the JAX package's table).
+
+Sharded replicas (``mesh=`` and ``shard_plan=``): the engine runs a
+``models.sharded.ShardedModel`` over the replica's (pp, tp) mesh in place
+of the plain model functions, over a sharded pool (``BlockPool`` with
+``mesh=``); its host scheduler, allocator and block tables are the same.
+Where the JAX package's sharded engine runs ``attn_impl="jnp"``, the
+port's shards run the kernels (B1, B2 and its chunk form) at their local
+head counts.  A page import picks its route by the pools' ``placement``
+and KV-head counts: copy (same placement and geometry), relayout (same
+placement, another page size) or ``reshard_blocks`` (another mesh or head
+sharding).
 """
 from __future__ import annotations
 
@@ -106,10 +117,12 @@ import torch
 from repro_torch.models import (DecodeCache, PagedDecodeState,
                                 decode_loop_paged, decode_step, prefill,
                                 prefill_chunk)
+from repro_torch.models import sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sampling import sample
 from repro_torch.serving.kvcache import (BlockPool, PagedKVCache,
-                                         copy_blocks, relayout_blocks)
+                                         copy_blocks, relayout_blocks,
+                                         reshard_blocks)
 from repro_torch.serving.prefixcache import PrefixCache
 from repro_torch.serving.telemetry import NULL_TELEMETRY
 
@@ -223,6 +236,7 @@ class ServingEngine:
                  prefill_chunk_tokens: int | None = None,
                  pool: BlockPool | None = None, kv_quota: int | None = None,
                  prefix_cache: bool = False, device="cuda",
+                 mesh=None, shard_plan=None,
                  clock=None, telemetry=None, trace_id: int = 0,
                  role: str = "mixed"):
         """``params`` must already live on ``device``; ``dtype`` is the KV
@@ -235,7 +249,15 @@ class ServingEngine:
         it.  ``prefix_cache`` turns on the pool's prefix cache (ignored for
         models with SSM layers or no attention).  ``clock``,
         ``telemetry``, ``trace_id`` and ``role``: see the module
-        docstring."""
+        docstring.
+
+        ``mesh`` (``launch.mesh.make_replica_mesh``) + ``shard_plan``
+        (``launch.sharding.make_plan(cfg, "serve", ...)``) run the replica
+        sharded over the mesh's devices (``device`` is then its first);
+        ``cfg``/``params`` must already be the plan's run config (head-
+        padded in "pad" mode: ``launch.sharding.pad_attention_params``).
+        A sharded engine is paged only, and a shared pool must live on the
+        same mesh.  MoE and SSM models raise (ROADMAP Queue A item 9b)."""
         if decode_mode not in ("paged", "dense"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if decode_horizon < 1:
@@ -251,12 +273,31 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
+        self._mesh = mesh
+        self._shard_plan = shard_plan
+        self._prefill, self._prefill_chunk = prefill, prefill_chunk
+        self._decode_loop = decode_loop_paged
+        if mesh is not None:
+            if shard_plan is None:
+                raise ValueError("a sharded engine needs shard_plan "
+                                 "(launch.sharding.make_plan(..., 'serve'))")
+            if decode_mode != "paged":
+                raise ValueError("sharded engines need decode_mode='paged'")
+            self.params = sharded.ShardedModel.build(params, cfg,
+                                                     shard_plan, mesh)
+            self.device = mesh.first
+            self._prefill = sharded.prefill
+            self._prefill_chunk = sharded.prefill_chunk
+            self._decode_loop = sharded.decode_loop_paged
         self.decode_mode = decode_mode
         self.decode_horizon = decode_horizon
         self.prefill_chunk_tokens = prefill_chunk_tokens
         if max_blocks_per_seq is None:
             max_blocks_per_seq = cfg.max_seq_len // block_size
         if pool is not None:
+            if pool.mesh != mesh:
+                raise ValueError("shared pool lives on a different mesh "
+                                 "than this engine")
             if pool.block_size != block_size:
                 raise ValueError(
                     f"shared pool block_size {pool.block_size} != engine "
@@ -270,10 +311,15 @@ class ServingEngine:
             self.cache = PagedKVCache.from_pool(
                 pool, max_seqs, max_blocks_per_seq, quota=kv_quota)
         else:
-            self.cache = PagedKVCache.create(
-                cfg, num_blocks, block_size, max_seqs,
-                max_blocks_per_seq=max_blocks_per_seq, dtype=dtype,
-                device=self.device)
+            kv_spec = None
+            if mesh is not None:
+                from repro_torch.launch.sharding import pool_pspecs
+                kv_spec = pool_pspecs(cfg, shard_plan)
+            self.cache = PagedKVCache.from_pool(
+                BlockPool(cfg, num_blocks, block_size, dtype, self.device,
+                          mesh=mesh, kv_spec=kv_spec,
+                          rules=shard_plan.rules if shard_plan else None),
+                max_seqs, max_blocks_per_seq)
         self.max_seqs = max_seqs
         self.greedy = greedy
         self.seed = seed
@@ -463,9 +509,10 @@ class ServingEngine:
                         ) -> list[InflightSnapshot]:
         """Adopt migrated sequences from their pages: by handoff when the
         snapshot's pool is this engine's (only the ownership moves), else
-        by copying the pages (``copy_blocks``), or re-laying them out when
-        the page size differs (``relayout_blocks``), and releasing the
-        source's.  Adopted requests join ``active`` mid-generation.
+        by copying the pages (``copy_blocks``), re-laying them out when
+        the page size differs (``relayout_blocks``), or resharding them
+        when the pools' placement or KV-head counts differ
+        (``reshard_blocks``), and releasing the source's.  Adopted requests join ``active`` mid-generation.
 
         Returns the snapshots that could not be adopted (no pages, no free
         slot, no room); they still hold their pages, and the caller falls
@@ -501,13 +548,23 @@ class ServingEngine:
                 slot = free[0]
                 cache.admit(slot, s.seq_len, total_tokens=total)
                 dst_blocks = cache.seq_blocks[slot]
+                same_place = s.pool.placement == cache.pool.placement
+                same_heads = (s.pool.cfg.n_kv_heads
+                              == cache.pool.cfg.n_kv_heads)
                 if s.pool.k is None:
                     pass      # attention-free: the state is the SSM rows
-                elif s.pool.block_size == cache.block_size:
+                elif (same_place and same_heads
+                        and s.pool.block_size == cache.block_size):
                     copy_blocks(s.pool, cache.pool, s.blocks, dst_blocks)
-                else:
+                elif same_place and same_heads:
                     relayout_blocks(s.pool, cache.pool, s.blocks,
                                     dst_blocks, s.seq_len)
+                else:
+                    # pools on different meshes / head shardings / padded
+                    # head counts: dense gather, the hop, head fix and a
+                    # re-chunked scatter
+                    reshard_blocks(s.pool, cache.pool, s.blocks,
+                                   dst_blocks, s.seq_len)
                 s.pool.allocator.release(s.blocks)
             if s.ssm is not None:
                 cache.ssm[:, slot] = s.ssm
@@ -712,7 +769,7 @@ class ServingEngine:
         for pl, group in by_len.items():
             toks = torch.from_numpy(
                 np.stack([r.prefill_tokens for r in group])).to(self.device)
-            logits, cache = prefill(self.params, self.cfg, toks)
+            logits, cache = self._prefill(self.params, self.cfg, toks)
             for i, r in enumerate(group):
                 if self.cfg.has_attn:
                     self.cache.write_prefill(r.slot, cache.k[:, i],
@@ -744,7 +801,7 @@ class ServingEngine:
         need = (start + n_valid + bs - 1) // bs
         n_pages = _pow2_bucket(need, self.cache.max_blocks_per_seq)
         self.prefill_tokens += n_valid
-        return prefill_chunk(
+        return self._prefill_chunk(
             self.params, self.cfg, torch.from_numpy(buf).to(self.device),
             self.cache.k, self.cache.v,
             self.cache.block_table_dev[r.slot:r.slot + 1, :n_pages], start,
@@ -876,7 +933,7 @@ class ServingEngine:
             # gathers copy the batch's rows; the loop updates the copies
             ssm=cache.ssm[:, slot_t] if has_ssm else None,
             conv=cache.conv[:, slot_t] if has_ssm else None)
-        toks, state = decode_loop_paged(
+        toks, state = self._decode_loop(
             self.params, self.cfg, last, state, horizon,
             temperature=0.0 if self.greedy else 1.0, seed=self.seed,
             step0=step0)

@@ -33,7 +33,8 @@ Block ids and tables mean the same thing as in the JAX package.  Where the
 JAX package replaces its pool arrays functionally, this port writes the
 pool and mirror tensors in place (``index_put_`` / slice assignment), so
 every view of a shared pool sees every write at once.
-``gather_dense`` and ``write_token`` serve the engine's dense decode mode:
+``gather_dense`` and ``write_token`` serve the engine's dense decode mode
+(unsharded pools only):
 they copy the batch's live K/V out of the pages into a dense cache and the
 step's new token back.
 
@@ -43,7 +44,9 @@ returning its blocks to the allocator, so a sibling view over the same pool
 can ``adopt_slot`` them — the pages do not move.  ``copy_blocks`` moves
 pages between pools of the same geometry; ``gather_tokens`` +
 ``scatter_tokens`` (``relayout_blocks``) move a sequence between pools
-whose page size differs.
+whose page size differs, and ``reshard_blocks`` between pools of unlike
+meshes or head shardings (a sharded pool, ``BlockPool(mesh=...)``, is a
+grid of per-shard tensors; every move here takes one).
 
 Prefix sharing (``repro_torch.serving.prefixcache`` builds on these):
 ``admit`` can attach pages already in the pool by reference count
@@ -117,21 +120,53 @@ class BlockPool:
     allocator, shareable by several engines' cache views.
 
     ``reserved`` counts the blocks promised to admitted sequences over all
-    views; ``PagedKVCache.n_free_blocks`` reserves against it."""
+    views; ``PagedKVCache.n_free_blocks`` reserves against it.
+
+    ``mesh`` (a ``launch.mesh.ReplicaMesh``), ``kv_spec`` (its
+    ``launch.sharding.pool_pspecs``) and ``rules`` (the serve plan's) make
+    a sharded pool for one replica: ``k``/``v`` are ``ShardGrid``s of
+    per-shard tensors ``[L_stage, P + 1, Hkv_shard, page, D]`` on the
+    shards' devices, layers by ``layer_layout`` and KV heads by
+    ``attn_layout`` (the spec's split where KV heads divide tp; where it
+    replicates them, each shard holds the heads its query heads read).
+    Block ids, the allocator and the block tables stay unsharded, on the
+    mesh's first device: a page is a page whatever its head sharding."""
 
     def __init__(self, cfg: ModelConfig, num_blocks: int,
-                 block_size: int = 16, dtype=torch.float32, device="cuda"):
+                 block_size: int = 16, dtype=torch.float32, device="cuda",
+                 mesh=None, kv_spec=None, rules: dict | None = None):
         self.cfg = cfg
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.kv_spec = kv_spec
+        self.device = torch.device(device) if mesh is None else mesh.first
         self.k = self.v = None
-        if cfg.has_attn:
+        self.layers = self.heads = None
+        if cfg.has_attn and mesh is None:
             shape = (cfg.n_layers, num_blocks + 1, cfg.n_kv_heads,
                      block_size, cfg.head_dim)
             self.k = torch.zeros(shape, dtype=dtype, device=self.device)
             self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        elif cfg.has_attn:
+            from repro_torch.launch.sharding import attn_layout, layer_layout
+            from repro_torch.models.sharded import ShardGrid
+            if kv_spec is None or rules is None:
+                raise ValueError("a sharded pool needs kv_spec and rules")
+            self.layers = layer_layout(cfg.n_layers, rules, mesh.pp)
+            self.heads = [h[2:] for h in attn_layout(cfg, rules, mesh.tp)]
+
+            def part(pi, mi):
+                (l0, l1), (h0, h1) = self.layers[pi], self.heads[mi]
+                return torch.zeros((l1 - l0, num_blocks + 1, h1 - h0,
+                                    block_size, cfg.head_dim), dtype=dtype,
+                                   device=mesh.device(pi, mi))
+
+            self.k, self.v = (ShardGrid([[part(pi, mi)
+                                          for mi in range(mesh.tp)]
+                                         for pi in range(mesh.pp)])
+                              for _ in range(2))
         self.allocator = BlockAllocator(num_blocks)
         self.reserved = 0           # blocks promised to admitted sequences
         self.prefix_cache = None    # set by PrefixCache.__init__
@@ -148,12 +183,29 @@ class BlockPool:
         return self.num_blocks
 
     @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def placement(self):
+        """Device placement + sharding identity: pools of equal placement
+        exchange pages by a plain copy; unequal placements go through
+        ``reshard_blocks``."""
+        if self.mesh is None:
+            return None
+        return (self.mesh, self.kv_spec)
+
+    @property
     def page_nbytes(self) -> int:
-        """Bytes one page holds in k and v over all layers (0 for an
-        attention-free pool); the host tier's transfers are this size."""
+        """Bytes one page holds in k and v over all layers and KV heads,
+        each head counted once (0 for an attention-free pool); the host
+        tier's transfers are this size."""
         if self.k is None:
             return 0
-        return 2 * self.k[:, 0].numel() * self.k.element_size()
+        cfg = self.cfg
+        return (2 * cfg.n_layers * cfg.n_kv_heads * self.block_size
+                * cfg.head_dim * torch.empty((), dtype=self.dtype)
+                .element_size())
 
 
 @dataclasses.dataclass
@@ -493,39 +545,78 @@ class PagedKVCache:
 
 def copy_blocks(src: BlockPool, dst: BlockPool,
                 src_blocks: list[int], dst_blocks: list[int]) -> None:
-    """Copy pages between two pools of the same geometry."""
+    """Copy pages between two pools of the same geometry (and, sharded,
+    the same layout: shard by shard)."""
     if (src.block_size != dst.block_size
-            or src.k.shape[2:] != dst.k.shape[2:]):
+            or src.cfg.n_kv_heads != dst.cfg.n_kv_heads
+            or src.cfg.head_dim != dst.cfg.head_dim
+            or src.sharded != dst.sharded
+            or (src.layers, src.heads) != (dst.layers, dst.heads)):
         raise ValueError("copy_blocks needs matching page geometry; use "
-                         "relayout_blocks")
+                         "relayout_blocks or reshard_blocks")
     if len(src_blocks) != len(dst_blocks):
         raise ValueError("src/dst block lists differ in length")
     if not src_blocks:
         return
-    src_idx = torch.tensor(src_blocks, dtype=torch.long, device=src.device)
-    dst_idx = torch.tensor(dst_blocks, dtype=torch.long, device=dst.device)
-    dst.k[:, dst_idx] = src.k[:, src_idx].to(dst.k.dtype)
-    dst.v[:, dst_idx] = src.v[:, src_idx].to(dst.v.dtype)
+    for (sk, sv), (dk, dv) in zip(_parts(src), _parts(dst)):
+        src_idx = torch.tensor(src_blocks, dtype=torch.long,
+                               device=sk.device)
+        dst_idx = torch.tensor(dst_blocks, dtype=torch.long,
+                               device=dk.device)
+        dk[:, dst_idx] = sk[:, src_idx].to(dk.dtype)
+        dv[:, dst_idx] = sv[:, src_idx].to(dv.dtype)
 
 
-def gather_tokens(pool: BlockPool, blocks: list[int], seq_len: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One sequence's K/V as dense copies [L, seq_len, Hkv, D]."""
-    idx = torch.tensor(blocks, dtype=torch.long, device=pool.device)
-    k = pool.k[:, idx]                       # [L, n, Hkv, bs, D]
-    v = pool.v[:, idx]
+def _parts(pool: BlockPool):
+    """(k, v) of every shard holding heads and layers, in (pipe, model)
+    order: the pool's one pair when unsharded."""
+    if not pool.sharded:
+        return [(pool.k, pool.v)]
+    return [(k, pool.v.parts[pi][mi]) for pi, mi, k in pool.k
+            if k.shape[0] and k.shape[2]]
+
+
+def _gather(k_pool: torch.Tensor, v_pool: torch.Tensor, blocks: list[int],
+            seq_len: int):
+    idx = torch.tensor(blocks, dtype=torch.long, device=k_pool.device)
+    k = k_pool[:, idx]                       # [L, n, Hkv, bs, D]
+    v = v_pool[:, idx]
     L, n, H, bs, D = k.shape
     k = k.transpose(2, 3).reshape(L, n * bs, H, D)[:, :seq_len]
     v = v.transpose(2, 3).reshape(L, n * bs, H, D)[:, :seq_len]
     return k, v
 
 
-def scatter_tokens(pool: BlockPool, blocks: list[int],
-                   k_seq: torch.Tensor, v_seq: torch.Tensor) -> None:
-    """Write dense [L, S, Hkv, D] K/V into the given pages of ``pool``,
-    re-chunked to its page size."""
+def gather_tokens(pool: BlockPool, blocks: list[int], seq_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sequence's K/V as dense copies [L, seq_len, Hkv, D] on the
+    pool's device.  A sharded pool's heads are assembled from its shards,
+    each KV head taken once (from the first shard in model order that
+    holds it), and its stages' layers concatenated."""
+    if not pool.sharded:
+        return _gather(pool.k, pool.v, blocks, seq_len)
+    ks, vs = [], []
+    for pi, (l0, l1) in enumerate(pool.layers):
+        if l1 == l0:
+            continue
+        hk, hv, have = [], [], 0
+        for mi, (h0, h1) in enumerate(pool.heads):
+            if h1 <= have:
+                continue
+            k, v = _gather(pool.k.parts[pi][mi], pool.v.parts[pi][mi],
+                           blocks, seq_len)
+            hk.append(k[:, :, have - h0:].to(pool.device))
+            hv.append(v[:, :, have - h0:].to(pool.device))
+            have = h1
+        ks.append(torch.cat(hk, dim=2))
+        vs.append(torch.cat(hv, dim=2))
+    return torch.cat(ks), torch.cat(vs)
+
+
+def _scatter(k_pool: torch.Tensor, v_pool: torch.Tensor, blocks: list[int],
+             k_seq: torch.Tensor, v_seq: torch.Tensor) -> None:
     L, S, H, D = k_seq.shape
-    bs = pool.block_size
+    bs = k_pool.shape[3]
     n = (S + bs - 1) // bs
     if n != len(blocks):
         raise ValueError(f"{S} tokens need {n} blocks, got {len(blocks)}")
@@ -535,9 +626,29 @@ def scatter_tokens(pool: BlockPool, blocks: list[int],
         v_seq = torch.nn.functional.pad(v_seq, (0, 0, 0, 0, 0, pad))
     kb = k_seq.reshape(L, n, bs, H, D).transpose(2, 3)   # [L, n, H, bs, D]
     vb = v_seq.reshape(L, n, bs, H, D).transpose(2, 3)
-    idx = torch.tensor(blocks, dtype=torch.long, device=pool.device)
-    pool.k[:, idx] = kb.to(pool.k.dtype)
-    pool.v[:, idx] = vb.to(pool.v.dtype)
+    idx = torch.tensor(blocks, dtype=torch.long, device=k_pool.device)
+    k_pool[:, idx] = kb.to(k_pool.device, k_pool.dtype)
+    v_pool[:, idx] = vb.to(v_pool.device, v_pool.dtype)
+
+
+def scatter_tokens(pool: BlockPool, blocks: list[int], k_seq, v_seq
+                   ) -> None:
+    """Write dense [L, S, Hkv, D] K/V into the given pages of ``pool``,
+    re-chunked to its page size.  A sharded pool takes either the dense
+    tensors, cut into each shard's layers and heads, or ``ShardGrid``s of
+    each shard's own [L_stage, S, Hkv_shard, D] (a sharded prefill's)."""
+    if not pool.sharded:
+        _scatter(pool.k, pool.v, blocks, k_seq, v_seq)
+        return
+    for pi, mi, k_part in pool.k:
+        if not (k_part.shape[0] and k_part.shape[2]):
+            continue
+        if isinstance(k_seq, torch.Tensor):
+            (l0, l1), (h0, h1) = pool.layers[pi], pool.heads[mi]
+            k, v = k_seq[l0:l1, :, h0:h1], v_seq[l0:l1, :, h0:h1]
+        else:
+            k, v = k_seq.parts[pi][mi], v_seq.parts[pi][mi]
+        _scatter(k_part, pool.v.parts[pi][mi], blocks, k, v)
 
 
 def relayout_blocks(src: BlockPool, dst: BlockPool,
@@ -547,3 +658,31 @@ def relayout_blocks(src: BlockPool, dst: BlockPool,
     gather, then re-chunked scatter, on the device."""
     k, v = gather_tokens(src, src_blocks, seq_len)
     scatter_tokens(dst, dst_blocks, k, v)
+
+
+def reshard_blocks(src: BlockPool, dst: BlockPool,
+                   src_blocks: list[int], dst_blocks: list[int],
+                   seq_len: int) -> None:
+    """Move one sequence between pools on *different meshes / head
+    shardings* (per-replica sharded serving): the migration path a
+    deployment switch between replicas of unlike (tp, pp) takes.
+
+    Four steps: a dense gather on the source, assembling the heads from
+    its shards and taking one copy where they replicate
+    (``gather_tokens``); the KV-head fix when the two replicas run
+    different head-padded configs (a padded source keeps its real heads
+    first, so the pad heads slice off; a padded destination's extra heads
+    are zero rows only padded query heads attend); the hop to the
+    destination's first device; the re-chunked scatter into each
+    destination shard's layers and heads (``scatter_tokens``).  Zero
+    tokens are recomputed: only bytes move.
+    """
+    k, v = gather_tokens(src, src_blocks, seq_len)
+    src_h, dst_h = k.shape[2], dst.cfg.n_kv_heads
+    if src_h > dst_h:
+        k, v = k[:, :, :dst_h], v[:, :, :dst_h]
+    elif src_h < dst_h:
+        pad = (0, 0, 0, dst_h - src_h)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    scatter_tokens(dst, dst_blocks, k.to(dst.device), v.to(dst.device))

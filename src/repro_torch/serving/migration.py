@@ -7,10 +7,15 @@ the cheapest path the destination allows, in order:
   1. **Page handoff** (the same ``BlockPool``): the pages do not move.  The
      destination's view adopts them (allocator accounting and one
      block-table row), and decoding resumes with nothing recomputed.
-  2. **Page copy / relayout** (another pool): the pages are copied into the
-     destination's pool (``kvcache.copy_blocks``), or gathered densely and
-     re-chunked when its page size differs (``kvcache.relayout_blocks``).
-     Nothing is recomputed; both count as ``copied``/``pages_copied``.
+  2. **Page copy / relayout / reshard** (another pool): the pages are
+     copied into the destination's pool (``kvcache.copy_blocks``),
+     gathered densely and re-chunked when its page size differs
+     (``kvcache.relayout_blocks``), or, when the pools live on different
+     replica meshes or head shardings (a sharded ``ClusterRuntime``'s
+     per-replica pools), gathered from the source's shards, hopped to the
+     destination, head-fixed between padded configs and scattered into
+     the destination's shards (``kvcache.reshard_blocks``).  Nothing is
+     recomputed; all three count as ``copied``/``pages_copied``.
   3. **Re-prefill** (no pages, or no room for them): the destination
      prefills ``prompt + generated`` again, chunked when its engine chunks;
      with a prefix cache it attaches the leading pages the index holds and
@@ -21,8 +26,7 @@ run; they differ in the stall and the bytes moved.  The port's pools are
 written in place, so a handoff must only re-register the pages (every view
 of the pool already sees them), and a copy gathers into the destination's
 own pages.  Call ``migrate_batch`` only between a ``finish_step`` and the
-next ``step_async`` of either engine.  Moving pools between meshes
-(``reshard_blocks`` in the JAX package) is not ported.
+next ``step_async`` of either engine.
 """
 from __future__ import annotations
 
@@ -85,7 +89,8 @@ def migrate_batch(dst: ServingEngine, snaps: list[InflightSnapshot]
                   ) -> MigrationReport:
     """Restore a batch of exported requests on ``dst``, cheapest path first.
 
-    Snapshots with pages go through ``import_by_pages`` (handoff or copy);
+    Snapshots with pages go through ``import_by_pages`` (handoff, or a
+    copy, relayout or reshard);
     what the destination cannot hold by pages, and queued requests that
     never had pages, fall back to ``import_inflight`` (re-prefill).  Every
     held page ends owned by ``dst`` or released here.

@@ -99,9 +99,11 @@ def run_real_spans(model: str = "opt-30b", chips: int = 6,
     hands first-token-ready contexts to decode replicas
     (``SpanReport.handoffs`` / ``SpanReport.role_util``).
 
-    ``shard=True`` (each replica's (tp, pp) on a sub-mesh of its own
-    devices) is not ported and raises ``NotImplementedError``, as the
-    runtime does.
+    ``shard=True`` executes each replica's (tp, pp) on a sub-mesh of its
+    own chips (``ClusterRuntime(shard=True)``): ``chips`` virtual chips on
+    ``device``, per-replica head-sharded pools, switches by
+    ``reshard_blocks``.  MoE and SSM models raise ``NotImplementedError``
+    (ROADMAP Queue A item 9b).
 
     ``model``'s smoke config runs the engines and its full config is the
     planning profile; the default is the JAX package's, opt-30b.  The fp32

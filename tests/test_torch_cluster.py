@@ -4,7 +4,7 @@ two-span heterogeneous switch with requests in flight (``test_cluster.py``'s
 orchestrated switch in miniature, with a plan written by hand), the same
 switch rolled back by a fault mid-commit, a fail / repair round with the
 rebalancer and the prefix cache on, quota partition and the small
-replica's context ceiling, and ``shard=True``.  A recording stand-in
+replica's context ceiling, and ``shard=True`` on MoE and SSM models.  A recording stand-in
 orchestrator passed to both runtimes must receive the same calls.  Each
 JAX scenario runs once per module."""
 import functools
@@ -173,7 +173,11 @@ def test_quota_partition_and_small_replica_ceiling():
 
 
 def test_shard_is_not_ported():
-    pkg = package("torch")
-    for kw in (dict(shard=True), dict(devices=["cpu"])):
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
-            runtime(pkg, total_chips=2, **kw)
+    """``shard=True`` runs dense models (``test_torch_sharded_cluster.py``);
+    MoE and SSM models' sharded execution is not ported yet."""
+    for arch in ("olmoe-1b-7b", "mamba2-370m", "hymba-1.5b"):
+        pkg = package("torch", arch)
+        for kw in (dict(shard=True), dict(shard=True, devices=["cpu"] * 2)):
+            with pytest.raises(NotImplementedError,
+                               match="Queue A item 9b"):
+                runtime(pkg, total_chips=2, **kw)

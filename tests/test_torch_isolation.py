@@ -55,6 +55,9 @@ def test_importing_the_port_loads_no_jax():
            f"{FORBIDDEN!r})",
            "assert not bad, bad",
            f"print(len({modules!r}))"])
+    assert {"repro_torch.pshard", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.launch.shapes",
+            "repro_torch.models.sharded"} <= set(modules)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

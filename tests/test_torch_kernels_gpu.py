@@ -436,7 +436,10 @@ def test_flash_attention_q_offset_kernel_matches_plain(cuda, dtype, name, B,
 # group of 1, D = 128) and granite-moe's 24/8 of 64 (a group of 3);
 # name, Hq, Hkv, D
 FAMILY_HEADS = [("opt-30b", 56, 56, 128), ("olmoe-1b-7b", 16, 16, 128),
-                ("granite-moe", 24, 8, 64)]
+                ("granite-moe", 24, 8, 64),
+                # yi-9b's shard-local heads: tp 2 (16 over 2 KV heads, a
+                # group of 8) and tp 8 (4 over one replicated KV head)
+                ("yi-9b-tp2", 16, 2, 128), ("yi-9b-tp8", 4, 1, 128)]
 FAMILY_IDS = [c[0] for c in FAMILY_HEADS]
 
 
@@ -727,6 +730,41 @@ def test_cluster_switch_and_crash_on_the_card(cuda, arch, lose_pages):
     assert not sw["rolled_back"] and sw["handoff"] == sw["migrated"] >= 1
     assert rec["reprefilled" if lose_pages else "handoff"] >= 1
     assert card["pool"] == (128, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp,pp", [(2, 1), (2, 2)])
+def test_sharded_engine_on_the_card_equals_unsharded(cuda, no_tf32, tp, pp):
+    """yi-9b smoke sharded over virtual chips on one card (fp32): the
+    unsharded engine's tokens, B1 and B2 launched by the shards."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.launch.sharding import make_plan
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_smoke_config("yi-9b")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    rng = np.random.RandomState(0)
+    jobs = [(rng.randint(0, cfg.vocab_size, n).astype(np.int32), new)
+            for n, new in ((8, 7), (8, 9), (12, 6), (12, 8))]
+
+    def serve(**kw):
+        eng = ServingEngine(cfg, params, num_blocks=64, block_size=8,
+                            max_seqs=4, device=cuda, decode_horizon=4, **kw)
+        for i, (p, n) in enumerate(jobs):
+            eng.submit(i, p, n)
+        return {r.rid: r.generated for r in eng.run_to_completion()}
+
+    want = serve()
+    plan, _ = make_plan(cfg, "serve", False, 1, tp=tp, pp=pp)
+    ops.reset_launch_counts()
+    got = serve(mesh=make_replica_mesh([cuda] * (tp * pp), tp, pp),
+                shard_plan=plan)
+    counts = ops.launch_counts()
+    assert got == want
+    assert counts["paged_decode"] > 0 and counts["flash_attention"] > 0
+    assert counts["flash_decode"] == 0
 
 
 # --------------------------------------------------------------------------

@@ -101,8 +101,12 @@ def test_run_real_spans_switches_and_completes(real_spans):
 
 
 def test_run_real_spans_shard_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tval.run_real_spans(n_spans=1, shard=True, device="cpu")
+    """``shard=True`` serves dense models (``serve_orchestrated --shard``
+    below runs it); MoE and SSM models raise."""
+    for model in ("olmoe-1b-7b", "hymba-1.5b"):
+        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
+            tval.run_real_spans(model=model, n_spans=1, shard=True,
+                                device="cpu")
 
 
 def _jax_example():
