@@ -26,8 +26,10 @@ table):
      smoke and serving shapes (yi-9b, gemma2-2b, hymba-1.5b, mamba2-370m,
      and the model families' heads: opt-30b's 56/56 and olmoe-1b-7b's
      16/16 heads of 128, a group of 1, granite-moe's 24/8 of 64, a
-     group of 3, and yi-9b's shard-local heads, 16/2 at tp 2 and 4/1 at
-     tp 8), the prefill kernel also at a chunk's query offset, both
+     group of 3, and the "sharded" job's shard-local heads: yi-9b's 16/2
+     at tp 2 and 4/1 at tp 8, olmoe's 8/8 of 128 and granite-moe's 12/4
+     of 64 at tp 2, mamba2's 16 SSD heads of 64 at tp 2), the prefill
+     kernel also at a chunk's query offset, both
      decode kernels also split over many CTAs and, at fixed split counts,
      against the plain split-and-combine, the SSD chunk kernel also at
      ragged state widths, long chunks and unaligned inputs, and causal to
@@ -104,7 +106,8 @@ table):
      and mamba2-370m (48), then opt-30b (all 48 layers, 60 GB of weights,
      on a pool of 512 pages in place of 2048) and olmoe-1b-7b (16), each
      paged and chunked (the chunks put sinusoidal positions at a query
-     offset), bf16, random weights from a seeded generator,
+     offset), then granite-moe-3b-a800m (32) paged, bf16, random weights
+     from a seeded generator,
      each run serving 8 requests through ``ServingEngine``; the launch
      counters are set to 0 just before each run and read just after it,
      every kernel on that run's path must have launched (and the dense run
@@ -150,23 +153,30 @@ table):
      decode and prefill kernels, finish 16 x 32 tokens, leave the pool
      whole and meet the 90 % agreement, and prints its switch or
      recovery stalls, TTFT and decode rate beside the card's line; last,
-     on the same weights, the "sharded" job: the paged job on replica
-     meshes of virtual chips, every entry this card (``SHARDED_RUNS``):
-     (tp 1, pp 1) gives the paged run's tokens to the bit, (tp 2, pp 2)
-     at all 48 layers and tp 8 (4 query heads a shard over one
-     replicated KV head, a 512-page pool) meet the 90 % agreement, and
-     each launches B1 and B2 at exactly its shards' head counts and no
-     B3; the "cluster" job sharded over 8 virtual chips, a switch from
-     (tp 2) + (tp 1) to (tp 1) + (tp 2, pp 2) with every request in
-     flight moved by ``reshard_blocks`` (nothing re-prefilled or
-     recomputed), and a crash of the tp-2 replica (its requests moved by
-     reshard) and its repair onto the same chips, each finishing 16 x 32
-     tokens with every pool whole and the 90 % agreement; and
-     ``psum_compressed`` in a world of one under NCCL equal to
-     ``compress_roundtrip`` to the bit; each run prints its wall, TTFT
-     and decode rate beside the card's line, and the job its total
-     (co-located shards run the sharded path, not tensor parallelism's
-     speed); last the "orchestrated" job, OServe's control loop (predict -> plan ->
+     on each model's weights after its other runs, its "sharded" job: the
+     paged job on replica meshes of virtual chips, every entry this card
+     (``SHARDED_RUNS``): (tp 1, pp 1) gives the paged run's tokens to the
+     bit; yi-9b at (tp 2, pp 2) (all 48 layers) and tp 8 (4 query heads
+     a shard over one replicated KV head, a 512-page pool), hymba-1.5b at
+     tp 2 (attention and its 25 SSM heads on shard 0, the MLP split),
+     mamba2-370m at (tp 2, pp 2) (16 SSM heads a shard; fp32 weights and
+     pool, scored against an fp32 forward: ``SHARDED_FP32``), olmoe-1b-7b at
+     (tp 2, pp 2) (32 experts a shard) and granite-moe-3b-a800m at tp 2
+     (each expert's ff split) meet the 90 % agreement; each run launches
+     B1 and B2 (with attention) and B4 (with SSD layers) at exactly its
+     shards' head counts, and no B3; for yi-9b and mamba2-370m the
+     "cluster" job sharded over 8 virtual chips, a switch from (tp 2) +
+     (tp 1) to (tp 1) + (tp 2, pp 2) with every request in flight moved
+     by ``reshard_blocks`` (mamba2's by its SSM rows, in fp32; nothing
+     re-prefilled or recomputed), and for yi-9b a crash of the tp-2
+     replica (its requests moved by reshard) and its repair onto the same
+     chips, each finishing 16 x 32 tokens with every pool whole and the
+     90 % agreement; and ``psum_compressed`` in a world of one under NCCL
+     equal to ``compress_roundtrip`` to the bit; each run prints its
+     wall, TTFT and decode rate beside the card's line, and each model's
+     job its total (co-located shards run the sharded path, not tensor
+     parallelism's speed); last the "orchestrated" job, OServe's control
+     loop (predict -> plan ->
      switch): ``serve_orchestrated``'s analytic loop with its LSTM on the
      card (12 spans of a synthetic trace typed by k-means, llama2-70b
      planned on 16 chips), the card's predictions within a relative 1e-4
@@ -237,8 +247,9 @@ table):
      step; B4's backward at (d)'s and (e)'s microbatch shapes (no library
      call computes it), its launches a step.
 
-Phase 6 also times B1 and B2 at the (tp 2, pp 2) run's shard shape
-(16/2 heads).
+Phase 6 also times the kernels at the sharded runs' shard shapes
+(``SHARDED_TIMED``): B1 and B2 at yi-9b's 16/2 heads of 128, olmoe's 8/8
+of 128 and granite-moe's 12/4 of 64, B4 at mamba2's 16 heads.
 
 The last three lines are the card line, one JSON object with the kernel
 table (one row per kernel and timed run) and ``{"ok": true, "device":
@@ -333,6 +344,11 @@ FULL_WIDTH = (
                 ("paged_decode", "flash_attention"), (),
                 ("flash_attention_chunk",)),
     )),
+    # the reference streams of its sharded runs ("tp" experts)
+    ("granite-moe-3b-a800m", (
+        Variant("paged", PAGED, ("paged_decode", "flash_attention"), (),
+                ("paged_decode", "flash_attention")),
+    )),
 )
 # phase 6's chunk shape: 256 queries after 512 resident tokens
 CHUNK, CHUNK_OFFSET = 256, 512
@@ -386,6 +402,8 @@ SSD_CASES = [
     ("groups2", 1, 2, 64, 8, 32, 16, 2),
     ("mamba2", 1, 4, 256, 32, 64, 128, 1),
     ("mamba2-q195", 2, 1, 195, 32, 64, 128, 1),
+    # mamba2's shard-local heads at tp 2 (the "sharded" job)
+    ("mamba2-tp2", 1, 4, 256, 16, 64, 128, 1),
     ("hymba", 1, 4, 256, 25, 64, 16, 1),
     ("hymba-batch", 3, 2, 256, 25, 64, 16, 1),
     # chunks longer than 256 and P = 128
@@ -632,6 +650,12 @@ def check_paged(gen, fd, ref) -> None:
          [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 0, (3,)),
         ("yi-9b-tp8", 8, 4, 1, 128, 16,
          [1, 15, 16, 17, 300, 1000, 1500, 2048], 0.0, 0, (3,)),
+        # the MoE families' shard-local heads at tp 2: olmoe's 8/8 of
+        # 128 and granite-moe's 12/4 of 64
+        ("olmoe-tp2", 8, 8, 8, 128, 16,
+         [1, 15, 16, 17, 336, 512, 979, 2048], 0.0, 0, ()),
+        ("granite-moe-tp2", 8, 12, 4, 64, 16,
+         [1, 15, 16, 17, 336, 512, 979, 2048], 0.0, 0, (5,)),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Hq, Hkv, D, page, lens, cap, win, trash in cases:
@@ -709,6 +733,8 @@ def check_prefill(gen, fa, ref) -> None:
         ("granite-200", 4, 200, 200, 24, 8, 64, True, 0.0, 0),
         ("yi-9b-tp2-1024", 2, 1024, 1024, 16, 2, 128, True, 0.0, 0),
         ("yi-9b-tp8-1024", 2, 1024, 1024, 4, 1, 128, True, 0.0, 0),
+        ("olmoe-tp2-1024", 2, 1024, 1024, 8, 8, 128, True, 0.0, 0),
+        ("granite-tp2-1024", 2, 1024, 1024, 12, 4, 64, True, 0.0, 0),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for name, B, Sq, Sk, Hq, Hkv, D, causal, cap, win in cases:
@@ -1932,23 +1958,52 @@ def phase_cluster(ops, cfg, params) -> list[str]:
 # --------------------------------------------------------------------------
 
 
-# phase 5's "sharded" job, on yi-9b's weights after its other runs: the
-# paged job (PAGED, FULL_WIDTH_ENGINE) on replica meshes whose entries are
-# all this card, at (tp, pp, pool pages or None for the job's): (1, 1) must
-# give the paged run's tokens to the bit; (2, 2) runs all 48 layers as two
-# stages of two head shards; tp 8 puts 4 query heads on each shard over
-# one of the 4 KV heads, which do not divide 8, so the spec replicates
-# them (each shard keeps the KV head its query heads read) on a 512-page
-# pool.  No depth is cut: co-located shards are views of the one weight
-# copy.  Then the "cluster" job sharded over 8 virtual chips: a switch
-# from (tp 2) + (tp 1) to (tp 1) + (tp 2, pp 2) with drain window 0, so
-# every request in flight moves by reshard_blocks, and a crash of the tp-2
-# replica (pages kept, moved to the tp-1 one) and its repair.  The
-# replicas share the one weight copy, so nothing is cut there either; a
-# tp-1 replica's 1024 pages and 16 slots hold all 16 requests when the
-# other dies
-SHARDED_MODELS = ("yi-9b",)
-SHARDED_RUNS = ((1, 1, None), (2, 2, None), (8, 1, 512))
+# phase 5's "sharded" job, on each model's weights after its other runs:
+# the paged job (PAGED, FULL_WIDTH_ENGINE) on replica meshes whose entries
+# are all this card, at (tp, pp, pool pages or None for the job's); (1, 1)
+# must give the model's paged run's tokens to the bit.  yi-9b: (2, 2) runs
+# all 48 layers as two stages of two head shards; tp 8 puts 4 query heads
+# on each shard over one of the 4 KV heads, which do not divide 8, so the
+# spec replicates them (each shard keeps the KV head its query heads read)
+# on a 512-page pool.  hymba-1.5b: (2, 1) keeps attention ("replicate")
+# and its 25 SSM heads (tp does not divide them) on shard 0 and splits the
+# MLP's 5504 in two.  mamba2-370m: (2, 2), 16 SSM heads a shard, 24 layers
+# a stage, in fp32 (SHARDED_FP32).  olmoe-1b-7b: (2, 2), 32 experts a
+# shard ("ep") and 8/8 heads.
+# granite-moe-3b-a800m: (2, 1), every expert's ff 512 split in two ("tp")
+# and 12/4 heads; its (1, 1) run is left out (the CPU tests hold tp = pp =
+# 1 bit-equal for every family).  No depth is cut: co-located shards are
+# views of the one weight copy.  Then the "cluster" job sharded over 8
+# virtual chips (SHARDED_CLUSTER_MODELS): a switch from (tp 2) + (tp 1)
+# to (tp 1) + (tp 2, pp 2) with drain window 0, so every request in
+# flight moves by reshard_blocks (mamba2's by its SSM rows alone), and on
+# yi-9b a crash of the tp-2 replica (pages kept, moved to the tp-1 one)
+# and its repair.  The replicas share the one weight copy, so nothing is
+# cut there either; a tp-1 replica's 1024 pages and 16 slots hold all 16
+# requests when the other dies
+SHARDED_RUNS = {
+    "yi-9b": ((1, 1, None), (2, 2, None), (8, 1, 512)),
+    "hymba-1.5b": ((1, 1, None), (2, 1, None)),
+    "mamba2-370m": ((1, 1, None), (2, 2, None)),
+    "olmoe-1b-7b": ((1, 1, None), (2, 2, None)),
+    "granite-moe-3b-a800m": ((2, 1, None),),
+}
+# the models whose sharded runs past (tp 1, pp 1), and whose sharded
+# cluster job, serve fp32 weights (the bf16 ones widened) on an fp32 pool
+# and are scored against an fp32 teacher-forced forward.  mamba2-370m's
+# random bf16 weights leave its logits 5.0 % from an fp32 forward of the
+# same weights and 12 % of its argmaxes unlike fp32's, so a second bf16
+# rounding path, however right, falls under the 90 % agreement with the
+# first (tp 2 read 0.84-0.89 over five seeds where the unsharded decode
+# read 0.89-0.93), while its own logits stand as far from fp32 (5.2 %)
+# and in fp32 within 8e-6 of it (tools/shard_precision.py)
+SHARDED_FP32 = ("mamba2-370m",)
+# the runs whose shard-local shapes phase 6 times
+SHARDED_TIMED = {("yi-9b", 2, 2), ("mamba2-370m", 2, 2),
+                 ("olmoe-1b-7b", 2, 2), ("granite-moe-3b-a800m", 2, 1)}
+# the sharded cluster job's models; the crash round and psum_compressed
+# run with the first only
+SHARDED_CLUSTER_MODELS = ("yi-9b", "mamba2-370m")
 SHARDED_CLUSTER = dict(CLUSTER_RUNTIME, total_chips=8, blocks_per_chip=1024,
                        seqs_per_chip=16, drain_steps=0)
 SHARDED_PLAN_A = (((2, 1), (1, 1)), [[0.5, 0.5], [0.5, 0.5]])
@@ -1961,10 +2016,12 @@ PSUM_SHAPES = {"a": (3, 300), "b": (17,), "c": (4096, 1024)}
 @contextlib.contextmanager
 def kernel_heads(ops):
     """Record (query heads, KV heads) of every ``ops.paged_decode`` and
-    ``ops.flash_attention`` call made inside: the shapes the model's
-    attention hands B1 and B2."""
-    seen = {"paged_decode": set(), "flash_attention": set()}
-    pd, fa = ops.paged_decode, ops.flash_attention
+    ``ops.flash_attention`` call made inside, and the heads H of every
+    ``ops.ssd_chunk`` call: the shapes the model's mixers hand B1, B2 and
+    B4."""
+    seen = {"paged_decode": set(), "flash_attention": set(),
+            "ssd_chunk": set()}
+    pd, fa, sc = ops.paged_decode, ops.flash_attention, ops.ssd_chunk
 
     def paged(q, k_pages, *a, **kw):
         seen["paged_decode"].add((q.shape[1], k_pages.shape[1]))
@@ -1974,79 +2031,107 @@ def kernel_heads(ops):
         seen["flash_attention"].add((q.shape[2], k.shape[2]))
         return fa(q, k, *a, **kw)
 
-    ops.paged_decode, ops.flash_attention = paged, prefill
+    def ssd(x, *a, **kw):
+        seen["ssd_chunk"].add(x.shape[3])      # x [B, Nc, Q, H, P]
+        return sc(x, *a, **kw)
+
+    ops.paged_decode, ops.flash_attention, ops.ssd_chunk = paged, prefill, ssd
     try:
         yield seen
     finally:
-        ops.paged_decode, ops.flash_attention = pd, fa
+        ops.paged_decode, ops.flash_attention, ops.ssd_chunk = pd, fa, sc
+
+
+def mixer_kernels(cfg) -> dict:
+    """Whether each serving kernel must launch on ``cfg``'s paged path (B1
+    and B2 with attention, B4 with SSD layers, B3 never)."""
+    return {"paged_decode": cfg.has_attn, "flash_attention": cfg.has_attn,
+            "ssd_chunk": cfg.has_ssm, "flash_decode": False}
 
 
 def phase_sharded(ops, cfg, params, prompts, paged_streams
                   ) -> tuple[list[str], list[dict]]:
-    """The "sharded" job (see SHARDED_RUNS): the engine runs, then the
-    sharded cluster and ``psum_compressed``.  Returns the checks that
-    failed and the (tp 2, pp 2) run for phase 6's rows at its shard
-    shapes."""
+    """The "sharded" job (see SHARDED_RUNS) on one model: the engine runs,
+    then, for SHARDED_CLUSTER_MODELS, the sharded cluster and (first
+    model) ``psum_compressed``.  Returns the checks that failed and the
+    SHARDED_TIMED runs for phase 6's rows at their shard shapes."""
     from repro_torch.launch.mesh import make_replica_mesh
-    from repro_torch.launch.sharding import local_config, make_plan
+    from repro_torch.launch.sharding import (local_config, make_plan,
+                                             pad_attention_params)
     t_start = time.monotonic()
     card = card_line()
     dev = torch.device("cuda", torch.cuda.current_device())
     failed, runs = [], []
     lens = [len(p) for p in prompts]
-    for tp, pp, blocks in SHARDED_RUNS:
-        name = f"tp {tp} pp {pp}"
+    need = mixer_kernels(cfg)
+    wide = _to(params, torch.float32) if cfg.name in SHARDED_FP32 else None
+    for tp, pp, blocks in SHARDED_RUNS[cfg.name]:
+        fp32 = wide is not None and (tp, pp) != (1, 1)
+        name = f"tp {tp} pp {pp}" + (" fp32" if fp32 else "")
+        base = wide if fp32 else params
         plan, run_cfg = make_plan(cfg, "serve", False, 1, tp=tp, pp=pp)
+        run_params = (base if run_cfg is cfg
+                      else pad_attention_params(base, cfg, run_cfg))
         kw = dict(FULL_WIDTH_ENGINE, **PAGED)
+        if fp32:
+            kw["dtype"] = torch.float32
         if blocks:
             kw["num_blocks"] = blocks
         kw.update(mesh=make_replica_mesh([dev] * (tp * pp), tp, pp),
                   shard_plan=plan)
-        serve(run_cfg, params, [np.arange(64, dtype=np.int32)], 4, "cuda",
-              **kw)
+        serve(run_cfg, run_params, [np.arange(64, dtype=np.int32)], 4,
+              "cuda", **kw)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         with kernel_heads(ops) as heads:
-            fin, eng, wall = serve(run_cfg, params, prompts, 32, "cuda",
+            fin, eng, wall = serve(run_cfg, run_params, prompts, 32, "cuda",
                                    **kw)
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         ttft, rate = serving_times(fin, wall)
         streams = {r: fin[r].generated for r in fin}
         sm = eng.params
-        local = {(c.n_q_heads, c.n_kv_heads) for c in sm.local_cfgs}
-        pool = sorted({tuple(k.shape) for _, _, k in eng.cache.k})
+        local = {(c.n_q_heads, c.n_kv_heads) for c in sm.local_cfgs
+                 if c.n_q_heads}
+        ssm_local = {c.ssm_heads for c in sm.local_cfgs if c.ssm_heads}
+        pool = (sorted({tuple(k.shape) for _, _, k in eng.cache.k})
+                if cfg.has_attn else [])
+        rows = (sorted({tuple(t.shape) for _, _, t in eng.cache.ssm
+                        if t is not None}) if cfg.has_ssm else [])
         same = float(np.mean([a == b for r in sorted(streams)
                               for a, b in zip(streams[r],
                                               paged_streams[r])]))
-        per_req = [teacher_forced_agreement(cfg, params, prompts[r],
+        per_req = [teacher_forced_agreement(cfg, base, prompts[r],
                                             streams[r])
                    for r in sorted(streams)]
         agree = float(np.mean(per_req))
         full = (sorted(streams) == list(range(len(prompts)))
                 and all(len(t) == 32 for t in streams.values()))
-        launched = (counts["paged_decode"] > 0
-                    and counts["flash_attention"] > 0
-                    and counts["flash_decode"] == 0)
+        launched = all((counts[k] > 0) == on for k, on in need.items())
         shapes = (heads["paged_decode"] == local
-                  and heads["flash_attention"] == local)
-        log(f"  [sharded {name}] attn {plan.attn_mode}, kv_heads "
-            f"{plan.rules['kv_heads']}, layers {plan.rules['layers']}: "
-            f"shard heads {sorted(local)}, pool shards {pool}, "
-            f"{kw['num_blocks']} pages; wall {wall:.3f} s  TTFT mean "
-            f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms  "
-            f"decode {rate:.1f} tok/s (after the last first token)  peak "
-            f"mem {peak:.2f} GB; {card}")
-        log(f"  [sharded {name}] launches {counts}; B1 saw (Hq, Hkv) "
-            f"{sorted(heads['paged_decode'])}, B2 "
-            f"{sorted(heads['flash_attention'])}; tokens equal to the "
-            f"paged run's {same:.4f}; teacher-forced agreement (bf16) "
-            f"{agree:.4f}, min {min(per_req):.4f}; limit "
-            f"{MIN_TEACHER_FORCED}")
+                  and heads["flash_attention"] == local
+                  and heads["ssd_chunk"] == ssm_local)
+        r = plan.rules
+        log(f"  [sharded {cfg.name} {name}] attn {plan.attn_mode}, kv_heads "
+            f"{r['kv_heads']}, experts {r['experts']}, expert_ff "
+            f"{r['expert_ff']}, ssm_heads {r['ssm_heads']}, layers "
+            f"{r['layers']}: shard heads {sorted(local)}, SSM heads a shard "
+            f"{[h1 - h0 for h0, h1 in sm.ssm_heads]}, pool shards {pool}, "
+            f"SSM row shards {rows}, {kw['num_blocks']} pages; wall "
+            f"{wall:.3f} s  TTFT mean {np.mean(ttft) * 1e3:.1f} ms max "
+            f"{np.max(ttft) * 1e3:.1f} ms  decode {rate:.1f} tok/s (after "
+            f"the last first token)  peak mem {peak:.2f} GB; {card}")
+        log(f"  [sharded {cfg.name} {name}] launches {counts}; B1 saw (Hq, "
+            f"Hkv) {sorted(heads['paged_decode'])}, B2 "
+            f"{sorted(heads['flash_attention'])}, B4 H "
+            f"{sorted(heads['ssd_chunk'])}; tokens equal to the paged "
+            f"run's {same:.4f}; teacher-forced agreement "
+            f"({'fp32' if fp32 else 'bf16'}) {agree:.4f}, min "
+            f"{min(per_req):.4f}; limit {MIN_TEACHER_FORCED}")
         if not (full and launched and shapes):
             failed.append(f"{cfg.name} sharded {name}: a check failed (32 "
-                          f"tokens each {full}, B1/B2 and no B3 {launched}, "
-                          f"shard shapes {shapes})")
+                          f"tokens each {full}, kernels {need} launched "
+                          f"{launched}, shard shapes {shapes})")
         if (tp, pp) == (1, 1) and streams != paged_streams:
             failed.append(f"{cfg.name} sharded {name}: tokens differ from "
                           f"the unsharded paged run's ({same:.4f} equal)")
@@ -2054,41 +2139,54 @@ def phase_sharded(ops, cfg, params, prompts, paged_streams
             failed.append(f"{cfg.name} sharded {name}: decode agrees with "
                           f"the teacher-forced forward on {agree:.4f} of "
                           f"the tokens, under {MIN_TEACHER_FORCED}")
-        if (tp, pp) == (2, 2):
+        if (cfg.name, tp, pp) in SHARDED_TIMED:
+            timed = tuple(k for k in ("paged_decode", "flash_attention",
+                                      "ssd_chunk") if need[k])
             runs.append({"arch": cfg.name, "cfg": local_config(
-                             cfg, sm.heads[0]),
+                             run_cfg, sm.heads[0], sm.ssm_heads[0]),
                          "variant": Variant(
-                             "sharded tp 2 pp 2", dict(PAGED), (), (),
-                             ("paged_decode", "flash_attention")),
+                             f"sharded {name}", dict(PAGED), (), (), timed),
                          "counts": counts, "n_req": len(fin), "lens": lens,
                          "streams": streams})
-        del fin, eng, sm
+        del fin, eng, sm, run_params, base
         torch.cuda.empty_cache()
-    failed += phase_sharded_cluster(ops, cfg, params)
-    failed += phase_psum(card)
-    log(f"  [sharded] the job took {time.monotonic() - t_start:.1f} s; "
-        f"{card}")
+    if cfg.name in SHARDED_CLUSTER_MODELS:
+        first = cfg.name == SHARDED_CLUSTER_MODELS[0]
+        failed += phase_sharded_cluster(
+            ops, cfg, params if wide is None else wide, crash=first)
+        if first:
+            failed += phase_psum(card)
+    del wide
+    log(f"  [sharded {cfg.name}] the job took "
+        f"{time.monotonic() - t_start:.1f} s; {card}")
     return failed, runs
 
 
-def phase_sharded_cluster(ops, cfg, params) -> list[str]:
+def phase_sharded_cluster(ops, cfg, params, crash: bool = True
+                          ) -> list[str]:
     """The "cluster" job on per-replica sharded pools (SHARDED_CLUSTER):
-    a switch whose moves all ride ``reshard_blocks``, then a crash of the
-    tp-2 replica and its repair.  Returns the checks that failed."""
+    a switch whose moves all ride ``reshard_blocks`` (an SSM model's with
+    its SSM rows), then, with ``crash``, a crash of the tp-2 replica and
+    its repair.  Returns the checks that failed."""
     pkg = cluster_package("cuda")
     prompts = cluster_prompts(cfg)
     rids = list(range(len(prompts)))
     total_prompt = sum(len(p) for p in prompts)
     new = CLUSTER_JOB["new_tokens"]
+    need = mixer_kernels(cfg)
     card = card_line()
     failed = []
+    dtype = params["embed"].dtype
+    word = {torch.bfloat16: "bf16", torch.float32: "fp32"}[dtype]
+    tag = f"{cfg.name} sharded cluster" + (" fp32" if word == "fp32" else "")
 
     def start(plan):
         (rcs, fractions) = plan
         tm = pkg.Telemetry()
         rt = pkg.ClusterRuntime(cfg, params,
                                 router=pkg.FlowRouter(fractions),
-                                telemetry=tm, shard=True, **SHARDED_CLUSTER)
+                                telemetry=tm, shard=True,
+                                **dict(SHARDED_CLUSTER, dtype=dtype))
         rt.apply_plan(span_plan(pkg, [pkg.ReplicaConfig(*rc) for rc in rcs],
                                 fractions))
         for rid, p in enumerate(prompts):
@@ -2109,24 +2207,21 @@ def phase_sharded_cluster(ops, cfg, params) -> list[str]:
         pools = [h.engine.cache.pool for h in rt.replicas if not h.dead]
         whole = all(p.allocator.n_free == p.num_blocks and p.reserved == 0
                     for p in pools)
-        launched = (counts["paged_decode"] > 0
-                    and counts["flash_attention"] > 0
-                    and counts["flash_decode"] == 0)
-        log(f"  [sharded cluster {name}] {line}")
-        log(f"  [sharded cluster {name}] 16 requests x 32 tokens {full}; "
-            f"pools whole {whole}; B1 and B2 launched {launched}; exact "
-            f"counts {exact}; teacher-forced agreement (bf16) {agree:.4f}, "
-            f"min {min(per_req):.4f}; limit {MIN_TEACHER_FORCED}; {card}")
+        launched = all((counts[k] > 0) == on for k, on in need.items())
+        log(f"  [{tag} {name}] {line}")
+        log(f"  [{tag} {name}] 16 requests x 32 tokens {full}; pools whole "
+            f"{whole}; kernels {need} launched {launched}; exact counts "
+            f"{exact}; teacher-forced agreement ({word}) "
+            f"{agree:.4f}, min {min(per_req):.4f}; limit "
+            f"{MIN_TEACHER_FORCED}; {card}")
         if not (full and whole and launched and exact):
-            failed.append(f"{cfg.name} sharded cluster {name}: a check "
-                          f"failed (32 tokens each {full}, pools whole "
-                          f"{whole}, B1/B2 launched {launched}, exact "
-                          f"counts {exact})")
+            failed.append(f"{tag} {name}: a check failed (32 tokens each "
+                          f"{full}, pools whole {whole}, kernels launched "
+                          f"{launched}, exact counts {exact})")
         if agree < MIN_TEACHER_FORCED:
-            failed.append(f"{cfg.name} sharded cluster {name}: decode "
-                          f"agrees with the teacher-forced forward on "
-                          f"{agree:.4f} of the tokens, under "
-                          f"{MIN_TEACHER_FORCED}")
+            failed.append(f"{tag} {name}: decode agrees with the "
+                          f"teacher-forced forward on {agree:.4f} of the "
+                          f"tokens, under {MIN_TEACHER_FORCED}")
         return streams
 
     # switch: plan A until every request has 8 tokens, then plan B; both
@@ -2145,24 +2240,25 @@ def phase_sharded_cluster(ops, cfg, params) -> list[str]:
     torch.cuda.synchronize()
     stall = (time.perf_counter() - t_switch) * 1e3
     if report.rolled_back:
-        failed.append(f"{cfg.name} sharded cluster switch rolled back: "
-                      f"{report.failure}")
+        failed.append(f"{tag} switch rolled back: {report.failure}")
     exact = (not report.rolled_back and report.changed == [0, 1]
              and report.copied == report.migrated == moving
              and report.handoff == report.reprefilled == 0
              and report.requeued == 0 and report.recompute_tokens == 0
              and report.pages_copied > 0)
     meshes = [h.engine._mesh for h in rt.replicas]
-    log(f"  [sharded cluster switch] {SHARDED_PLAN_A[0]} -> "
-        f"{SHARDED_PLAN_B[0]} (tp, pp) on 8 virtual chips at >= "
-        f"{CLUSTER_AFTER[0]} tokens: chips {[m.chips for m in meshes]}; "
-        f"{moving} requests in flight, copied by reshard {report.copied} "
-        f"({report.pages_copied} pages), handoff {report.handoff}, "
-        f"reprefilled {report.reprefilled}, recompute "
-        f"{report.recompute_tokens}, rolled back {report.rolled_back}; "
-        f"switch stall {stall:.3f} ms (apply_plan, synchronized); {card}")
+    log(f"  [{tag} switch] {SHARDED_PLAN_A[0]} -> {SHARDED_PLAN_B[0]} "
+        f"(tp, pp) on 8 virtual chips at >= {CLUSTER_AFTER[0]} tokens: "
+        f"chips {[m.chips for m in meshes]}; {moving} requests in flight, "
+        f"copied by reshard {report.copied} ({report.pages_copied} pages), "
+        f"handoff {report.handoff}, reprefilled {report.reprefilled}, "
+        f"recompute {report.recompute_tokens}, rolled back "
+        f"{report.rolled_back}; switch stall {stall:.3f} ms (apply_plan, "
+        f"synchronized); {card}")
     finish("switch", rt, tm, t0,
            exact and rt.total_prefill_tokens == total_prompt)
+    if not crash:
+        return failed
 
     # crash: the tp-2 replica dies at 8 tokens with its pages kept; its
     # requests move to the tp-1 replica by reshard; then it is repaired
@@ -2186,8 +2282,8 @@ def phase_sharded_cluster(ops, cfg, params) -> list[str]:
     exact = (rep.copied == rep.migrated == len(held)
              and rep.handoff == rep.reprefilled == rep.dropped == 0
              and rep.recompute_tokens == 0 and repaired)
-    log(f"  [sharded cluster crash] replica 0 (tp 2, chips {chips}) dies at "
-        f">= {CLUSTER_AFTER[0]} tokens with its pages kept: {len(held)} "
+    log(f"  [{tag} crash] replica 0 (tp 2, chips {chips}) dies at >= "
+        f"{CLUSTER_AFTER[0]} tokens with its pages kept: {len(held)} "
         f"requests, copied by reshard {rep.copied} ({rep.pages_copied} "
         f"pages), reprefilled {rep.reprefilled}, recompute "
         f"{rep.recompute_tokens}; devices {n_dead} after, repaired "
@@ -2197,8 +2293,7 @@ def phase_sharded_cluster(ops, cfg, params) -> list[str]:
     streams = finish("crash", rt, tm, t0,
                      exact and rt.total_prefill_tokens == total_prompt)
     if not all(streams.get(r, [])[:len(t)] == t for r, t in before.items()):
-        failed.append(f"{cfg.name} sharded cluster crash: a stream changed "
-                      "across the recovery")
+        failed.append(f"{tag} crash: a stream changed across the recovery")
     return failed
 
 
@@ -3024,7 +3119,7 @@ def phase_full_width(ops, arch: str, variants: tuple,
     if arch in CLUSTER_MODELS:
         failures += phase_cluster(ops, cfg, params)
         torch.cuda.empty_cache()
-    if arch in SHARDED_MODELS:
+    if arch in SHARDED_RUNS:
         failed, sharded_runs = phase_sharded(ops, cfg, params, prompts,
                                              runs[0]["streams"])
         failures += failed

@@ -21,7 +21,11 @@ it and the KV heads those heads read.  That is the spec's split where KV
 heads divide tp; where the spec replicates KV heads over `model`, each
 shard keeps only the KV-head range its query heads use, so the kernels see
 a contiguous pool of exactly those heads; in "replicate" mode the first
-model shard holds every head and the others none.
+model shard holds every head and the others none.  The SSM leaves follow
+``ssm_layout`` the same way: whole SSM heads over `model` where they
+divide tp, else every head on the first shard; B/C stay whole on every
+shard.  MoE leaves are cut by their specs: experts over `model` ("ep"), or
+each expert's ff axis ("tp").
 """
 from __future__ import annotations
 
@@ -387,6 +391,8 @@ def attn_layout(cfg: ModelConfig, rules: dict, tp: int
     shard's heads would not form whole local groups (no config of the
     repo at a power-of-two tp does)."""
     Hq, Hkv = cfg.n_q_heads, cfg.n_kv_heads
+    if not cfg.has_attn:
+        return [(0, 0, 0, 0)] * tp
     if rules["heads"] != "model":
         return [(0, Hq, 0, Hkv)] + [(Hq, Hq, Hkv, Hkv)] * (tp - 1)
     g = Hq // Hkv
@@ -403,12 +409,38 @@ def attn_layout(cfg: ModelConfig, rules: dict, tp: int
     return out
 
 
-def local_config(cfg: ModelConfig, heads: tuple[int, int, int, int]
-                 ) -> ModelConfig:
-    """``cfg`` with one shard's head counts (the per-layer functions size
-    their reshapes and kernel calls from them)."""
+def ssm_layout(cfg: ModelConfig, rules: dict, tp: int
+               ) -> list[tuple[int, int]]:
+    """Each model shard's SSM heads [h0, h1).  Heads over ``model`` split
+    evenly; where ``ssm_heads`` is unsharded (a head count tp does not
+    divide, hymba's 25) shard 0 holds every head and the others none, as
+    "replicate" attention does.  A shard's heads read B/C of every group,
+    which is right only with one group or one shard holding every head:
+    more groups with the heads split raise ``ValueError``."""
+    H = cfg.ssm_heads
+    if not cfg.has_ssm:
+        return [(0, 0)] * tp
+    if rules["ssm_heads"] != "model":
+        return [(0, H)] + [(H, H)] * (tp - 1)
+    if cfg.ssm_groups > 1 and tp > 1:
+        raise ValueError(
+            f"{cfg.name}: ssm_groups = {cfg.ssm_groups} > 1 with its "
+            f"{H} SSM heads split over {tp} model shards: a shard's heads "
+            "would read the wrong groups' B/C (only one group, or "
+            "ssm_heads unsharded, is supported)")
+    return split_ranges(H, tp)
+
+
+def local_config(cfg: ModelConfig, heads: tuple[int, int, int, int],
+                 ssm: tuple[int, int] | None = None) -> ModelConfig:
+    """``cfg`` with one shard's head counts, attention's and, given
+    ``ssm``, the SSM's (the per-layer functions size their reshapes and
+    kernel calls from them; d_inner and the conv's channels follow)."""
     q0, q1, kv0, kv1 = heads
-    return dataclasses.replace(cfg, n_q_heads=q1 - q0, n_kv_heads=kv1 - kv0)
+    over = dict(n_q_heads=q1 - q0, n_kv_heads=kv1 - kv0)
+    if ssm is not None:
+        over["ssm_heads"] = ssm[1] - ssm[0]
+    return dataclasses.replace(cfg, **over)
 
 
 def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -429,21 +461,26 @@ def shard_params(params, cfg: ModelConfig, plan: ShardingPlan, mesh):
     layer axis over ``pipe`` by ``layer_layout`` (stage 0 keeps every layer
     where ``layers`` is unsharded), ``d_ff``/``vocab`` over ``model`` by
     ``split_ranges`` (``torch.tensor_split``'s ranges: an indivisible axis
-    gets uneven shards, never padding), and the attention leaves by
-    ``attn_layout``; replicated leaves are whole.  On the device the
-    params live on, every slice is a view (a layer range, a block of rows,
-    or a strided block of columns that ``@`` accepts): co-located shards
-    hold no weight copy.  On another device a slice is copied there.
-    MoE and SSM layers raise (ROADMAP Queue A item 9b).
+    gets uneven shards, never padding; the MoE leaves' expert axis in "ep"
+    mode, each expert's ff axis in "tp" mode), the attention leaves by
+    ``attn_layout`` and the SSM leaves by ``ssm_layout`` (whole heads:
+    columns [h0 * P, h1 * P) of the d_inner-wide leaves, rows of
+    ``out_proj``, entries of the per-head ones); replicated leaves (the
+    router, the SSM's B/C projections and conv weights) are whole.  On the
+    device the params live on, every slice is a view (a layer range, a
+    block of rows, or a strided block of columns that ``@`` accepts):
+    co-located shards hold no weight copy; only ``conv_b``, one leaf over
+    xs and B/C channels, becomes a small copy of the shard's xs columns
+    and the whole B/C tail.  On another device a slice is copied there.
     """
-    check_executable(cfg)
     specs = param_pspecs(cfg, plan)
     pp, tp = mesh.pp, mesh.tp
     layers = layer_layout(cfg.n_layers, plan.rules, pp)
     heads = attn_layout(cfg, plan.rules, tp)
+    ssm_heads = ssm_layout(cfg, plan.rules, tp)
     D = cfg.head_dim
 
-    def cut(t, spec, pi, mi, head_cols=None):
+    def cut(t, spec, pi, mi, head_cols=None, width=D):
         dev = mesh.device(pi, mi)
         for axis, entry in enumerate(spec):
             if entry == "pipe":
@@ -452,7 +489,7 @@ def shard_params(params, cfg: ModelConfig, plan: ShardingPlan, mesh):
                 t = _slice(t, axis, *split_ranges(t.shape[axis], tp)[mi])
         if head_cols is not None:
             axis, lo, hi = head_cols
-            t = _slice(t, axis, lo * D, hi * D)
+            t = _slice(t, axis, lo * width, hi * width)
         return _on(t, dev)
 
     def attn_leaf(name, t, spec, pi, mi):
@@ -465,13 +502,32 @@ def shard_params(params, cfg: ModelConfig, plan: ShardingPlan, mesh):
             return cut(t, spec, pi, mi, (t.ndim - 1, kv0, kv1))
         return cut(t, spec, pi, mi)
 
-    def walk(tree, spec, pi, mi, in_attn=False):
+    def ssm_leaf(name, t, spec, pi, mi):
+        h0, h1 = ssm_heads[mi]
+        P = cfg.ssm_head_dim
+        if name in ("w_z", "w_x", "w_dt", "conv_x", "dt_bias", "A_log",
+                    "D", "norm_w"):
+            # the last axis: d_inner columns, or one entry a head
+            width = 1 if name in ("w_dt", "dt_bias", "A_log", "D") else P
+            return cut(t, spec, pi, mi, (t.ndim - 1, h0, h1), width)
+        if name == "out_proj":
+            return cut(t, spec, pi, mi, (1, h0, h1), P)
+        if name == "conv_b":
+            # one leaf over [xs | B | C] channels, unsharded by its spec:
+            # the shard's xs columns and the whole B/C tail
+            t = cut(t, spec, pi, mi)
+            return torch.cat([t[:, h0 * P:h1 * P], t[:, cfg.d_inner:]],
+                             dim=1)
+        return cut(t, spec, pi, mi)
+
+    def walk(tree, spec, pi, mi, leaf=None):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = walk(v, spec[k], pi, mi, in_attn or k == "attn")
-            elif in_attn:
-                out[k] = attn_leaf(k, v, spec[k], pi, mi)
+                out[k] = walk(v, spec[k], pi, mi, {
+                    "attn": attn_leaf, "ssm": ssm_leaf}.get(k, leaf))
+            elif leaf is not None:
+                out[k] = leaf(k, v, spec[k], pi, mi)
             else:
                 out[k] = cut(v, spec[k], pi, mi)
         return out
@@ -479,12 +535,3 @@ def shard_params(params, cfg: ModelConfig, plan: ShardingPlan, mesh):
     return [[walk(params, specs, pi, mi) for mi in range(tp)]
             for pi in range(pp)]
 
-
-def check_executable(cfg: ModelConfig) -> None:
-    """The port's sharded executor runs attention-only dense models."""
-    if cfg.is_moe or cfg.has_ssm:
-        kind = "MoE" if cfg.is_moe else "SSM/hybrid"
-        raise NotImplementedError(
-            f"sharded execution of {kind} layers ({cfg.name}) is not "
-            "ported: ROADMAP.md Queue A item 9b (experts / expert_ff and "
-            "ssm_heads over `model`)")

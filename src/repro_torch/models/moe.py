@@ -76,18 +76,33 @@ def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     return probs, gate_vals, topi
 
 
+def dense_gates(xt: torch.Tensor, router: torch.Tensor, top_k: int
+                ) -> torch.Tensor:
+    """The routing of tokens xt [N, d] as dense gates [N, E] fp32: each
+    token's renormalised top-k gates at its experts, zeros elsewhere."""
+    probs, gate_vals, topi = _route(xt, router, top_k)
+    return torch.zeros_like(probs).scatter_(-1, topi, gate_vals)
+
+
+def dense_experts(xt: torch.Tensor, p: dict, gates: torch.Tensor
+                  ) -> torch.Tensor:
+    """Every expert of ``p`` on every token xt [N, d], combined with
+    ``gates`` [N, E_p] in xt's dtype -> [N, d].  ``p`` may hold a slice of
+    the experts (``gates`` then holds their columns) or a slice of every
+    expert's ff axis: the sharded executor sums such partial outputs."""
+    gate = torch.matmul(xt, p["w_gate"])               # [E, N, ff]
+    up = torch.matmul(xt, p["w_up"])
+    y_all = torch.matmul(F.silu(gate) * up, p["w_down"])   # [E, N, d]
+    return torch.einsum("end,ne->nd", y_all, gates.to(xt.dtype))
+
+
 def moe_dense(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     """Decode-path MoE: every expert's SwiGLU on every token, combined with
     the gates in x's dtype.  Exact (no capacity drops).  Batched over
     experts, so no weight is copied.  x [B, S, d] -> [B, S, d]."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
-    probs, gate_vals, topi = _route(xt, p["router"], cfg.top_k)
-    gates = torch.zeros_like(probs).scatter_(-1, topi, gate_vals)
-    gate = torch.matmul(xt, p["w_gate"])               # [E, N, ff]
-    up = torch.matmul(xt, p["w_up"])
-    y_all = torch.matmul(F.silu(gate) * up, p["w_down"])   # [E, N, d]
-    y = torch.einsum("end,ne->nd", y_all, gates.to(x.dtype))
+    y = dense_experts(xt, p, dense_gates(xt, p["router"], cfg.top_k))
     return y.reshape(B, S, d)
 
 
@@ -115,16 +130,23 @@ def dispatch(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return G, C, gate_vals, keep, slot
 
 
-def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
-              capacity_factor: float | None = None) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]: ``moe_dense`` up to DENSE_TOKENS tokens,
-    capacity dispatch above (see the module docstring)."""
+def capacity_experts(x: torch.Tensor, p: dict, routing, e0: int = 0
+                     ) -> torch.Tensor:
+    """The capacity path's experts and combine for x [B, S, d] routed by
+    ``dispatch`` (``routing``).  ``p`` holds experts [e0, e0 + E_p) (every
+    one, or an expert-parallel shard's) at their full ff width or a slice
+    of it; (token, slot) pairs routed to other experts go to the dump
+    slot, so a shard's output is its experts' part of the sum."""
     B, S, d = x.shape
-    if B * S <= DENSE_TOKENS:
-        return moe_dense(x, p, cfg)
-    E, K = cfg.n_experts, cfg.top_k
-    G, C, gate_vals, keep, slot = dispatch(x, p, cfg, capacity_factor)
+    G, C, gate_vals, keep, slot = routing
+    E = p["w_gate"].shape[0]
+    K = slot.shape[-1]
     N = (B // G) * S
+    # this p's experts own slots [e0 * C, (e0 + E) * C); the rest (other
+    # shards' experts and the overflow) go to its dump slot.  With every
+    # expert this leaves ``slot`` as it is.
+    mine = keep & (slot >= e0 * C) & (slot < (e0 + E) * C)
+    slot = torch.where(mine, slot - e0 * C, E * C)
     idx = slot.reshape(G, N * K, 1).expand(G, N * K, d)
     # scatter each (token, slot) into its expert's buffer; every kept slot
     # takes one token, the dump slot the overflow
@@ -142,6 +164,16 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     slots_out = torch.gather(out, 1, idx).reshape(G, N, K, d)
     w = (gate_vals * keep).to(x.dtype)[..., None]
     return (slots_out * w).sum(dim=2).reshape(B, S, d)
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
+              capacity_factor: float | None = None) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]: ``moe_dense`` up to DENSE_TOKENS tokens,
+    capacity dispatch above (see the module docstring)."""
+    B, S, d = x.shape
+    if B * S <= DENSE_TOKENS:
+        return moe_dense(x, p, cfg)
+    return capacity_experts(x, p, dispatch(x, p, cfg, capacity_factor))
 
 
 def load_balance_loss(x: torch.Tensor, p: dict, cfg: ModelConfig

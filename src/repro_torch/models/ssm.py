@@ -99,11 +99,17 @@ def causal_conv(stream: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out.to(stream.dtype) + b), padded[:, L:].clone()
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                eps: float) -> torch.Tensor:
-    y = y * F.silu(z.float())
-    var = torch.mean(y * y, dim=-1, keepdim=True)
-    return y * torch.rsqrt(var + eps) * (1.0 + w.float())
+def gated_norm_from(yg: torch.Tensor, var: torch.Tensor, w: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """The gated RMS norm of ``yg = y * silu(z)`` (fp32) given the mean of
+    its squares over all of d_inner, ``var`` [..., 1]: a head-sharded mixer
+    reduces that mean over its shards and normalises each shard's columns
+    ``yg`` with its own columns of ``w``."""
+    return yg * torch.rsqrt(var + eps) * (1.0 + w.float())
+
+
+def mean_square(yg: torch.Tensor) -> torch.Tensor:
+    return torch.mean(yg * yg, dim=-1, keepdim=True)
 
 
 def ssd_chunked(xs, dt, A, B_, C_, chunk: int, init_state=None):
@@ -162,15 +168,18 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int, init_state=None):
     return y.reshape(Bsz, Nc * Q, H, P)[:, :L], state
 
 
-def ssm_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                init_state: torch.Tensor | None = None,
-                conv_init: torch.Tensor | None = None):
-    """Full-sequence SSD mixer.
+def ssm_scan(x: torch.Tensor, p: dict, cfg: ModelConfig,
+             init_state: torch.Tensor | None = None,
+             conv_init: torch.Tensor | None = None):
+    """The full-sequence SSD mixer up to its gated norm: the projections,
+    the causal conv, the chunked scan and the D skip, gated by silu(z).
+    ``p`` and ``cfg`` may be one head shard's (its columns of the
+    head-sharded leaves, B/C whole, ``cfg.ssm_heads`` its head count).
 
     Args:
       x: [B, L, d_model].
-    Returns: (out [B, L, d_model], final_ssm_state [B, H, P, N] fp32,
-              final_conv_window [B, W - 1, conv_channels])
+    Returns: (y * silu(z) [B, L, H * P] fp32, final_ssm_state [B, H, P, N]
+              fp32, final_conv_window [B, W - 1, conv_channels])
     """
     Bsz, L, _ = x.shape
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
@@ -199,20 +208,35 @@ def ssm_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
                            init_state)
     y = y + xs_f * p["D"][None, None, :, None]
     y = y.reshape(Bsz, L, H * P)
-    y = _gated_norm(y, z, p["norm_w"], cfg.norm_eps)
+    return y * F.silu(z.float()), state, new_conv_window
+
+
+def ssm_forward(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                init_state: torch.Tensor | None = None,
+                conv_init: torch.Tensor | None = None):
+    """Full-sequence SSD mixer.
+
+    Args:
+      x: [B, L, d_model].
+    Returns: (out [B, L, d_model], final_ssm_state [B, H, P, N] fp32,
+              final_conv_window [B, W - 1, conv_channels])
+    """
+    yg, state, new_conv_window = ssm_scan(x, p, cfg, init_state, conv_init)
+    y = gated_norm_from(yg, mean_square(yg), p["norm_w"], cfg.norm_eps)
     out = y.to(x.dtype) @ p["out_proj"]
     return out, state, new_conv_window
 
 
-def ssm_decode_step(x: torch.Tensor, p: dict, cfg: ModelConfig,
+def ssm_decode_scan(x: torch.Tensor, p: dict, cfg: ModelConfig,
                     state: torch.Tensor, conv_window: torch.Tensor):
-    """One recurrent step.
+    """One recurrent step up to the gated norm (``ssm_scan``'s decode
+    form; ``p``/``cfg`` may be one head shard's).
 
     Args:
       x: [B, 1, d_model]; state: [B, H, P, N] fp32;
       conv_window: [B, W - 1, conv_channels] (previous conv inputs).
-    Returns: (out [B, 1, d_model], new state, new conv window); the inputs
-      are not modified.
+    Returns: (y * silu(z) [B, H * P] fp32, new state, new conv window); the
+      inputs are not modified.
     """
     Bsz = x.shape[0]
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
@@ -239,6 +263,20 @@ def ssm_decode_step(x: torch.Tensor, p: dict, cfg: ModelConfig,
     y = torch.einsum("bhn,bhpn->bhp", C_f, state)
     y = y + xs_f * p["D"][None, :, None]
     y = y.reshape(Bsz, H * P)
-    y = _gated_norm(y, z, p["norm_w"], cfg.norm_eps)
+    return y * F.silu(z.float()), state, new_window
+
+
+def ssm_decode_step(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                    state: torch.Tensor, conv_window: torch.Tensor):
+    """One recurrent step.
+
+    Args:
+      x: [B, 1, d_model]; state: [B, H, P, N] fp32;
+      conv_window: [B, W - 1, conv_channels] (previous conv inputs).
+    Returns: (out [B, 1, d_model], new state, new conv window); the inputs
+      are not modified.
+    """
+    yg, state, new_window = ssm_decode_scan(x, p, cfg, state, conv_window)
+    y = gated_norm_from(yg, mean_square(yg), p["norm_w"], cfg.norm_eps)
     out = (y.to(x.dtype) @ p["out_proj"])[:, None]
     return out, state, new_window

@@ -69,8 +69,9 @@ zero tokens recomputed.  On one card the chips are virtual: ``devices``
 defaults to the runtime's device repeated ``total_chips`` times, and each
 chip keeps an id of its own, so slices, failures and repairs track chips
 even where their devices are equal.  Co-located shards run the sharded
-path, not tensor parallelism's speed.  MoE and SSM models raise (ROADMAP
-Queue A item 9b).
+path, not tensor parallelism's speed.  Every family runs sharded; an SSM
+model's requests move with their SSM rows, assembled from the source's
+shards and split into the destination's.
 
 Failure model
 -------------
@@ -196,8 +197,7 @@ import torch
 
 from repro_torch.core.types import ReplicaConfig
 from repro_torch.launch.mesh import make_replica_mesh
-from repro_torch.launch.sharding import (check_executable, make_plan,
-                                         pad_attention_params)
+from repro_torch.launch.sharding import make_plan, pad_attention_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import (EngineRequest, InflightSnapshot,
                                         ServingEngine)
@@ -389,9 +389,8 @@ class ClusterRuntime:
             pools (a shared pool cannot span disjoint meshes), so in-flight
             migrations ride the cross-pool reshard path
             (``kvcache.reshard_blocks``) instead of the free same-pool page
-            handoff — still zero recompute.  Paged decode only; MoE and SSM
-            models raise ``NotImplementedError`` (ROADMAP Queue A item
-            9b).  ``devices`` is ignored without ``shard``.
+            handoff — still zero recompute.  Paged decode only; every
+            family.  ``devices`` is ignored without ``shard``.
           faults: optional ``serving.faults.FaultPlan`` consulted at each
             injection site (dispatch, admission, switch) — the
             deterministic chaos source; see the module docstring's
@@ -446,7 +445,6 @@ class ClusterRuntime:
         if shard:
             if decode_mode != "paged":
                 raise ValueError("shard=True needs decode_mode='paged'")
-            check_executable(cfg)
             self._chip_devices = [torch.device(d) for d in (
                 devices if devices is not None else [device] * total_chips)]
             self._chips = list(range(len(self._chip_devices)))

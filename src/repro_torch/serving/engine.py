@@ -99,13 +99,15 @@ schema (the JAX package's table).
 Sharded replicas (``mesh=`` and ``shard_plan=``): the engine runs a
 ``models.sharded.ShardedModel`` over the replica's (pp, tp) mesh in place
 of the plain model functions, over a sharded pool (``BlockPool`` with
-``mesh=``); its host scheduler, allocator and block tables are the same.
-Where the JAX package's sharded engine runs ``attn_impl="jnp"``, the
-port's shards run the kernels (B1, B2 and its chunk form) at their local
-head counts.  A page import picks its route by the pools' ``placement``
-and KV-head counts: copy (same placement and geometry), relayout (same
-placement, another page size) or ``reshard_blocks`` (another mesh or head
-sharding).
+``mesh=``) and, with SSM layers, sharded per-slot SSM rows; its host
+scheduler, allocator and block tables are the same.  Where the JAX
+package's sharded engine runs ``attn_impl="jnp"``, the port's shards run
+the kernels (B1, B2 and its chunk form, B4) at their local head counts.
+Snapshots carry a slot's SSM rows in their logical form, so a request
+moves between unlike layouts with its state.  A page import picks its
+route by the pools' ``placement`` and KV-head counts: copy (same
+placement and geometry), relayout (same placement, another page size) or
+``reshard_blocks`` (another mesh or head sharding).
 """
 from __future__ import annotations
 
@@ -188,7 +190,9 @@ class InflightSnapshot:
     seq_len: int = 0                 # tokens resident in those pages
     n_shared: int = 0                # leading prefix-cache pages (by ref)
     pool: BlockPool | None = None    # the pool the pages live in
-    ssm: torch.Tensor | None = None  # [L, H, P, N] the sequence's SSM row
+    # the sequence's SSM rows, logical whatever the source's layout:
+    # [L, H, P, N] fp32 and [L, W - 1, conv_ch] (``PagedKVCache.slot_rows``)
+    ssm: torch.Tensor | None = None
     conv: torch.Tensor | None = None
     deadline: float | None = None    # TTFT deadline, carried across a move
     tpot: float | None = None        # TPOT pace budget, carried likewise
@@ -257,7 +261,9 @@ class ServingEngine:
         ``cfg``/``params`` must already be the plan's run config (head-
         padded in "pad" mode: ``launch.sharding.pad_attention_params``).
         A sharded engine is paged only, and a shared pool must live on the
-        same mesh.  MoE and SSM models raise (ROADMAP Queue A item 9b)."""
+        same mesh.  Every family runs sharded: attention heads, MLP d_ff,
+        MoE experts or expert ff, SSM heads and vocab over the mesh's
+        ``model`` axis, layers over ``pipe``."""
         if decode_mode not in ("paged", "dense"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if decode_horizon < 1:
@@ -481,11 +487,10 @@ class ServingEngine:
             self.cache.release_slot(slot)
             return _token_snapshot(r)
         # the slot's next occupant overwrites these rows in place: the
-        # snapshot keeps copies
-        ssm = (self.cache.ssm[:, slot].clone()
-               if self.cache.ssm is not None else None)
-        conv = (self.cache.conv[:, slot].clone()
-                if self.cache.conv is not None else None)
+        # snapshot keeps copies, in the logical layout-free form
+        ssm = conv = None
+        if self.cache.ssm is not None:
+            ssm, conv = self.cache.slot_rows(slot)
         n_shared = self.cache.seq_shared.get(slot, 0)
         blocks, seq_len = self.cache.disown_slot(slot)
         return _token_snapshot(r, blocks=blocks, seq_len=seq_len,
@@ -567,8 +572,7 @@ class ServingEngine:
                                    dst_blocks, s.seq_len)
                 s.pool.allocator.release(s.blocks)
             if s.ssm is not None:
-                cache.ssm[:, slot] = s.ssm
-                cache.conv[:, slot] = s.conv
+                cache.set_slot_rows(slot, s.ssm, s.conv)
             r = EngineRequest(s.rid, np.asarray(s.prompt, np.int32),
                               s.max_new_tokens, slot=slot,
                               generated=list(s.generated),

@@ -13,11 +13,14 @@ package.
 A ``PagedKVCache`` is one replica's view of a pool: per-slot block tables,
 sequence lengths and, for models with SSM layers, device rows per slot:
 ``ssm [L, max_seqs + 1, H, P, N]`` (fp32) and ``conv [L, max_seqs + 1,
-W - 1, conv_ch]`` (pool dtype), with the trash row last.  Prefill writes a
-slot's rows; the decode loop gathers the batch's rows and scatters them
-back.  ``create`` builds a private pool and a view over it;
-``from_pool`` attaches a view to a pool that several engines share, with a
-block ``quota`` so one view cannot starve the others.
+W - 1, conv_ch]`` (pool dtype), with the trash row last (``ShardGrid``s
+over a sharded pool: see ``BlockPool``).  Prefill writes a slot's rows;
+the decode loop gathers the batch's rows and scatters them back;
+``slot_rows``/``set_slot_rows`` read and write one slot's rows in their
+logical, layout-free form, which a migrated request carries.  ``create``
+builds a private pool and a view over it; ``from_pool`` attaches a view
+to a pool that several engines share, with a block ``quota`` so one view
+cannot starve the others.
 
 Admission reserves a sequence's full lifetime block count (prompt + decode
 growth) against both the view's quota and the pool (``BlockPool.reserved``),
@@ -67,7 +70,6 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.ssm import conv_channels
 
 
 class BlockAllocator:
@@ -130,7 +132,16 @@ class BlockPool:
     ``attn_layout`` (the spec's split where KV heads divide tp; where it
     replicates them, each shard holds the heads its query heads read).
     Block ids, the allocator and the block tables stay unsharded, on the
-    mesh's first device: a page is a page whatever its head sharding."""
+    mesh's first device: a page is a page whatever its head sharding.
+
+    A view over a sharded pool holds its SSM rows as ``ShardGrid``s too
+    (``ssm_rows``): each shard's ``ssm [L_stage, rows, H_shard, P, N]``
+    and ``conv [L_stage, rows, W - 1, H_shard * P + 2 G N]``, layers by
+    ``layer_layout`` and SSM heads by ``ssm_layout`` (where ``ssm_heads``
+    is unsharded, shard 0 holds every head and the others None).  A
+    shard's conv rows are its own xs channels and the whole B/C tail, the
+    window its conv reads; the JAX package replicates the whole window
+    over `model` instead."""
 
     def __init__(self, cfg: ModelConfig, num_blocks: int,
                  block_size: int = 16, dtype=torch.float32, device="cuda",
@@ -143,19 +154,23 @@ class BlockPool:
         self.kv_spec = kv_spec
         self.device = torch.device(device) if mesh is None else mesh.first
         self.k = self.v = None
-        self.layers = self.heads = None
+        self.layers = self.heads = self.ssm_heads = None
+        if mesh is not None:
+            from repro_torch.launch.sharding import (attn_layout,
+                                                     layer_layout,
+                                                     ssm_layout)
+            if rules is None or (cfg.has_attn and kv_spec is None):
+                raise ValueError("a sharded pool needs kv_spec and rules")
+            self.layers = layer_layout(cfg.n_layers, rules, mesh.pp)
+            self.heads = [h[2:] for h in attn_layout(cfg, rules, mesh.tp)]
+            self.ssm_heads = ssm_layout(cfg, rules, mesh.tp)
         if cfg.has_attn and mesh is None:
             shape = (cfg.n_layers, num_blocks + 1, cfg.n_kv_heads,
                      block_size, cfg.head_dim)
             self.k = torch.zeros(shape, dtype=dtype, device=self.device)
             self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         elif cfg.has_attn:
-            from repro_torch.launch.sharding import attn_layout, layer_layout
             from repro_torch.models.sharded import ShardGrid
-            if kv_spec is None or rules is None:
-                raise ValueError("a sharded pool needs kv_spec and rules")
-            self.layers = layer_layout(cfg.n_layers, rules, mesh.pp)
-            self.heads = [h[2:] for h in attn_layout(cfg, rules, mesh.tp)]
 
             def part(pi, mi):
                 (l0, l1), (h0, h1) = self.layers[pi], self.heads[mi]
@@ -195,6 +210,32 @@ class BlockPool:
             return None
         return (self.mesh, self.kv_spec)
 
+    def ssm_rows(self, n_rows: int):
+        """Zeroed SSM state and conv window rows for ``n_rows`` slots:
+        tensors [L, n_rows, ...] on the pool's device, or over a sharded
+        pool ``ShardGrid``s of each shard's (see the class docstring)."""
+        cfg = self.cfg
+        W1, GN2 = cfg.ssm_conv_width - 1, 2 * cfg.ssm_groups * cfg.ssm_state
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+
+        def rows(L, H, device):
+            return (torch.zeros((L, n_rows, H, P, N), dtype=torch.float32,
+                                device=device),
+                    torch.zeros((L, n_rows, W1, H * P + GN2),
+                                dtype=self.dtype, device=device))
+
+        if self.mesh is None:
+            return rows(cfg.n_layers, cfg.ssm_heads, self.device)
+        from repro_torch.models.sharded import ShardGrid
+        grids = ([[None] * self.mesh.tp for _ in range(self.mesh.pp)],
+                 [[None] * self.mesh.tp for _ in range(self.mesh.pp)])
+        for pi, (l0, l1) in enumerate(self.layers):
+            for mi, (h0, h1) in enumerate(self.ssm_heads):
+                if l1 > l0 and h1 > h0:
+                    grids[0][pi][mi], grids[1][pi][mi] = rows(
+                        l1 - l0, h1 - h0, self.mesh.device(pi, mi))
+        return ShardGrid(grids[0]), ShardGrid(grids[1])
+
     @property
     def page_nbytes(self) -> int:
         """Bytes one page holds in k and v over all layers and KV heads,
@@ -228,8 +269,10 @@ class PagedKVCache:
     # slot -> leading prefix-cache pages held by reference (counted once
     # pool-wide: outside this view's used and reserved counts)
     seq_shared: dict = dataclasses.field(default_factory=dict)
-    ssm: torch.Tensor | None = None     # [L, max_seqs + 1, H, P, N] fp32
-    conv: torch.Tensor | None = None    # [L, max_seqs + 1, W - 1, conv_ch]
+    # [L, max_seqs + 1, H, P, N] fp32 and [L, max_seqs + 1, W - 1,
+    # conv_ch], or ShardGrids of each shard's (``BlockPool.ssm_rows``)
+    ssm: object = None
+    conv: object = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, num_blocks: int = 256,
@@ -257,13 +300,7 @@ class PagedKVCache:
                                device=pool.device)
         ssm = conv = None
         if cfg.has_ssm:
-            L = cfg.n_layers
-            ssm = torch.zeros((L, max_seqs + 1, cfg.ssm_heads,
-                               cfg.ssm_head_dim, cfg.ssm_state),
-                              dtype=torch.float32, device=pool.device)
-            conv = torch.zeros((L, max_seqs + 1, cfg.ssm_conv_width - 1,
-                                conv_channels(cfg)), dtype=pool.dtype,
-                               device=pool.device)
+            ssm, conv = pool.ssm_rows(max_seqs + 1)
         return cls(cfg, pool.block_size, pool.num_blocks, max_seqs,
                    max_blocks_per_seq, pool,
                    np.zeros((max_seqs, max_blocks_per_seq), np.int32),
@@ -482,6 +519,55 @@ class PagedKVCache:
                 f"{self.n_free_blocks} free")
         self.used_blocks += n - n_shared
         self._register(slot, blocks, seq_len, reserve, n_shared)
+
+    # -- SSM rows in their logical form ---------------------------------------
+
+    def slot_rows(self, slot: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Copies of one slot's SSM state [L, H, P, N] and conv window
+        [L, W - 1, conv_ch] on the view's device, whatever the layout: a
+        sharded view's heads (and their xs channels) are assembled from
+        its shards in head order, the B/C tail taken from the first
+        holder, and its stages' layers concatenated."""
+        if not self.pool.sharded:
+            return self.ssm[:, slot].clone(), self.conv[:, slot].clone()
+        pool, dev = self.pool, self.device
+        states, convs = [], []
+        for pi, (l0, l1) in enumerate(pool.layers):
+            if l1 == l0:
+                continue
+            hs, xs, tail = [], [], None
+            for mi, (h0, h1) in enumerate(pool.ssm_heads):
+                if h1 == h0:
+                    continue
+                s = self.ssm.parts[pi][mi][:, slot]
+                c = self.conv.parts[pi][mi][:, slot]
+                width = (h1 - h0) * self.cfg.ssm_head_dim
+                hs.append(s.to(dev))
+                xs.append(c[..., :width].to(dev))
+                if tail is None:
+                    tail = c[..., width:].to(dev)
+            states.append(torch.cat(hs, dim=1))
+            convs.append(torch.cat(xs + [tail], dim=-1))
+        return torch.cat(states), torch.cat(convs)
+
+    def set_slot_rows(self, slot: int, ssm: torch.Tensor,
+                      conv: torch.Tensor) -> None:
+        """Write one slot's logical SSM rows (``slot_rows``' form) into
+        this view's layout, in place."""
+        if not self.pool.sharded:
+            self.ssm[:, slot] = ssm.to(self.device)
+            self.conv[:, slot] = conv.to(self.device)
+            return
+        pool, P = self.pool, self.cfg.ssm_head_dim
+        for pi, mi, part in self.ssm:
+            if part is None:
+                continue
+            (l0, l1), (h0, h1) = pool.layers[pi], pool.ssm_heads[mi]
+            part[:, slot] = ssm[l0:l1, h0:h1].to(part.device)
+            c = conv[l0:l1]
+            self.conv.parts[pi][mi][:, slot] = torch.cat(
+                [c[..., h0 * P:h1 * P], c[..., self.cfg.d_inner:]],
+                dim=-1).to(part.device)
 
     # -- device writes ---------------------------------------------------------
 

@@ -102,8 +102,8 @@ def run_real_spans(model: str = "opt-30b", chips: int = 6,
     ``shard=True`` executes each replica's (tp, pp) on a sub-mesh of its
     own chips (``ClusterRuntime(shard=True)``): ``chips`` virtual chips on
     ``device``, per-replica head-sharded pools, switches by
-    ``reshard_blocks``.  MoE and SSM models raise ``NotImplementedError``
-    (ROADMAP Queue A item 9b).
+    ``reshard_blocks``; every family, SSM rows moving with their
+    requests.
 
     ``model``'s smoke config runs the engines and its full config is the
     planning profile; the default is the JAX package's, opt-30b.  The fp32

@@ -4,7 +4,8 @@ two-span heterogeneous switch with requests in flight (``test_cluster.py``'s
 orchestrated switch in miniature, with a plan written by hand), the same
 switch rolled back by a fault mid-commit, a fail / repair round with the
 rebalancer and the prefix cache on, quota partition and the small
-replica's context ceiling, and ``shard=True`` on MoE and SSM models.  A recording stand-in
+replica's context ceiling, and ``shard=True`` serving MoE, SSM and
+hybrid models.  A recording stand-in
 orchestrator passed to both runtimes must receive the same calls.  Each
 JAX scenario runs once per module."""
 import functools
@@ -172,12 +173,26 @@ def test_quota_partition_and_small_replica_ceiling():
     assert got["torch"]["counts"] == [0.0, 0.0]
 
 
-def test_shard_is_not_ported():
-    """``shard=True`` runs dense models (``test_torch_sharded_cluster.py``);
-    MoE and SSM models' sharded execution is not ported yet."""
-    for arch in ("olmoe-1b-7b", "mamba2-370m", "hymba-1.5b"):
-        pkg = package("torch", arch)
-        for kw in (dict(shard=True), dict(shard=True, devices=["cpu"] * 2)):
-            with pytest.raises(NotImplementedError,
-                               match="Queue A item 9b"):
-                runtime(pkg, total_chips=2, **kw)
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m",
+                                  "mamba2-370m", "hymba-1.5b"])
+def test_shard_serves_every_family(arch):
+    """``shard=True``, with ``devices=`` and without, builds a (tp 2)
+    replica of a MoE, SSM or hybrid model and serves it to completion with
+    the unsharded engine's tokens."""
+    pkg = package("torch", arch)
+    rng = np.random.RandomState(0)
+    jobs = [(rng.randint(0, pkg.cfg.vocab_size, 6 + 4 * (i % 2))
+             .astype(np.int32), 5 + i) for i in range(3)]
+    ref = pkg.engine(num_blocks=64, block_size=8, max_seqs=4)
+    for i, (p, n) in enumerate(jobs):
+        ref.submit(i, p, n)
+    want = {r.rid: r.generated for r in ref.run_to_completion()}
+    for kw in (dict(shard=True), dict(shard=True, devices=["cpu"] * 2)):
+        rt = runtime(pkg, total_chips=2, blocks_per_chip=16,
+                     seqs_per_chip=2, block_size=8, **kw)
+        rt.apply_plan(plan(pkg, [(2, 1)], [[1.0]]))
+        assert rt.replicas[0].engine._mesh.devices.size == 2
+        for i, (p, n) in enumerate(jobs):
+            rt.submit(i, p, n)
+        rt.run_until_idle()
+        assert {i: rt.results[i].generated for i in range(3)} == want, kw

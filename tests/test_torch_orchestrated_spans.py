@@ -100,13 +100,18 @@ def test_run_real_spans_switches_and_completes(real_spans):
         assert sw.copied == sw.pages_copied == sw.dropped == 0
 
 
-def test_run_real_spans_shard_raises():
-    """``shard=True`` serves dense models (``serve_orchestrated --shard``
-    below runs it); MoE and SSM models raise."""
-    for model in ("olmoe-1b-7b", "hymba-1.5b"):
-        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-            tval.run_real_spans(model=model, n_spans=1, shard=True,
-                                device="cpu")
+def test_run_real_spans_shard_serves_hymba():
+    """``shard=True`` serves a hybrid model's spans: every request
+    completes, with the streams of the same call with ``shard=False``."""
+    runs = {shard: tval.run_real_spans(model="hymba-1.5b", n_spans=1,
+                                       shard=shard, device="cpu")
+            for shard in (False, True)}
+    streams = {shard: {rid: list(r.generated)
+                       for rid, r in rt.results.items()}
+               for shard, (_, rt) in runs.items()}
+    (outcome,), _ = runs[True]
+    assert len(streams[True]) == outcome.n_requests
+    assert streams[True] == streams[False]
 
 
 def _jax_example():

@@ -8,7 +8,10 @@ JAX needs 8 host devices, which only a fresh process gets
 (``XLA_FLAGS``), so one subprocess per module runs the JAX script, which
 asserts what it asserts, and prints its ``SwitchReport``, its recovery
 report, its device counts and its tokens; the port runs the same scenario
-in process on JAX's weights and must assert the same and print the same."""
+in process on JAX's weights and must assert the same and print the same.
+A MoE and a hybrid model are served through the same switch
+(``test_torch_sharded_cluster_families.py`` holds them against JAX's
+counts)."""
 import json
 import os
 import subprocess
@@ -86,8 +89,8 @@ class PlanStub:
         self.fractions = fractions
 
 
-def _setup():
-    _, _, cfg, params = weights("yi-9b")
+def _setup(arch="yi-9b"):
+    _, _, cfg, params = weights(arch)
     rng = np.random.RandomState(0)
     jobs = {i: (rng.randint(0, cfg.vocab_size,
                             8 + 4 * (i % 2)).astype(np.int32), 7 + i % 3)
@@ -163,7 +166,13 @@ def test_sharded_crash_and_repair_restore_the_slice(jax_run):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "hymba-1.5b"])
-def test_sharded_runtime_raises_for_moe_and_ssm(arch):
-    _, _, cfg, params = weights(arch)
-    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-        ClusterRuntime(cfg, params, total_chips=2, shard=True, device="cpu")
+def test_sharded_runtime_serves_moe_and_ssm(arch):
+    """``ClusterRuntime(shard=True)`` serves a MoE and a hybrid model to
+    completion across the switch, with the unsharded engine's tokens."""
+    cfg, params, jobs, rt = _setup(arch)
+    sw = rt.apply_plan(PlanStub([ReplicaConfig(1, 1), ReplicaConfig(2, 2)],
+                                [[0.25], [0.75]]))
+    assert sw.reprefilled == sw.recompute_tokens == 0 and sw.copied >= 3
+    rt.run_until_idle()
+    assert {i: rt.results[i].generated for i in range(6)} == \
+        _reference(cfg, params, jobs)

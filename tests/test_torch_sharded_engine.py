@@ -8,7 +8,8 @@ pp = 1 bit-equal to unsharded (tokens and pools); the shards really split
 case at tp = 4; the replicated-KV case (tp = 4 over 2 KV heads);
 "replicate" mode; dense archs with MLP biases (the once-only ``b_down``),
 sandwich norms and softcaps; the sharded full-sequence forward within
-1e-5 of the unsharded one; MoE and SSM models raise."""
+1e-5 of the unsharded one; MoE and SSM/hybrid replicas equal to the
+unsharded engine."""
 import dataclasses
 import functools
 
@@ -177,14 +178,15 @@ def test_dense_families_sharded_equal_jax(arch, tp, pp):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "hymba-1.5b",
-                                  "mamba2-370m"])
-def test_moe_and_ssm_sharded_execution_raises(arch):
-    cfg = get_smoke_config(arch)
-    plan, run_cfg = make_plan(cfg, "serve", False, 1, tp=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-        ServingEngine(run_cfg, {}, mesh=make_replica_mesh(DEVICES[:2], 2),
-                      shard_plan=plan, device="cpu", **ENGINE_KW)
+@pytest.mark.parametrize("arch,tp,pp", [("olmoe-1b-7b", 2, 1),
+                                        ("hymba-1.5b", 1, 2),
+                                        ("mamba2-370m", 2, 1)])
+def test_moe_and_ssm_sharded_equal_unsharded(arch, tp, pp):
+    """MoE and SSM/hybrid replicas serve the port's unsharded engine's
+    tokens (``test_torch_sharded_moe_ssm.py`` holds both against JAX)."""
+    _, ref = _unsharded(arch)
+    _, _, got = _sharded(arch, tp, pp)
+    assert got == ref
 
 
 def test_sharded_engine_checks():

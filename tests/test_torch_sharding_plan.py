@@ -191,7 +191,8 @@ def test_pad_attention_params_equal_jax_and_preserve_forward(arch, q, kv,
 
 def test_shard_params_views_and_split():
     """Co-located shards are views of the one weight copy; d_ff and vocab
-    split by ``tensor_split``'s ranges, heads by ``attn_layout``."""
+    split by ``tensor_split``'s ranges, heads by ``attn_layout``, MoE
+    experts or their ff and SSM heads by their specs."""
     cfg = tconfigs.get_smoke_config("yi-9b")
     from repro_torch.models import init_params
     params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
@@ -215,7 +216,40 @@ def test_shard_params_views_and_split():
     assert [tuple(t.shape) for t in torch.tensor_split(
         torch.zeros(10), 4)] == [(3,), (3,), (2,), (2,)]
     assert tshd.layer_layout(3, {"layers": None}, 2) == [(0, 3), (3, 3)]
-    for arch in ("olmoe-1b-7b", "mamba2-370m", "hymba-1.5b"):
+    # MoE and SSM leaves: experts ("ep") or every expert's ff ("tp") and
+    # whole SSM heads over `model`, router and B/C whole, all views of the
+    # one copy but conv_b (the shard's xs columns and the whole B/C tail)
+    for arch in ("olmoe-1b-7b", "granite-moe-3b-a800m", "mamba2-370m",
+                 "hymba-1.5b"):
         c = tconfigs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="Queue A item 9b"):
-            tshd.check_executable(c)
+        p = init_params(c, seed=0, dtype=torch.float32, device="cpu")
+        plan, run_cfg = tshd.make_plan(c, "serve", False, 1, tp=2)
+        grid = tshd.shard_params(p, run_cfg, plan,
+                                 make_replica_mesh(["cpu"] * 2, 2))
+        for mi in range(2):
+            b = grid[0][mi]["blocks"]
+            for kind in ("moe", "ssm"):
+                for name, leaf in b.get(kind, {}).items():
+                    whole = p["blocks"][kind][name]
+                    assert (leaf.untyped_storage().data_ptr()
+                            == whole.untyped_storage().data_ptr()) == \
+                        (name != "conv_b"), (arch, name)
+            if c.is_moe:
+                E, ff = c.n_experts, c.d_ff
+                want = ((E // 2, ff) if plan.rules["experts"] == "model"
+                        else (E, ff // 2))
+                assert b["moe"]["w_gate"].shape[1:4:2] == want
+                assert b["moe"]["w_down"].shape[1:3] == want
+                assert b["moe"]["router"].shape == p["blocks"]["moe"][
+                    "router"].shape
+            if c.has_ssm:
+                P, H = c.ssm_head_dim, c.ssm_heads // 2
+                s = b["ssm"]
+                assert s["w_x"].shape[-1] == s["norm_w"].shape[-1] == H * P
+                assert s["dt_bias"].shape[-1] == H
+                assert s["out_proj"].shape[1] == H * P
+                assert s["w_B"].shape == p["blocks"]["ssm"]["w_B"].shape
+                want = torch.cat([p["blocks"]["ssm"]["conv_b"][
+                    :, mi * H * P:(mi + 1) * H * P],
+                    p["blocks"]["ssm"]["conv_b"][:, c.d_inner:]], dim=1)
+                assert torch.equal(s["conv_b"], want)
