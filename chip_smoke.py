@@ -5,8 +5,8 @@
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; it exits non-zero without them.  Phases, in order (a failure exits
 non-zero before the result lines; a failed check of phase 5's "migrate",
-"prefix", "evict", "cluster", "sharded", "orchestrated", "evaluation" or
-"train" runs
+"prefix", "evict", "cluster", "sharded", "plans", "orchestrated",
+"evaluation" or "train" runs
 is reported, and exits non-zero, after phase 6 has run and printed its
 table):
 
@@ -31,7 +31,11 @@ table):
      of 64 at tp 2, mamba2's 16 SSD heads of 64 at tp 2), the prefill
      kernel also at a chunk's query offset, both
      decode kernels also split over many CTAs and, at fixed split counts,
-     against the plain split-and-combine, the SSD chunk kernel also at
+     against the plain split-and-combine, the dense decode kernel's lse
+     form (the decode plan's sequence shards: out bit-equal to the form
+     without, the lse within 1e-4, zeros and -inf on rows that attend
+     nothing, by the wrapper's split and at 1, 3 and 40), the SSD chunk
+     kernel also at
      ragged state widths, long chunks and unaligned inputs, and causal to
      the bit (a row's output is the same whatever rows follow it); the
      prefill kernel's backward (dq, dk, dv from q, k, v, out, lse and dO)
@@ -175,7 +179,19 @@ table):
      equal to ``compress_roundtrip`` to the bit; each run prints its
      wall, TTFT and decode rate beside the card's line, and each model's
      job its total (co-located shards run the sharded path, not tensor
-     parallelism's speed); last the "orchestrated" job, OServe's control
+     parallelism's speed); then, on yi-9b's weights, the "plans" job's
+     serving runs (the JAX package's prefill and decode plans on a (data,
+     model) mesh of virtual chips, ``PLANS_SERVE``/``PLANS_LONG``): 8
+     prompts of 512 prefilled on (data 2, model 2), the cache resharded
+     to the decode plan's layout and 32 greedy tokens decoded over two
+     4-sequence data groups x two sequence shards (B3 with its
+     log-sum-exp, the partials combined), and one prompt of 8192 decoded
+     over (data 2, model 2) sequence shards of a 12288-position cache
+     (the last one past every position): each launches exactly B2 at the
+     shards' heads and B3's lse form at the shards' S, no B1, and meets
+     the 90 % agreement; and the mesh of ones at 4 layers, its logits
+     bit-equal to the unsharded prefill and dense ``decode_step``; last
+     the "orchestrated" job, OServe's control
      loop (predict -> plan ->
      switch): ``serve_orchestrated``'s analytic loop with its LSTM on the
      card (12 spans of a synthetic trace typed by k-means, llama2-70b
@@ -233,7 +249,16 @@ table):
      fp32, seq 320 (a padded chunk), one gradient on the card and the CPU
      as (c); each run prints its median step time, tokens/s, model-FLOPs
      share, peak memory and B2's and B4's forward and backward launches
-     (each exactly what the steps imply) beside the card's line;
+     (each exactly what the steps imply) beside the card's line; last the
+     "plans" job's train runs (``PLANS_TRAIN``): ``Trainer(plan=, mesh=)``
+     on the train plan over (data 2, model 2), fsdp and the
+     sequence-parallel residual, yi-9b at 4 layers and mamba2-370m at 48,
+     batch 2 x 2048, 3 steps: the loss falls, B2/B4 and their backwards
+     launch exactly as the shards and groups imply at the shards' heads,
+     the sharded bf16 first-step loss stands within twice the unsharded
+     port's bf16-to-fp32 distance of the unsharded bf16 loss, a 2-layer
+     fp32 gradient within 1e-4 of the unsharded port's, and a bf16 step
+     on the mesh of ones equal to the unsharded step to the bit;
   6. time each kernel at each run's serving shapes with CUDA events
      (median of 20 groups of 10 back-to-back calls) beside its bound, its
      plain version and, where one exists, one PyTorch library call
@@ -249,7 +274,8 @@ table):
 
 Phase 6 also times the kernels at the sharded runs' shard shapes
 (``SHARDED_TIMED``): B1 and B2 at yi-9b's 16/2 heads of 128, olmoe's 8/8
-of 128 and granite-moe's 12/4 of 64, B4 at mamba2's 16 heads.
+of 128 and granite-moe's 12/4 of 64, B4 at mamba2's 16 heads; and B3's
+lse form at one sequence shard of each plans serving run.
 
 The last three lines are the card line, one JSON object with the kernel
 table (one row per kernel and timed run) and ``{"ok": true, "device":
@@ -827,6 +853,69 @@ def check_prefill_bwd(gen, fa, fab, ref) -> None:
                 raise SystemExit(f"flash_attention_bwd {name} {dtype} "
                                  "disagrees")
             del q, k, v, dout, out, lse, got, again, want
+
+
+# phase 3's cases for B3's lse form: the decode plan's sequence shards
+# (the prefill->decode run's 4-sequence data group over 272 of 544
+# positions, the long-context run's 3072 of 12288, one past the position),
+# rows that attend nothing once shifted and clipped into a shard (len <=
+# start, with start in the last live tile or past it), gemma2-2b's heads
+# with its softcap and a local window
+LSE_CASES = [
+    # name, B, S, Hq, Hkv, D, lens, starts, softcap
+    ("plans-shard", 4, 272, 32, 4, 128, [272, 256, 1, 0], [0, 0, 0, 0], 0.0),
+    ("long-shard", 1, 3072, 32, 4, 128, [2065], [0], 0.0),
+    ("long-past-pos", 1, 3072, 32, 4, 128, [0], [0], 0.0),
+    ("empty-rows", 4, 300, 32, 4, 128, [100, 300, 45, 40], [200, 299, 40, 45],
+     0.0),
+    ("gemma2-window", 4, 1030, 8, 4, 256, [3, 64, 517, 1030],
+     [0, 3, 456, 969], 50.0),
+]
+
+
+def check_dense_lse(gen, fd, ref) -> None:
+    """B3 with ``with_lse`` against its plain version on LSE_CASES, fp32
+    and bf16, by the wrapper's split count and at fixed ones (1, 3 and 40
+    splits: the loop writes the lse, then the combine does): the output
+    within B3's limits and bit-equal to the kernel's without the lse, the
+    lse within LSE_ATOL of the plain version's where a row attends
+    something, and zeros and -inf where it attends nothing."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, S, Hq, Hkv, D, lens, starts, cap in LSE_CASES:
+            q, k, v, ln, _ = dense_inputs(gen, B, S, Hq, Hkv, D, lens, dtype)
+            st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            scale = 1.0 / D ** 0.5
+            want, want_lse = ref.flash_decode_plain(q, k[0], v[0], ln, st,
+                                                    cap, scale, with_lse=True)
+            live = want_lse > -torch.inf
+            plain = fd.flash_decode(q, k[0], v[0], ln, st, cap, scale)
+            for n_split in (None, 1, 3, 40):
+                if n_split is None:
+                    got, lse = fd.flash_decode(q, k[0], v[0], ln, st, cap,
+                                               scale, with_lse=True)
+                else:
+                    got, lse = fd._launch(q, k[0], v[0], ln, st, cap, scale,
+                                          n_split, with_lse=True)
+                torch.cuda.synchronize()
+                err, rel, ok = agreement(got, want, dtype)
+                lse_err = float((lse - want_lse)[live].abs().max()) \
+                    if live.any() else 0.0
+                same = torch.equal(got, plain if n_split is None else
+                                   fd._launch(q, k[0], v[0], ln, st, cap,
+                                              scale, n_split))
+                empty = (bool((lse[~live] == -torch.inf).all())
+                         and not got[~live[..., None].expand_as(got)].any())
+                ok = ok and same and empty and lse_err <= LSE_ATOL
+                log(f"  flash_decode lse {name:14s} n_split="
+                    f"{'auto' if n_split is None else n_split:<4} "
+                    f"{str(dtype):14s} max_abs_err={err:.3e} "
+                    f"max_row_rel_err={rel:.3e} lse_err={lse_err:.3e} "
+                    f"(atol {LSE_ATOL:.0e}) empty rows "
+                    f"{int((~live).sum())} zero/-inf {empty} out == no-lse "
+                    f"out {same} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"flash_decode lse {name} {dtype} "
+                                     f"n_split {n_split} disagrees")
 
 
 def dense_inputs(gen, B, S, Hq, Hkv, D, lens, dtype, *, window=0, rot=1):
@@ -2016,16 +2105,23 @@ PSUM_SHAPES = {"a": (3, 300), "b": (17,), "c": (4096, 1024)}
 @contextlib.contextmanager
 def kernel_heads(ops):
     """Record (query heads, KV heads) of every ``ops.paged_decode`` and
-    ``ops.flash_attention`` call made inside, and the heads H of every
-    ``ops.ssd_chunk`` call: the shapes the model's mixers hand B1, B2 and
-    B4."""
+    ``ops.flash_attention`` call made inside, the heads H of every
+    ``ops.ssd_chunk`` call, and (query heads, KV heads, cache positions S,
+    lse form) of every ``ops.flash_decode`` call: the shapes the model's
+    mixers hand B1, B2, B4 and B3."""
     seen = {"paged_decode": set(), "flash_attention": set(),
-            "ssd_chunk": set()}
+            "ssd_chunk": set(), "flash_decode": set()}
     pd, fa, sc = ops.paged_decode, ops.flash_attention, ops.ssd_chunk
+    fdec = ops.flash_decode
 
     def paged(q, k_pages, *a, **kw):
         seen["paged_decode"].add((q.shape[1], k_pages.shape[1]))
         return pd(q, k_pages, *a, **kw)
+
+    def dense(q, k, *a, **kw):
+        seen["flash_decode"].add((q.shape[1], k.shape[2], k.shape[1],
+                                  bool(kw.get("with_lse", False))))
+        return fdec(q, k, *a, **kw)
 
     def prefill(q, k, *a, **kw):
         seen["flash_attention"].add((q.shape[2], k.shape[2]))
@@ -2036,10 +2132,12 @@ def kernel_heads(ops):
         return sc(x, *a, **kw)
 
     ops.paged_decode, ops.flash_attention, ops.ssd_chunk = paged, prefill, ssd
+    ops.flash_decode = dense
     try:
         yield seen
     finally:
         ops.paged_decode, ops.flash_attention, ops.ssd_chunk = pd, fa, sc
+        ops.flash_decode = fdec
 
 
 def mixer_kernels(cfg) -> dict:
@@ -3125,6 +3223,11 @@ def phase_full_width(ops, arch: str, variants: tuple,
         failures += failed
         runs += sharded_runs
         torch.cuda.empty_cache()
+    if arch in PLANS_MODELS:
+        failed, plans_runs = phase_plans_serve(ops, cfg, params)
+        failures += failed
+        runs += plans_runs
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     return runs
@@ -3915,6 +4018,409 @@ def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
 
 
 # --------------------------------------------------------------------------
+# Phase 5's "plans" job: the JAX package's prefill, decode and train plans.
+# --------------------------------------------------------------------------
+
+
+# the models whose serving weights the plans job's serving runs reuse
+PLANS_MODELS = ("yi-9b",)
+# prefill (data 2, model 2) -> decode (data 2, model 2): 8 prompts of 512
+# tokens, 32 greedy tokens each (the first from the prefill's logits)
+PLANS_SERVE = dict(batch=8, prompt=512, new_tokens=32, mesh=(2, 2))
+# one prompt of 8192 tokens: the prefill plan at batch 1 (heads over
+# model, the data axis replicating it), the decode plan with the sequence
+# over (data 2, model 2) in a cache of 12288 positions, so that the last of
+# its 4 ranges, [9216, 12288), lies past every position of the run and
+# its shard attends nothing
+PLANS_LONG = dict(prompt=8192, new_tokens=32, max_len=12288, mesh=(2, 2))
+# the mesh of ones against the unsharded prefill and dense decode_step, at
+# yi-9b's published widths cut to 4 layers: 2 prompts of 256, 8 tokens
+PLANS_IDENTITY = dict(layers=4, batch=2, prompt=256, new_tokens=8)
+# the train runs: (arch, layers, a constant lr after one warmup step) at
+# batch 2 x seq 2048 (one sequence a data group), 3 steps, on (data 2,
+# model 2) with fsdp and the sequence-parallel residual, bf16 compute
+# over fp32 master weights, remat: yi-9b cut to 4 layers at TRAIN_B's rate
+# (141 GB of train state at 48; each co-located data group holds a whole
+# fp32 gradient before the reduction, 3.8 GB at 4 layers), mamba2-370m at
+# all 48 and TRAIN_D's rate
+PLANS_TRAIN = (("yi-9b", 4, 3e-6), ("mamba2-370m", 48, 3e-4))
+PLANS_TRAIN_JOB = dict(steps=3, batch=2, seq=2048, mesh=(2, 2))
+# one fp32 gradient of the sharded step against the unsharded port's on
+# the card (2 layers, batch 2 x 256), each leaf within PLANS_GRAD_RTOL of
+# its largest |value|, the loss within TRAIN_RTOL; and one bf16 step on the
+# mesh of ones bit-equal to the unsharded step
+PLANS_GRAD = dict(layers=2, batch=2, seq=256)
+PLANS_GRAD_RTOL = 1e-4
+# the sharded bf16 loss against the unsharded bf16 loss on the same state
+# and batch: both round the same function's products to bf16, in other
+# orders, so they stand apart by about as much as either stands from the
+# fp32 loss; the limit is PLANS_BF16_FACTOR times the unsharded port's
+# |loss_bf16 - loss_fp32|, measured on the run's own state and batch
+PLANS_BF16_FACTOR = 2.0
+
+
+def cut_layers(params: dict, n: int) -> dict:
+    """The first ``n`` layers of ``params`` (views)."""
+    def walk(t):
+        return ({k: walk(v) for k, v in t.items()} if isinstance(t, dict)
+                else t[:n])
+    return {**params, "blocks": walk(params["blocks"])}
+
+
+def plan_serve(ops, cfg, params, prompts, new_tokens: int, mesh_shape,
+               max_len: int, keep_logits: bool = False) -> dict:
+    """The prefill plan, ``reshard_cache`` and the decode plan's greedy
+    steps on a (data, model) mesh of virtual chips of this card, the launch
+    counters set to 0 just before and read just after: streams [B][new
+    tokens], the phases' seconds, counts, the shapes the kernels saw, each
+    data group's sequence shards, the decode plan (and every step's joined
+    logits with ``keep_logits``)."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import sharded
+    from repro_torch.models.sampling import mask_padded_vocab
+    dp, tp = mesh_shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_small_mesh([dev] * (dp * tp), model=tp)
+    B = len(prompts)
+    pplan, run_cfg = shd.make_plan(cfg, "prefill", False, B, tp=tp)
+    dplan, _ = shd.make_plan(cfg, "decode", False, B, tp=tp)
+    if run_cfg is not cfg:
+        raise SystemExit(f"{cfg.name}: the plans job expects heads that "
+                         f"divide tp {tp}")
+    pm = sharded.PlanModel.build(params, cfg, pplan, mesh)
+    dm = sharded.PlanModel.build(params, cfg, dplan, mesh)
+    tokens = torch.from_numpy(np.stack(prompts)).to(dev)
+    kept = []
+
+    def greedy(logits):
+        logits = torch.cat(logits)
+        if keep_logits:
+            kept.append(logits)
+        return mask_padded_vocab(logits, cfg).argmax(-1).to(torch.int32)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with torch.no_grad(), kernel_heads(ops) as heads:
+        t0 = time.monotonic()
+        logits, cache = sharded.prefill_plan(pm, [
+            p["t"] for p in shd.shard_batch({"t": tokens}, pplan, mesh)])
+        tok = greedy(logits)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        cache = shd.reshard_cache(cache, cfg, pplan, dplan, mesh,
+                                  max_len=max_len)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        out = [tok]
+        for _ in range(new_tokens - 1):
+            logits, cache = sharded.decode_step_plan(dm, [
+                p["t"] for p in shd.shard_batch({"t": tok}, dplan, mesh)],
+                cache)
+            tok = greedy(logits)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t3 = time.monotonic()
+    counts = ops.launch_counts()
+    streams = torch.stack(out, 1).cpu().numpy()
+    return {"streams": [[int(x) for x in r] for r in streams],
+            "seconds": {"prefill": t1 - t0, "reshard": t2 - t1,
+                        "decode": t3 - t2},
+            "counts": counts, "heads": heads, "plan": dplan,
+            "shards": [sharded.seq_shards(dm, cache, g)
+                       for g in range(dm.groups)],
+            "logits": kept}
+
+
+def unsharded_stream(cfg, params, prompts, tokens_out: list) -> list:
+    """The unsharded port's prefill and dense ``decode_step`` fed the
+    given greedy tokens: every step's logits."""
+    from repro_torch.models import model as tmodel
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tokens = torch.from_numpy(np.stack(prompts)).to(dev)
+    B, S = tokens.shape
+    with torch.no_grad():
+        logits, pc = tmodel.prefill(params, cfg, tokens)
+        out = [logits]
+        k = torch.zeros((cfg.n_layers, B, S + len(tokens_out[0]),
+                         *pc.k.shape[3:]), dtype=pc.k.dtype, device=dev)
+        v = torch.zeros_like(k)
+        k[:, :, :S], v[:, :, :S] = pc.k, pc.v
+        cache = tmodel.DecodeCache(k, v, None, None, torch.full(
+            (B,), S, dtype=torch.int32, device=dev))
+        for i in range(len(tokens_out[0]) - 1):
+            tok = torch.tensor([t[i] for t in tokens_out],
+                               dtype=torch.int32, device=dev)
+            logits, cache = tmodel.decode_step(params, cfg, tok, cache)
+            out.append(logits)
+    return out
+
+
+def phase_plans_serve(ops, cfg, params) -> tuple[list[str], list[dict]]:
+    """The "plans" job's serving runs on ``cfg``'s full-width weights:
+    prefill -> decode on (data 2, model 2) (PLANS_SERVE), the long context
+    (PLANS_LONG) and the mesh of ones at PLANS_IDENTITY's depth.  Returns
+    the failed checks and the runs phase 6 times B3's lse form at."""
+    failed, runs = [], []
+    card = card_line()
+    t_start = time.monotonic()
+    rng = np.random.RandomState(1)
+    L = cfg.n_layers
+    for tag, job, B in (("prefill-decode", PLANS_SERVE, PLANS_SERVE["batch"]),
+                        ("long", PLANS_LONG, 1)):
+        prompts = [rng.randint(0, cfg.vocab_size, job["prompt"])
+                   .astype(np.int32) for _ in range(B)]
+        new = job["new_tokens"]
+        max_len = job.get("max_len", job["prompt"] + new)
+        dp, tp = job["mesh"]
+        torch.cuda.reset_peak_memory_stats()
+        run = plan_serve(ops, cfg, params, prompts, new, job["mesh"],
+                         max_len)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts, heads, streams = run["counts"], run["heads"], run["streams"]
+        groups = dp if B > 1 else 1
+        n_seq = tp if B > 1 else dp * tp
+        S_shard = max_len // n_seq
+        want = {"flash_attention": L * groups * tp,
+                "flash_decode": L * (new - 1) * groups * n_seq,
+                "flash_decode_lse": L * (new - 1) * groups * n_seq,
+                "paged_decode": 0, "ssd_chunk": 0}
+        launched = all(counts[k] == v for k, v in want.items())
+        shapes = (heads["flash_attention"]
+                  == {(cfg.n_q_heads // tp, cfg.n_kv_heads // tp)}
+                  and heads["flash_decode"]
+                  == {(cfg.n_q_heads, cfg.n_kv_heads, S_shard, True)}
+                  and not heads["paged_decode"])
+        last = job["prompt"] + new - 1
+        ranges = [(s0, s1) for sh in run["shards"] for *_, s0, s1 in sh]
+        past = [r for r in ranges if r[0] > last]
+        per_req = [teacher_forced_agreement(cfg, params, p, s)
+                   for p, s in zip(prompts, streams)]
+        agree = float(np.mean(per_req))
+        full = all(len(s) == new and all(0 <= x < cfg.vocab_size for x in s)
+                   for s in streams)
+        sec = run["seconds"]
+        log(f"  [plans {tag}] {cfg.name}, {L} layers, bf16: {B} prompt(s) "
+            f"of {job['prompt']} tokens, {new} greedy tokens each; prefill "
+            f"plan on (data {dp}, model {tp}) ({groups} data group(s), "
+            f"heads {cfg.n_q_heads // tp}/{cfg.n_kv_heads // tp} a shard), "
+            f"reshard_cache, decode plan kv_seq {run['plan'].rules['kv_seq']}"
+            f" over a cache of {max_len}: sequence ranges {ranges} "
+            f"(past the last position {last}: {past}); prefill "
+            f"{sec['prefill']:.3f} s, reshard {sec['reshard']:.3f} s, "
+            f"decode {sec['decode']:.3f} s ({B * (new - 1) / sec['decode']:.1f}"
+            f" tok/s); peak mem {peak:.2f} GB; {card}")
+        log(f"  [plans {tag}] launches {launches_text(counts, want)}; B2 saw "
+            f"(Hq, Hkv) {sorted(heads['flash_attention'])}, B3 (Hq, Hkv, S, "
+            f"lse) {sorted(heads['flash_decode'])}, B1 "
+            f"{sorted(heads['paged_decode'])}; teacher-forced agreement "
+            f"(bf16) {agree:.4f}, min {min(per_req):.4f}; limit "
+            f"{MIN_TEACHER_FORCED}")
+        if not (full and launched and shapes):
+            failed.append(f"plans {tag}: a check failed ({new} tokens each "
+                          f"{full}, launches {launched}, shard shapes "
+                          f"{shapes})")
+        if tag == "long" and not past:
+            failed.append("plans long: no sequence shard lay past the run's "
+                          "positions")
+        if agree < MIN_TEACHER_FORCED:
+            failed.append(f"plans {tag}: decode agrees with the "
+                          f"teacher-forced forward on {agree:.4f} of the "
+                          f"tokens, under {MIN_TEACHER_FORCED}")
+        # phase 6: B3's lse form at a shard of this run, mid-way through
+        # decode (the shard that holds position prompt + new / 2)
+        mid = job["prompt"] + new // 2
+        s0 = next(a for a, b in ranges if a <= mid < b)
+        runs.append({"arch": cfg.name, "cfg": cfg, "counts": counts,
+                     "n_req": B, "lens": [len(p) for p in prompts],
+                     "variant": Variant(f"plans {tag}", {}, (), (),
+                                        ("flash_decode_lse",)),
+                     "lse_shape": (B // groups, S_shard, mid + 1 - s0)})
+        del run
+        torch.cuda.empty_cache()
+
+    # the mesh of ones: bit-equal to the unsharded prefill and dense decode
+    job = PLANS_IDENTITY
+    cfg_n = dataclasses.replace(cfg, n_layers=job["layers"])
+    params_n = cut_layers(params, job["layers"])
+    prompts = [rng.randint(0, cfg.vocab_size, job["prompt"]).astype(np.int32)
+               for _ in range(job["batch"])]
+    run = plan_serve(ops, cfg_n, params_n, prompts, job["new_tokens"], (1, 1),
+                     job["prompt"] + job["new_tokens"], keep_logits=True)
+    want = unsharded_stream(cfg_n, params_n, prompts, run["streams"])
+    same = [bool(torch.equal(a, b)) for a, b in zip(run["logits"], want)]
+    log(f"  [plans ones] {cfg.name} at {job['layers']} layers, the mesh of "
+        f"ones: prefill and {job['new_tokens'] - 1} decode steps' logits "
+        f"bit-equal to the unsharded prefill and dense decode_step: {same}")
+    if not all(same):
+        failed.append(f"plans ones: logits differ from the unsharded path's "
+                      f"({same})")
+    log(f"  [plans] the serving runs took {time.monotonic() - t_start:.1f} "
+        f"s; {card}")
+    return failed, runs
+
+
+def plans_gradient(ops, arch: str, mesh) -> tuple[list[str], str]:
+    """PLANS_GRAD's checks for ``arch``: the sharded fp32 gradient on
+    ``mesh`` against the unsharded port's on the card, and the mesh of
+    ones's bf16 step against the unsharded step, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import trainer as ttr
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    job = PLANS_GRAD
+    cfg = dataclasses.replace(get_config(arch), n_layers=job["layers"])
+    batch = ttr.batch_to_device(
+        train_batches(cfg, job["batch"], job["seq"], 1)[0], "cuda")
+    logical = init_params(cfg, 0, torch.float32, "cuda")
+    plan, _ = shd.make_plan(cfg, "train", False, job["batch"], tp=mesh.tp)
+    tcfg = ttr.TrainConfig(remat=False, compute_dtype=torch.float32)
+    loss_u, _, g_u = ttr.value_and_grad(logical, cfg, batch, tcfg)
+    grid = shd.shard_params(logical, cfg, plan, mesh, copy=True)
+    ops.reset_launch_counts()
+    loss_s, _, g_s = ttr.sharded_value_and_grad(grid, cfg, batch, tcfg, plan,
+                                                mesh)
+    del grid
+    loss_rel = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+    worst, worst_at = 0.0, ""
+    for (path, a), (_, b) in zip(shd.leaves_with_paths(g_s),
+                                 shd.leaves_with_paths(g_u)):
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, worst_at = rel, path
+    grad_ok = loss_rel <= TRAIN_RTOL and worst <= PLANS_GRAD_RTOL
+    del g_u, g_s
+    # the mesh of ones: one bf16 step, sharded and unsharded
+    ones = make_small_mesh([mesh.at(0, 0)], model=1)
+    plan1, _ = shd.make_plan(cfg, "train", False, job["batch"], tp=1)
+    tcfg = ttr.TrainConfig(opt=AdamWConfig(lr=1e-4, warmup_steps=1,
+                                           total_steps=1000), remat=True)
+    state_s = shd.shard_train_state(
+        {"params": _clone(logical), "opt": init_opt_state(logical)}, cfg,
+        plan1, ones)
+    state_u = {"params": logical, "opt": init_opt_state(logical)}
+    state_u, m_u = ttr.make_train_step(cfg, tcfg)(state_u, batch)
+    state_s, m_s = ttr.make_train_step(cfg, tcfg, plan1, ones)(state_s,
+                                                               batch)
+    back = shd.gather_train_state(state_s, cfg, plan1, ones)
+    ones_ok = (all(torch.equal(m_u[k], m_s[k]) for k in m_u)
+               and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                   shd.leaves_with_paths(back),
+                   shd.leaves_with_paths(state_u))))
+    del state_u, state_s, back, logical
+    torch.cuda.empty_cache()
+    text = (f"{cfg.name} at {job['layers']} layers, batch {job['batch']} x "
+            f"seq {job['seq']}: the fp32 gradient on (data {mesh.n_batch}, "
+            f"model {mesh.tp}) against the unsharded port's on the card, "
+            f"loss rel {loss_rel:.3e} (rtol {TRAIN_RTOL:.0e}), worst leaf "
+            f"{worst_at} max |diff| / max |leaf| {worst:.3e} (limit "
+            f"{PLANS_GRAD_RTOL:.0e}); the mesh of ones's bf16 step bit-equal "
+            f"to the unsharded step (params, moments, metrics) {ones_ok}")
+    failed = [] if grad_ok and ones_ok else [f"plans train {arch}: {text}"]
+    return failed, text
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def phase_plans_train(ops, card: str) -> list[str]:
+    """The "plans" job's train runs (PLANS_TRAIN): a ``Trainer`` with the
+    train plan on (data 2, model 2), fsdp and the sequence-parallel
+    residual, the launch counters set to 0 just before and read just
+    after; the sharded bf16 first-step loss against the unsharded port's
+    on the same state and batch; then PLANS_GRAD's checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import trainer as ttr
+    from repro_torch.train.optimizer import AdamWConfig
+    failed = []
+    job = PLANS_TRAIN_JOB
+    dp, tp = job["mesh"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_small_mesh([dev] * (dp * tp), model=tp)
+    for arch, layers, lr in PLANS_TRAIN:
+        t_start = time.monotonic()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        plan, run_cfg = shd.make_plan(cfg, "train", False, job["batch"],
+                                      tp=tp)
+        tcfg = ttr.TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=1,
+                                               total_steps=1000),
+                               remat=True, microbatches=1)
+        batches = train_batches(cfg, job["batch"], job["seq"], job["steps"])
+        # the unsharded port's loss on the first batch, bf16 and fp32
+        logical = init_params(cfg, 0, torch.float32, "cuda")
+        b0 = ttr.batch_to_device(batches[0], "cuda")
+        with torch.no_grad():
+            l_bf16 = float(ttr.loss_fn(logical, cfg, b0, tcfg)[1]["nll"])
+            l_fp32 = float(ttr.loss_fn(logical, cfg, b0, dataclasses.replace(
+                tcfg, compute_dtype=torch.float32))[1]["nll"])
+        del logical, b0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with kernel_heads(ops) as heads:
+            t0 = time.monotonic()
+            tr = ttr.Trainer(cfg, tcfg, iter(batches), device="cuda",
+                             plan=plan, mesh=mesh)
+            hist = tr.run(job["steps"], log_every=1)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del tr
+        torch.cuda.empty_cache()
+        nll = [h["nll"] for h in hist]
+        want = {k: v * dp * tp for k, v in train_launches(
+            cfg, 1, job["steps"]).items()}
+        want.update(paged_decode=0, flash_decode=0)
+        launched = all(counts[k] == v for k, v in want.items())
+        shapes = (heads["flash_attention"]
+                  == ({(cfg.n_q_heads // tp, cfg.n_kv_heads // tp)}
+                      if cfg.has_attn else set())
+                  and heads["ssd_chunk"]
+                  == ({cfg.ssm_heads // tp} if cfg.has_ssm else set()))
+        dist = abs(l_bf16 - l_fp32)
+        limit = PLANS_BF16_FACTOR * dist
+        close = abs(nll[0] - l_bf16) <= limit
+        falls = all(np.isfinite(nll)) and nll[-1] < nll[0]
+        ok = launched and shapes and close and falls
+        steps_s = [b["wall"] - a["wall"] for a, b in zip(hist, hist[1:])]
+        log(f"  [plans train {arch}] {cfg.n_layers} layers at published "
+            f"widths ({cfg.param_count():,} params), batch {job['batch']} x "
+            f"seq {job['seq']}, train plan on (data {dp}, model {tp}): fsdp "
+            f"{plan.fsdp}, act_seq {plan.rules['act_seq']}, lr {lr}, bf16 "
+            f"compute; {job['steps']} steps in {wall:.1f} s (steps after the "
+            f"first {[round(x, 2) for x in steps_s]} s); nll "
+            f"{[round(x, 4) for x in nll]} (falls {falls}); grad norm "
+            f"{[round(h['grad_norm'], 3) for h in hist]}; peak mem "
+            f"{peak:.2f} GB; {card}")
+        log(f"  [plans train {arch}] step-1 loss sharded bf16 {nll[0]:.6f} vs "
+            f"unsharded bf16 {l_bf16:.6f} (|diff| "
+            f"{abs(nll[0] - l_bf16):.3e}); unsharded bf16 vs fp32 "
+            f"{l_fp32:.6f}: |diff| {dist:.3e}, limit {PLANS_BF16_FACTOR} x "
+            f"that = {limit:.3e} {close}; launches "
+            f"{launches_text(counts, want)}; B2 saw "
+            f"{sorted(heads['flash_attention'])}, B4 H "
+            f"{sorted(heads['ssd_chunk'])} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"plans train {arch}: launches {launched}, shapes "
+                          f"{shapes}, bf16 loss within {limit:.3e} {close}, "
+                          f"falls {falls}")
+        bad, text = plans_gradient(ops, arch, mesh)
+        log(f"  [plans train {arch}] {text} {'FAIL' if bad else 'ok'} "
+            f"({time.monotonic() - t_start:.1f} s for {arch})")
+        failed += bad
+    return failed
+
+
+# --------------------------------------------------------------------------
 # Phase 6: timing.
 # --------------------------------------------------------------------------
 
@@ -4082,6 +4588,94 @@ def time_dense(gen, fd, ref, run):
                 f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} lens={lens} bf16",
                 library_max_row_rel_err=lib_rel, splits=splits,
                 ctas=B * Hkv * splits, device_ms=device)
+
+
+def time_dense_lse(gen, fd, ref, run):
+    """B3's lse form at one sequence shard of a plans run's decode cache
+    (``run["lse_shape"]``: a data group's B rows over S positions, each
+    attending its first ``n`` of them mid-way through decode).  Library:
+    ``flex_attention`` (``library_flex_lse``), which returns the attention
+    and its log-sum-exp in one call."""
+    cfg = run["cfg"]
+    B, S, n = run["lse_shape"]
+    Hq, Hkv, D = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    rotations = 10
+    q, k, v, ln, st = dense_inputs(gen, B, S, Hq, Hkv, D, [n] * B,
+                                   torch.bfloat16, rot=rotations)
+    scale = 1.0 / D ** 0.5
+    got, lse = fd.flash_decode(q, k[0], v[0], ln, st, 0.0, scale,
+                               with_lse=True)
+    want, want_lse = ref.flash_decode_plain(q, k[0], v[0], ln, st, 0.0,
+                                            scale, with_lse=True)
+    err, rel, ok = agreement(got, want, torch.bfloat16)
+    lse_err = float((lse - want_lse).abs().max())
+    if not ok or lse_err > LSE_ATOL:
+        raise SystemExit(f"flash_decode lse disagrees at the timing shape: "
+                         f"max_row_rel_err {rel:.3e}, lse_err {lse_err:.3e}")
+    fd.flash_decode.last_n_split = 0
+
+    def call(i):
+        return fd.flash_decode(q, k[i], v[i], ln, st, 0.0, scale,
+                               with_lse=True)
+    ms = time_ms(call, inner=rotations)
+    splits = fd.flash_decode.last_n_split
+    device = graph_ms(call, inner=rotations)
+    plain = time_ms(lambda i: ref.flash_decode_plain(
+        q, k[i], v[i], ln, st, 0.0, scale, with_lse=True), inner=rotations)
+    library = library_flex_lse(q, k, v, ln, st, scale)
+    # the library call's own distance from the plain version, for the
+    # record
+    lib_out, lib_lse = library(0)
+    _, lib_rel, _ = row_rel(lib_out[:, :, 0], want)
+    lib_lse_err = float((lib_lse[:, :, 0].float() - want_lse).abs().max())
+    lib = time_ms(library, inner=rotations)
+    tokens = B * n
+    nbytes = (2 * tokens * Hkv * D * 2          # K and V of live positions
+              + 2 * B * Hq * D * 2               # q in, out
+              + B * Hq * 4                       # lse out
+              + 2 * B * 4)                       # lens, start
+    flops = 4 * tokens * Hq * D
+    return _row("flash_decode", run, err, rel, ms, plain,
+                nbytes / HBM_BYTES_PER_S * 1e3,
+                flops / BF16_FLOPS_PER_S * 1e3, lib,
+                f"lse form, one sequence shard: B={B} S={S} Hq={Hq} "
+                f"Hkv={Hkv} D={D} lens={n} bf16",
+                lse_err=lse_err, library_max_row_rel_err=lib_rel,
+                library_lse_err=lib_lse_err, splits=splits,
+                ctas=B * Hkv * splits, device_ms=device)
+
+
+def library_flex_lse(q, k, v, lens, start, scale):
+    """One PyTorch call computing B3's lse form: ``flex_attention``
+    compiled (as it is meant to be called: eager, it runs its plain
+    reference), q [B, Hq, 1, D] over the rotated caches [rot, B, Hkv, S,
+    D], the window [start, lens) of each row as a block mask, GQA, the
+    log-sum-exp returned.  Returns ``call(i)`` -> (out [B, Hq, 1, D], lse
+    [B, Hq, 1] fp32, natural log).  Inductor's and Triton's caches go
+    under the checkout's ``build/``."""
+    build = os.path.join(HERE, "build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
+    from torch.nn.attention import flex_attention as fx
+    B, Hq, D = q.shape
+    S = k.shape[2]
+
+    def window(b, h, q_idx, kv_idx):
+        return (kv_idx >= start[b]) & (kv_idx < lens[b])
+    mask = fx.create_block_mask(window, B, None, 1, S, device="cuda")
+    flex = torch.compile(fx.flex_attention, dynamic=False)
+    qt = q[:, :, None, :]
+    kt, vt = k.transpose(2, 3), v.transpose(2, 3)
+    aux = hasattr(fx, "AuxRequest")
+    kw = ({"return_aux": fx.AuxRequest(lse=True)} if aux
+          else {"return_lse": True})
+
+    def call(i):
+        out, extra = flex(qt, kt[i], vt[i], block_mask=mask, scale=scale,
+                          enable_gqa=True, **kw)
+        return out, (extra.lse if aux else extra)
+    return call
 
 
 def time_chunk(gen, fa, ref, run):
@@ -4367,6 +4961,7 @@ def main() -> int:
     check_paged_split(gen, fd, ref)
     check_dense(gen, fd, ref)
     check_split(gen, fd, ref)
+    check_dense_lse(gen, fd, ref)
     check_prefill(gen, fa, ref)
     check_chunk(gen, fa, ref)
     check_prefill_bwd(gen, fa, fab, ref)
@@ -4405,11 +5000,18 @@ def main() -> int:
     train_runs, failed = phase_train(ops, card)
     runs += train_runs
     failures += failed
+    log(f"[5.{len(FULL_WIDTH) + 4}] the train plan: "
+        + ", ".join(f"{a} at {n} layers" for a, n, _ in PLANS_TRAIN)
+        + " on (data 2, model 2) with fsdp and the sequence-parallel "
+        "residual (plans)")
+    failures += phase_plans_train(ops, card)
 
     log("[6] kernel timing (CUDA events: median of 20 groups of 10 calls, "
         "back to back and replayed from a CUDA graph)")
     timers = {"paged_decode": lambda run: time_paged(gen, fd, ref, run),
               "flash_decode": lambda run: time_dense(gen, fd, ref, run),
+              "flash_decode_lse": lambda run: time_dense_lse(gen, fd, ref,
+                                                             run),
               "flash_attention": lambda run: time_prefill(gen, fa, ref, run),
               "flash_attention_chunk": lambda run: time_chunk(gen, fa, ref,
                                                               run),
@@ -4438,7 +5040,8 @@ def main() -> int:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
         log(f"chip_smoke: {len(failures)} migrate, prefix, evict, cluster, "
-            f"sharded, orchestrated, evaluation or train check(s) failed: "
+            f"sharded, plans, orchestrated, evaluation or train check(s) "
+            f"failed: "
             f"{'; '.join(failures)}")
         return 1
     log(json.dumps({"ok": True, "device": {

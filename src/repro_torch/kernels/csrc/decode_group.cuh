@@ -29,7 +29,9 @@
 //   next copy overwrites), and P visible.
 //
 // The result goes either straight to the G output rows (acc / l; zeros
-// where nothing was attended, e.g. len == 0), or, when the caller splits
+// where nothing was attended, e.g. len == 0; with `lse`, also each head's
+// log-sum-exp m + log(l) of its scores, -inf where nothing was attended),
+// or, when the caller splits
 // the positions over several CTAs, as the split's fp32 partials (m, l,
 // acc), which `combine_splits_kernel` rescales and sums.  An empty split
 // writes m = -inf, l = 0.
@@ -64,13 +66,16 @@ struct DecodePartial {
 // limit - 1; with n of them, split s takes [s * n / n_split,
 // (s + 1) * n / n_split) of that run (floor division), so a short row or
 // one whose window starts late still spreads over every split it can
-// fill, and a split is empty only where n < n_split.
+// fill, and a split is empty only where n < n_split.  A row that attends
+// nothing (limit <= start: a cache split by sequence leaves such rows on
+// the shards whose range lies past the position or before the window)
+// has no live tile.
 __device__ __forceinline__ void split_tiles(int start, int limit, int tile,
                                             int split, int n_split,
                                             int& j_begin, int& j_end) {
   const int live_end = limit > 0 ? (limit - 1) / tile + 1 : 0;
   const int first = min(max(start, 0) / tile, live_end);
-  const int n_live = live_end - first;
+  const int n_live = limit > max(start, 0) ? live_end - first : 0;
   j_begin = first + split * n_live / n_split;
   j_end = first + (split + 1) * n_live / n_split;
 }
@@ -94,11 +99,13 @@ __device__ __forceinline__ DecodePartial split_partial(float* part,
 
 // One CTA per output row (b, h): out = sum_s e^(m_s - M) acc_s /
 // sum_s e^(m_s - M) l_s over the splits that attended something, summed
-// in the order of the splits; zeros where none did.
+// in the order of the splits; zeros where none did.  With `lse`, also the
+// row's log-sum-exp M + log(sum_s e^(m_s - M) l_s) in fp32, -inf where no
+// split attended anything.
 template <typename T>
 __global__ void __launch_bounds__(kDecodeThreads)
 combine_splits_kernel(const float* __restrict__ part, T* __restrict__ out,
-                      int n_split, int D) {
+                      float* __restrict__ lse, int n_split, int D) {
   const int64_t row = blockIdx.x;
   const int64_t n_rows = static_cast<int64_t>(gridDim.x) * n_split;
   const float* m = part + row * n_split;
@@ -115,16 +122,20 @@ combine_splits_kernel(const float* __restrict__ part, T* __restrict__ out,
       if (m[s] > -INFINITY) o += expf(m[s] - M) * acc[s * D + d];
     out[row * D + d] = from_f<T>(L > 0.f ? o / L : 0.f);
   }
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[row] = L > 0.f ? M + logf(L) : -INFINITY;
 }
 
-// After a split launch: combine the `rows` output rows' partials.  Returns
+// After a split launch: combine the `rows` output rows' partials (and
+// write their log-sum-exp to `lse` unless it is null).  Returns
 // cudaGetLastError() after the launch.
 template <typename T>
 inline int launch_combine(const float* part, void* out, int64_t rows,
-                          int n_split, int D, cudaStream_t stream) {
+                          int n_split, int D, cudaStream_t stream,
+                          float* lse = nullptr) {
   combine_splits_kernel<T><<<static_cast<unsigned>(rows), kDecodeThreads, 0,
-                             stream>>>(part, static_cast<T*>(out), n_split,
-                                       D);
+                             stream>>>(part, static_cast<T*>(out), lse,
+                                       n_split, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -166,7 +177,7 @@ __device__ __forceinline__ void decode_group(
     const T* __restrict__ qb, const T* __restrict__ k,
     const T* __restrict__ v, const Rows& rows, int G, int tile, int start,
     int limit, int j_begin, int j_end, float softcap, float scale,
-    T* __restrict__ ob, DecodePartial part) {
+    T* __restrict__ ob, DecodePartial part, float* __restrict__ lse = nullptr) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elements / chunk
   constexpr int NC = D / VEC;                            // chunks per row
   constexpr int LDT = D + VEC;                           // smem K/V row
@@ -318,6 +329,9 @@ __device__ __forceinline__ void decode_group(
       const float lg = l[i / D];
       ob[i] = from_f<T>(lg > 0.f ? acc[i] / lg : 0.f);
     }
+    if (lse != nullptr)
+      for (int g = tid; g < G; g += kDecodeThreads)
+        lse[g] = l[g] > 0.f ? m[g] + logf(l[g]) : -INFINITY;
   } else {
     for (int i = tid; i < G * D; i += kDecodeThreads) {
       const int g = i / D;

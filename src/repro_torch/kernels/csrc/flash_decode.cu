@@ -6,8 +6,12 @@
 // k/v [B, S, Hkv, D] (a layer's slice of the gathered [L, B, S, Hkv, D]
 // cache).  Query head h reads KV head h / group.  Positions outside
 // [start, min(len, S)) are masked; optional tanh softcap; fp32 online
-// softmax; a row with len == 0 gives 0 (the Pallas kernel gives the mean
-// of V there, see ROADMAP.md Queue C; the engine never asks for it).  The
+// softmax; a row that attends nothing (len <= start, len == 0 among them)
+// gives 0 (the Pallas kernel gives the mean of V at len == 0, see
+// ROADMAP.md Queue C; the engine never asks for it).  Optionally each
+// row's fp32 log-sum-exp too (-inf where it attends nothing), so that a
+// cache split by sequence over several shards can combine their partial
+// softmaxes (the decode plan, models/sharded.py).  The
 // Pallas kernel has no `start`: with start = 0 this is its function, and
 // `start` lets gemma2's local layers run here too.  S is not padded to a
 // tile multiple nor D to 128 lanes: the ragged tail is masked and never
@@ -60,8 +64,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lens,
                     const int* __restrict__ starts, T* __restrict__ out,
-                    float* __restrict__ part, int S, int Hq, int Hkv,
-                    float softcap, float scale) {
+                    float* __restrict__ part, float* __restrict__ lse, int S,
+                    int Hq, int Hkv, float softcap, float scale) {
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int split = blockIdx.z;
@@ -80,13 +84,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const DecodePartial pt = split_partial(
       part, static_cast<int64_t>(gridDim.x) * Hq, head0, split, n_split, D);
   decode_group<T, D>(q + head0 * D, k, v, rows, G, kTile, start, limit,
-                     j_begin, j_end, softcap, scale, out + head0 * D, pt);
+                     j_begin, j_end, softcap, scale, out + head0 * D, pt,
+                     lse == nullptr ? nullptr : lse + head0);
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* lens,
-           const int* starts, void* out, int B, int S, int Hq, int Hkv,
-           int n_split, float* part, float softcap, float scale,
+           const int* starts, void* out, float* lse, int B, int S, int Hq,
+           int Hkv, int n_split, float* part, float softcap, float scale,
            cudaStream_t stream) {
   const size_t smem = decode_smem_bytes<T, D>(Hq / Hkv, kTile);
   cudaError_t err = allow_smem(flash_decode_kernel<T, D>, smem);
@@ -95,30 +100,31 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
       <<<dim3(B, Hkv, n_split), kDecodeThreads, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), lens, starts, static_cast<T*>(out),
-          n_split > 1 ? part : nullptr, S, Hq, Hkv, softcap, scale);
+          n_split > 1 ? part : nullptr, n_split > 1 ? nullptr : lse, S, Hq,
+          Hkv, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   return launch_combine<T>(part, out, static_cast<int64_t>(B) * Hq, n_split,
-                           D, stream);
+                           D, stream, lse);
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* lens,
-               const int* starts, void* out, int B, int S, int Hq, int Hkv,
-               int D, int n_split, float* part, float softcap, float scale,
-               cudaStream_t s) {
+               const int* starts, void* out, float* lse, int B, int S,
+               int Hq, int Hkv, int D, int n_split, float* part,
+               float softcap, float scale, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, lens, starts, out, B, S, Hq, Hkv,
+      return launch<T, 32>(q, k, v, lens, starts, out, lse, B, S, Hq, Hkv,
                            n_split, part, softcap, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, lens, starts, out, B, S, Hq, Hkv,
+      return launch<T, 64>(q, k, v, lens, starts, out, lse, B, S, Hq, Hkv,
                            n_split, part, softcap, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, lens, starts, out, B, S, Hq, Hkv,
+      return launch<T, 128>(q, k, v, lens, starts, out, lse, B, S, Hq, Hkv,
                             n_split, part, softcap, scale, s);
     case 256:
-      return launch<T, 256>(q, k, v, lens, starts, out, B, S, Hq, Hkv,
+      return launch<T, 256>(q, k, v, lens, starts, out, lse, B, S, Hq, Hkv,
                             n_split, part, softcap, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -131,25 +137,30 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* lens,
 // q [B, Hq, D]; k/v [B, S, Hkv, D]; lens/starts [B]; out [B, Hq, D].  All
 // contiguous, on one device, K and V 16-byte aligned.  n_split >= 1
 // position splits; part: fp32 scratch of B * Hq * n_split * (D + 2)
-// floats (unused, may be null, when n_split == 1).  Returns
+// floats (unused, may be null, when n_split == 1).  lse: null, or fp32
+// [B, Hq] for each row's log-sum-exp of its attended scores (-inf where
+// it attends nothing), written by the loop with one split and by the
+// combine with several; `out` is the same either way.  Returns
 // cudaGetLastError() after the launches (0 on success).
 extern "C" int flash_decode(int dtype, const void* q, const void* k,
                             const void* v, const void* lens,
-                            const void* starts, void* out, int B, int S,
-                            int Hq, int Hkv, int D, int n_split, void* part,
-                            float softcap, float scale, void* stream) {
+                            const void* starts, void* out, void* lse, int B,
+                            int S, int Hq, int Hkv, int D, int n_split,
+                            void* part, float softcap, float scale,
+                            void* stream) {
   using namespace repro_torch;
   const int* ln = static_cast<const int*>(lens);
   const int* sb = static_cast<const int*>(starts);
   float* pt = static_cast<float*>(part);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_split < 1 || (n_split > 1 && pt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
-    return dispatch_d<float>(q, k, v, ln, sb, out, B, S, Hq, Hkv, D, n_split,
-                             pt, softcap, scale, s);
+    return dispatch_d<float>(q, k, v, ln, sb, out, ls, B, S, Hq, Hkv, D,
+                             n_split, pt, softcap, scale, s);
   if (dtype == kBFloat16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, ln, sb, out, B, S, Hq, Hkv, D,
-                                     n_split, pt, softcap, scale, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, ln, sb, out, ls, B, S, Hq, Hkv,
+                                     D, n_split, pt, softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,7 +6,8 @@
 // through its block-table row from the kernel-native pools
 // [P, Hkv, page, D].  Query head h reads KV head h / group.  Positions
 // outside [start, len) are masked and pages wholly outside the window are
-// never read; optional tanh softcap; fp32 online softmax; len == 0 gives 0.
+// never read; optional tanh softcap; fp32 online softmax; a row that attends
+// nothing (len <= start) gives 0.
 //
 // What bounds it on an H100: bytes.  Each live K/V page must cross device
 // memory once (2 * page * D * sizeof(T) per KV head per page) and the work

@@ -22,8 +22,14 @@ repeat the split and combine); ``ops.paged_decode`` and
 ``ops.flash_decode`` pick between kernel and plain version by the
 tensors' device.
 
+``flash_decode`` also writes, with ``with_lse``, each row's fp32
+log-sum-exp of its attended scores (-inf where it attends nothing): the
+decode plan (``models/sharded.py``) splits a dense cache by sequence over
+several shards and combines their partial softmaxes with it.
+
 ``paged_decode.launches`` and ``flash_decode.launches`` count the wrapper
-calls that launched their kernel (one each, whatever the split);
+calls that launched their kernel (one each, whatever the split;
+``flash_decode.lse_launches`` those of them with ``with_lse``);
 ``paged_decode.last_n_split`` and ``flash_decode.last_n_split`` are the
 split counts of their last launches.
 """
@@ -42,8 +48,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P, _F, _F, _P],
-    "flash_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                     _F, _F, _P],
+    "flash_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _P, _F, _F, _P],
 }
 # positions per tile of the dense kernel (kTile in csrc/flash_decode.cu);
 # the paged kernel's tile is one page
@@ -180,28 +186,32 @@ paged_decode.last_n_split = 0
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lens: torch.Tensor, start: torch.Tensor, softcap: float,
-                 scale: float) -> torch.Tensor:
+                 scale: float, with_lse: bool = False):
     """Launch the dense decode kernel on CUDA tensors.
 
     q: [B, Hq, D]; k/v: [B, S, Hkv, D] (S >= 1); lens/start: [B] int32 —
     position ``t`` is attended iff ``start <= t < min(len, S)``.  fp32 or
     bf16 (q and caches alike), D in ``HEAD_DIMS``.  Splits each (sequence,
     KV head) over ``split_count`` position ranges for this batch, S and
-    card.  Returns [B, Hq, D] in q's dtype, zeros where ``len == 0``.
+    card.  Returns [B, Hq, D] in q's dtype, zeros where a row attends
+    nothing (``len <= start``); with ``with_lse`` (out, lse), lse [B, Hq]
+    fp32 each row's log-sum-exp of its scaled, softcapped scores, -inf
+    where it attends nothing (``out`` is the same with and without).
     """
     _check_query("flash_decode", q, k.shape[2])
     n_split = split_count(q.shape[0], k.shape[2], k.shape[1], TILE,
                           sm_count(q.device))
-    return _launch(q, k, v, lens, start, softcap, scale, n_split)
+    return _launch(q, k, v, lens, start, softcap, scale, n_split, with_lse)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lens: torch.Tensor, start: torch.Tensor, softcap: float,
-            scale: float, n_split: int) -> torch.Tensor:
+            scale: float, n_split: int, with_lse: bool = False):
     """``flash_decode`` at a given ``n_split``; the checks at fixed split
     counts call it directly.  Counts the launch on ``flash_decode.launches``
-    and keeps the split count it passed to the kernel in
-    ``flash_decode.last_n_split`` (the grid is (B, Hkv, n_split))."""
+    (and on ``flash_decode.lse_launches`` with ``with_lse``) and keeps the
+    split count it passed to the kernel in ``flash_decode.last_n_split``
+    (the grid is (B, Hkv, n_split))."""
     _check_query("flash_decode", q, k.shape[2])
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -218,22 +228,27 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n_split < 1:
         raise ValueError(f"n_split {n_split} < 1")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if B == 0:
-        return out
+        return (out, lse) if with_lse else out
     part = _partials(B, Hq, D, n_split, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn("flash_decode")(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lens.data_ptr(), start.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
+        lens.data_ptr(), start.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, S, Hq, Hkv, D,
         int(n_split), None if part is None else part.data_ptr(),
         float(softcap), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
     flash_decode.launches += 1
+    flash_decode.lse_launches += int(with_lse)
     flash_decode.last_n_split = int(n_split)
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_decode.launches = 0
+flash_decode.lse_launches = 0
 flash_decode.last_n_split = 0

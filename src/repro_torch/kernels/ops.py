@@ -105,14 +105,18 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lens: torch.Tensor, start: torch.Tensor, *,
-                 softcap: float = 0.0) -> torch.Tensor:
+                 softcap: float = 0.0, with_lse: bool = False):
     """q [B, Hq, D]; dense caches k/v [B, S, Hkv, D]; lens/start [B] ->
-    [B, Hq, D] over positions [start, len), scores scaled by 1/sqrt(D)."""
+    [B, Hq, D] over positions [start, len), scores scaled by 1/sqrt(D);
+    with ``with_lse`` (out, lse [B, Hq] fp32), lse -inf on rows that
+    attend nothing."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
         grad_guard("flash_decode", q, k, v)
-        return _fd.flash_decode(q, k, v, lens, start, softcap, scale)
-    return ref.flash_decode_plain(q, k, v, lens, start, softcap, scale)
+        return _fd.flash_decode(q, k, v, lens, start, softcap, scale,
+                                with_lse)
+    return ref.flash_decode_plain(q, k, v, lens, start, softcap, scale,
+                                  with_lse)
 
 
 class _SSDChunk(torch.autograd.Function):
@@ -154,6 +158,7 @@ def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel."""
     return {"paged_decode": _fd.paged_decode.launches,
             "flash_decode": _fd.flash_decode.launches,
+            "flash_decode_lse": _fd.flash_decode.lse_launches,
             "flash_attention": _fa.flash_attention.launches,
             "flash_attention_bwd": _fab.flash_attention_bwd.launches,
             "ssd_chunk": _ssd.ssd_chunk.launches,
@@ -163,6 +168,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     _fd.paged_decode.launches = 0
     _fd.flash_decode.launches = 0
+    _fd.flash_decode.lse_launches = 0
     _fa.flash_attention.launches = 0
     _fa.flash_attention.offset_launches = 0
     _fab.flash_attention_bwd.launches = 0

@@ -158,12 +158,15 @@ def gather_pages_dense(k_pages, v_pages, block_table):
 
 
 def flash_decode_plain(q, k, v, lens, start, softcap: float,
-                       scale: float):
+                       scale: float, with_lse: bool = False):
     """Plain version of the dense decode kernel.
 
     q: [B, Hq, D]; k/v: [B, S, Hkv, D]; lens/start: [B] int32 — position
-    ``t`` is attended iff ``start <= t < len``.  fp32 softmax; rows with
-    ``len == 0`` are zero.  Returns [B, Hq, D] in q's dtype.
+    ``t`` is attended iff ``start <= t < len``.  fp32 softmax; rows that
+    attend nothing (``len <= start``) are zero.  Returns [B, Hq, D] in q's
+    dtype; with ``with_lse`` (out, lse), lse [B, Hq] fp32 the log-sum-exp
+    of each row's attended scaled, softcapped scores, -inf where it
+    attends nothing.
     """
     Hq = q.shape[1]
     k = _expand(k, Hq)
@@ -176,8 +179,13 @@ def flash_decode_plain(q, k, v, lens, start, softcap: float,
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", p, v.float())
-    out = torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
-    return out.to(q.dtype)
+    live = ok.any(-1)                                     # [B, 1]
+    out = torch.where(live[..., None], out, torch.zeros_like(out))
+    if not with_lse:
+        return out.to(q.dtype)
+    lse = torch.where(live, torch.logsumexp(s, dim=-1),
+                      torch.full_like(s[..., 0], -torch.inf))
+    return out.to(q.dtype), lse
 
 
 def split_ranges(lens, start, S: int, n_split: int, tile: int = 32):
@@ -187,15 +195,17 @@ def split_ranges(lens, start, S: int, n_split: int, tile: int = 32):
     the one that holds ``min(len, S) - 1``; with n of them, split s takes
     tiles ``[s * n // n_split, (s + 1) * n // n_split)`` of that run, so
     the live work is dealt out evenly and a split is empty only where
-    ``n < n_split``.  Returns (lo, hi): [B, n_split] int64 position
+    ``n < n_split``; a row that attends nothing (``len <= start``) has no
+    live tile.  Returns (lo, hi): [B, n_split] int64 position
     bounds, ``lo == hi`` for an empty split.
     """
     limit = torch.clamp(lens.long(), max=S)
     live_end = torch.where(limit > 0, (limit - 1) // tile + 1,
                            torch.zeros_like(limit))
-    first = torch.minimum(torch.clamp(start.long(), min=0) // tile,
-                          live_end)
-    n = (live_end - first)[:, None]
+    start0 = torch.clamp(start.long(), min=0)
+    first = torch.minimum(start0 // tile, live_end)
+    n = torch.where(limit > start0, live_end - first,
+                    torch.zeros_like(first))[:, None]
     s = torch.arange(n_split, device=lens.device)[None, :]
     lo = (first[:, None] + s * n // n_split) * tile
     hi = (first[:, None] + (s + 1) * n // n_split) * tile

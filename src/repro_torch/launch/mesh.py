@@ -53,6 +53,58 @@ class Mesh:
     def __hash__(self) -> int:
         return hash(self._key())
 
+    def axis_size(self, axes) -> int:
+        """The size of ``axes``: one axis name, a tuple of them (their
+        product, as a spec tuple shards over), or None (1)."""
+        if axes is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        return int(np.prod([self.shape.get(a, 1) for a in axes]))
+
+    def device(self, *coord: int) -> torch.device:
+        """The device at a full coordinate, one index per axis."""
+        return self.devices[coord]
+
+    def chip(self, *coord: int):
+        """The chip id at a full coordinate (None without ``chips``)."""
+        if self.chips is None:
+            return None
+        return self.chips[int(np.ravel_multi_index(coord,
+                                                   self.devices.shape))]
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        """Every axis but ``model``, in axis order: ("data",) or ("pod",
+        "data"), the axes a plan's ``batch`` rule spans."""
+        return tuple(a for a in self.axis_names if a != "model")
+
+    @property
+    def n_batch(self) -> int:
+        """The flat size of the batch axes (pod x data)."""
+        return self.axis_size(self.batch_axes)
+
+    @property
+    def tp(self) -> int:
+        return self.axis_size("model")
+
+    def batch_coord(self, b: int) -> dict:
+        """Axis name -> index of flat batch index ``b`` (first axis
+        major, as a spec tuple ("pod", "data") flattens)."""
+        sizes = [self.shape[a] for a in self.batch_axes]
+        return dict(zip(self.batch_axes, np.unravel_index(b, sizes)))
+
+    def at(self, b: int, m: int) -> torch.device:
+        """The device at flat batch index ``b`` and model index ``m``."""
+        c = self.batch_coord(b)
+        return self.devices[tuple(m if a == "model" else int(c[a])
+                                  for a in self.axis_names)]
+
+    def group(self, b: int) -> list[torch.device]:
+        """The model axis's devices at flat batch index ``b``: one data
+        group's row of the grid."""
+        return [self.at(b, m) for m in range(self.tp)]
+
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, devices="
                 f"{[str(d) for d in self.devices.flat]}"
@@ -69,13 +121,6 @@ class ReplicaMesh(Mesh):
     @property
     def pp(self) -> int:
         return self.devices.shape[0]
-
-    @property
-    def tp(self) -> int:
-        return self.devices.shape[1]
-
-    def device(self, pipe: int, model: int) -> torch.device:
-        return self.devices[pipe, model]
 
     @property
     def first(self) -> torch.device:

@@ -33,6 +33,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.launch.mesh import ReplicaMesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.pshard import P
 
@@ -395,6 +396,11 @@ def attn_layout(cfg: ModelConfig, rules: dict, tp: int
         return [(0, 0, 0, 0)] * tp
     if rules["heads"] != "model":
         return [(0, Hq, 0, Hkv)] + [(Hq, Hq, Hkv, Hkv)] * (tp - 1)
+    if rules.get("kv_seq") is not None:
+        # the decode plan: the cache is split by sequence and every shard
+        # projects and attends every KV head (its query heads are gathered
+        # before attending), so each holds the whole K/V projections
+        return [(q0, q1, 0, Hkv) for q0, q1 in split_ranges(Hq, tp)]
     g = Hq // Hkv
     out = []
     for q0, q1 in split_ranges(Hq, tp):
@@ -452,86 +458,384 @@ def _slice(t: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
     return t.narrow(axis, lo, hi - lo)
 
 
-def shard_params(params, cfg: ModelConfig, plan: ShardingPlan, mesh):
-    """Each (pipe, model) coordinate's parameter dict, on its device:
-    ``grid[pi][mi]``.  ``cfg`` is the plan's run config (head-padded in
-    "pad" mode, with ``params`` padded to it by ``pad_attention_params``).
+def grid_rows(mesh) -> int:
+    """The rows of a mesh's shard grid: the pipeline stages of a replica
+    mesh, the flat batch index (pod x data) of a plan mesh."""
+    return mesh.pp if isinstance(mesh, ReplicaMesh) else mesh.n_batch
+
+
+def axis_index(entry, mesh, row: int, mi: int) -> tuple[int, int]:
+    """(index, count) of the shard of coordinate (``row``, ``mi``) along
+    an axis with spec entry ``entry``: (0, 1) for None, else over the
+    named axes, a tuple flattened first axis major (("data", "model")
+    counts data x model with model minor, as JAX's spec tuples do)."""
+    if entry is None:
+        return 0, 1
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    coord = (mesh.batch_coord(row) if not isinstance(mesh, ReplicaMesh)
+             else {"pipe": row})
+    idx, size = 0, 1
+    for a in axes:
+        k = mesh.axis_size(a)
+        i = mi if a == "model" else int(coord.get(a, 0))
+        idx, size = idx * k + i, size * k
+    return idx, size
+
+
+def _axis_range(entry, n: int, mesh, row: int, mi: int) -> tuple[int, int]:
+    """The range of an axis of ``n`` that spec entry ``entry`` gives the
+    coordinate (``row``, ``mi``): ``split_ranges`` over the shards."""
+    idx, size = axis_index(entry, mesh, row, mi)
+    return split_ranges(n, size)[idx]
+
+
+class ParamLayout:
+    """Where each coordinate's slice of every parameter leaf lies in the
+    logical leaf: ``ranges(path, shape, row, mi)`` is one list of (lo,
+    hi) ranges per axis (two on the one axis of ``conv_b``, whose shard
+    is its xs columns and the whole B/C tail; one elsewhere).
 
     A leaf is cut along every axis its spec puts over a mesh axis: the
-    layer axis over ``pipe`` by ``layer_layout`` (stage 0 keeps every layer
-    where ``layers`` is unsharded), ``d_ff``/``vocab`` over ``model`` by
-    ``split_ranges`` (``torch.tensor_split``'s ranges: an indivisible axis
-    gets uneven shards, never padding; the MoE leaves' expert axis in "ep"
-    mode, each expert's ff axis in "tp" mode), the attention leaves by
-    ``attn_layout`` and the SSM leaves by ``ssm_layout`` (whole heads:
-    columns [h0 * P, h1 * P) of the d_inner-wide leaves, rows of
-    ``out_proj``, entries of the per-head ones); replicated leaves (the
-    router, the SSM's B/C projections and conv weights) are whole.  On the
-    device the params live on, every slice is a view (a layer range, a
-    block of rows, or a strided block of columns that ``@`` accepts):
-    co-located shards hold no weight copy; only ``conv_b``, one leaf over
-    xs and B/C channels, becomes a small copy of the shard's xs columns
-    and the whole B/C tail.  On another device a slice is copied there.
+    layer axis over ``pipe`` (a replica mesh's rows), the ``fsdp`` row
+    axis over ``data`` (a plan mesh), ``d_ff``/``vocab``/experts over
+    ``model`` by ``split_ranges`` (``torch.tensor_split``'s ranges: an
+    indivisible axis gets uneven shards, never padding), the attention
+    leaves by ``attn_layout`` and the SSM leaves by ``ssm_layout`` (whole
+    heads: columns [h0 * P, h1 * P) of the d_inner-wide leaves, rows of
+    ``out_proj``, entries of the per-head ones)."""
+
+    def __init__(self, cfg: ModelConfig, plan: ShardingPlan, mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.specs = param_pspecs(cfg, plan)
+        self.heads = attn_layout(cfg, plan.rules, mesh.tp)
+        self.ssm_heads = ssm_layout(cfg, plan.rules, mesh.tp)
+
+    def spec(self, path: tuple):
+        s = self.specs
+        for k in path:
+            s = s[k]
+        return s
+
+    def ranges(self, path: tuple, shape, row: int, mi: int) -> list:
+        cfg, spec = self.cfg, self.spec(path)
+        kind = path[1] if len(path) == 3 else None
+        name = path[-1]
+        r = [[_axis_range(None if (e == "model" and kind in ("attn", "ssm"))
+                          else e, n, self.mesh, row, mi)]
+             for e, n in zip(spec, shape)]
+        last = len(shape) - 1
+        if kind == "attn":
+            q0, q1, kv0, kv1 = self.heads[mi]
+            D = cfg.head_dim
+            if name in ("wq", "bq"):
+                r[last] = [(q0 * D, q1 * D)]
+            elif name == "wo":
+                r[1] = [(q0 * D, q1 * D)]
+            elif name in ("wk", "wv", "bk", "bv"):
+                r[last] = [(kv0 * D, kv1 * D)]
+        elif kind == "ssm":
+            h0, h1 = self.ssm_heads[mi]
+            P = cfg.ssm_head_dim
+            if name in ("w_z", "w_x", "conv_x", "norm_w"):
+                r[last] = [(h0 * P, h1 * P)]
+            elif name in ("w_dt", "dt_bias", "A_log", "D"):
+                r[last] = [(h0, h1)]
+            elif name == "out_proj":
+                r[1] = [(h0 * P, h1 * P)]
+            elif name == "conv_b":
+                r[last] = [(h0 * P, h1 * P), (cfg.d_inner, shape[last])]
+        return r
+
+    def part(self, tree, row: int, mi: int) -> dict:
+        """Coordinate (row, mi)'s cut of a logical tree (parameters, or
+        moments or gradients alike), views where one range an axis."""
+        return tree_from_paths([
+            (path, _take(t, self.ranges(path, t.shape, row, mi)))
+            for path, t in leaves_with_paths(tree)])
+
+    def add(self, out: dict, tree, row: int, mi: int) -> None:
+        """Add coordinate (row, mi)'s tree into the logical leaves ``out``
+        (path -> tensor), leaves of ``tree`` that are None skipped."""
+        for path, t in leaves_with_paths(tree):
+            if t is not None:
+                _put(out[path], self.ranges(path, out[path].shape, row, mi),
+                     t, add=True)
+
+
+def _take(t: torch.Tensor, ranges: list) -> torch.Tensor:
+    """``t`` cut to ``ranges``: a view (narrows) unless an axis has
+    several ranges, which are concatenated."""
+    for axis, rs in enumerate(ranges):
+        if len(rs) > 1:
+            t = torch.cat([_slice(t, axis, lo, hi) for lo, hi in rs],
+                          dim=axis)
+        elif rs[0] != (0, t.shape[axis]):
+            t = _slice(t, axis, *rs[0])
+    return t
+
+
+def _put(out: torch.Tensor, ranges: list, part: torch.Tensor,
+         add: bool = False) -> None:
+    """Write (or, with ``add``, add) ``part`` into ``out`` at ``ranges``
+    (``_take``'s inverse)."""
+    pieces = [(ranges, part)]
+    for axis, rs in enumerate(ranges):
+        if len(rs) > 1:
+            pieces, off = [], 0
+            for lo, hi in rs:
+                rr = list(ranges)
+                rr[axis] = [(lo, hi)]
+                pieces.append((rr, _slice(part, axis, off, off + hi - lo)))
+                off += hi - lo
+    for rr, pc in pieces:
+        view = out
+        for axis, ((lo, hi),) in enumerate(rr):
+            view = _slice(view, axis, lo, hi)
+        pc = _on(pc, view.device)
+        if add:
+            view.add_(pc)
+        else:
+            view.copy_(pc)
+
+
+def leaves_with_paths(tree, path: tuple = ()):
+    """[(path tuple, leaf)] in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in leaves_with_paths(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
+def tree_from_paths(paths_leaves: list):
+    """A nested dict from [(path tuple, leaf)]."""
+    out: dict = {}
+    for path, leaf in paths_leaves:
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = leaf
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The logical shape of every parameter leaf (``init_params`` on the
+    meta device: no memory, no values)."""
+    from repro_torch.models.model import init_params
+    params = init_params(cfg, 0, torch.float32, "meta")
+    return tree_from_paths([(p, tuple(t.shape))
+                   for p, t in leaves_with_paths(params)])
+
+
+def shard_params(params, cfg: ModelConfig, plan: ShardingPlan, mesh,
+                 copy: bool = False):
+    """Each coordinate's parameter dict, on its device: ``grid[row][mi]``,
+    ``row`` the pipeline stage of a ``ReplicaMesh`` or the flat batch
+    index (pod x data) of a plan ``Mesh``.  ``cfg`` is the plan's run
+    config (head-padded in "pad" mode, with ``params`` padded to it by
+    ``pad_attention_params``).  Leaves are cut as ``ParamLayout`` says;
+    replicated leaves (norms, the router, the SSM's B/C projections and
+    conv weights, and every leaf over ``data`` without fsdp) are whole.
+
+    On the device the params live on, every slice is a view (a layer
+    range, a block of rows, or a strided block of columns that ``@``
+    accepts): co-located shards hold no weight copy; only ``conv_b``, one
+    leaf over xs and B/C channels, becomes a small copy of the shard's xs
+    columns and the whole B/C tail.  On another device a slice is copied
+    there.  ``copy`` gives every coordinate its own contiguous copy (a
+    train state, which the optimizer updates in place, must not share a
+    replicated leaf between coordinates).
     """
-    specs = param_pspecs(cfg, plan)
-    pp, tp = mesh.pp, mesh.tp
-    layers = layer_layout(cfg.n_layers, plan.rules, pp)
-    heads = attn_layout(cfg, plan.rules, tp)
-    ssm_heads = ssm_layout(cfg, plan.rules, tp)
-    D = cfg.head_dim
+    lay = ParamLayout(cfg, plan, mesh)
 
-    def cut(t, spec, pi, mi, head_cols=None, width=D):
-        dev = mesh.device(pi, mi)
-        for axis, entry in enumerate(spec):
-            if entry == "pipe":
-                t = _slice(t, axis, *layers[pi])
-            elif entry == "model" and head_cols is None:
-                t = _slice(t, axis, *split_ranges(t.shape[axis], tp)[mi])
-        if head_cols is not None:
-            axis, lo, hi = head_cols
-            t = _slice(t, axis, lo * width, hi * width)
-        return _on(t, dev)
+    def one(row, mi):
+        dev = (mesh.device(row, mi) if isinstance(mesh, ReplicaMesh)
+               else mesh.at(row, mi))
+        out = []
+        for path, part in leaves_with_paths(lay.part(params, row, mi)):
+            part = _on(part, dev)
+            if copy:
+                part = part.clone(memory_format=torch.contiguous_format)
+            out.append((path, part))
+        return tree_from_paths(out)
 
-    def attn_leaf(name, t, spec, pi, mi):
-        q0, q1, kv0, kv1 = heads[mi]
-        if name in ("wq", "bq"):
-            return cut(t, spec, pi, mi, (t.ndim - 1, q0, q1))
-        if name == "wo":
-            return cut(t, spec, pi, mi, (1, q0, q1))
-        if name in ("wk", "wv", "bk", "bv"):
-            return cut(t, spec, pi, mi, (t.ndim - 1, kv0, kv1))
-        return cut(t, spec, pi, mi)
+    return [[one(row, mi) for mi in range(mesh.tp)]
+            for row in range(grid_rows(mesh))]
 
-    def ssm_leaf(name, t, spec, pi, mi):
-        h0, h1 = ssm_heads[mi]
-        P = cfg.ssm_head_dim
-        if name in ("w_z", "w_x", "w_dt", "conv_x", "dt_bias", "A_log",
-                    "D", "norm_w"):
-            # the last axis: d_inner columns, or one entry a head
-            width = 1 if name in ("w_dt", "dt_bias", "A_log", "D") else P
-            return cut(t, spec, pi, mi, (t.ndim - 1, h0, h1), width)
-        if name == "out_proj":
-            return cut(t, spec, pi, mi, (1, h0, h1), P)
-        if name == "conv_b":
-            # one leaf over [xs | B | C] channels, unsharded by its spec:
-            # the shard's xs columns and the whole B/C tail
-            t = cut(t, spec, pi, mi)
-            return torch.cat([t[:, h0 * P:h1 * P], t[:, cfg.d_inner:]],
-                             dim=1)
-        return cut(t, spec, pi, mi)
 
-    def walk(tree, spec, pi, mi, leaf=None):
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out[k] = walk(v, spec[k], pi, mi, {
-                    "attn": attn_leaf, "ssm": ssm_leaf}.get(k, leaf))
-            elif leaf is not None:
-                out[k] = leaf(k, v, spec[k], pi, mi)
-            else:
-                out[k] = cut(v, spec[k], pi, mi)
-        return out
+def gather_logical(grid, cfg: ModelConfig, plan: ShardingPlan, mesh,
+                   device=None) -> dict:
+    """``shard_params``'s inverse: the logical tree of a grid of
+    coordinate trees (parameters, or moments cut like them), on
+    ``device`` (default the first coordinate's).  A replicated element
+    is taken from its first holder."""
+    lay = ParamLayout(cfg, plan, mesh)
+    shapes = dict(leaves_with_paths(param_shapes(cfg)))
+    coords = [(row, mi, dict(leaves_with_paths(grid[row][mi])))
+              for row in range(len(grid)) for mi in range(mesh.tp)]
+    out = []
+    for path, shape in shapes.items():
+        t0 = coords[0][2][path]
+        t = torch.empty(shape, dtype=t0.dtype, device=device or t0.device)
+        for row, mi, leaves in reversed(coords):
+            _put(t, lay.ranges(path, shape, row, mi), leaves[path])
+        out.append((path, t))
+    return tree_from_paths(out)
 
-    return [[walk(params, specs, pi, mi) for mi in range(tp)]
-            for pi in range(pp)]
 
+def shard_train_state(state: dict, cfg: ModelConfig, plan: ShardingPlan,
+                      mesh) -> dict:
+    """A logical train state ``{"params", "opt": {"m", "v", "step"}}`` ->
+    the sharded one: params and the moments as grids of per-coordinate
+    copies cut alike (``opt_pspecs``), the step counter whole."""
+    opt = state["opt"]
+    return {"params": shard_params(state["params"], cfg, plan, mesh,
+                                   copy=True),
+            "opt": {"m": shard_params(opt["m"], cfg, plan, mesh, copy=True),
+                    "v": shard_params(opt["v"], cfg, plan, mesh, copy=True),
+                    "step": opt["step"]}}
+
+
+def gather_train_state(state: dict, cfg: ModelConfig, plan: ShardingPlan,
+                       mesh, device=None) -> dict:
+    """``shard_train_state``'s inverse: the logical train state."""
+    opt = state["opt"]
+    return {"params": gather_logical(state["params"], cfg, plan, mesh,
+                                     device),
+            "opt": {"m": gather_logical(opt["m"], cfg, plan, mesh, device),
+                    "v": gather_logical(opt["v"], cfg, plan, mesh, device),
+                    "step": opt["step"]}}
+
+
+# --------------------------------------------------------------------------
+# Batches and dense decode caches over a plan mesh.
+# --------------------------------------------------------------------------
+
+
+def n_groups(plan: ShardingPlan, mesh) -> int:
+    """The data groups that compute apart: the flat batch size of the
+    mesh where the plan shards the batch, else 1 (a batch of one is
+    computed once, the data axis replicating it or, in the decode plan,
+    splitting its cache's sequence)."""
+    return mesh.n_batch if plan.rules["batch"] is not None else 1
+
+
+def batch_rows(B: int, plan: ShardingPlan, mesh) -> list[tuple[int, int]]:
+    """Each data group's rows [r0, r1) of a global batch of ``B``."""
+    return split_ranges(B, n_groups(plan, mesh))
+
+
+def shard_batch(batch: dict, plan: ShardingPlan, mesh) -> list[dict]:
+    """A batch dict (``tokens``, ``labels``, ``embeds``: leading axis the
+    global batch) -> one dict per data group, its rows on the group's
+    first device (``P(batch, ...)``)."""
+    B = next(iter(batch.values())).shape[0]
+    return [{k: _on(x[r0:r1], mesh.at(g, 0)) for k, x in batch.items()}
+            for g, (r0, r1) in enumerate(batch_rows(B, plan, mesh))]
+
+
+def _cache_ranges(spec, shape, mesh, row: int, mi: int,
+                  rows_done: bool = False) -> list:
+    """Per-axis ranges of a cache leaf of logical ``shape`` for (row,
+    mi); ``rows_done`` leaves the batch axis (axis 1) whole (the leaf
+    already holds only the group's rows)."""
+    return [[(0, n) if (a == 1 and rows_done)
+             else _axis_range(e, n, mesh, row, mi)]
+            for a, (e, n) in enumerate(zip(spec, shape))]
+
+
+def cut_cache_rows(cache, cfg: ModelConfig, plan: ShardingPlan, mesh,
+                   row: int):
+    """A logical-head cache of one data group's rows (``DecodeCache`` of
+    [L, B_g, ...] tensors, pos [B_g]) -> its parts of every model
+    coordinate of grid row ``row`` (the plan's kv_seq/kv_heads/ssm_heads
+    cut): per field a list over the model axis of contiguous copies on
+    their devices."""
+    specs = cache_pspecs(cfg, plan)
+    devs = mesh.group(row)
+    out = {}
+    for name in ("k", "v", "ssm", "conv"):
+        t = getattr(cache, name)
+        out[name] = None if t is None else [
+            _on(_take(t, _cache_ranges(getattr(specs, name), t.shape, mesh,
+                                       row, mi, rows_done=True)),
+                devs[mi]).contiguous()
+            for mi in range(mesh.tp)]
+    out["pos"] = [cache.pos.to(d, copy=True) for d in devs]
+    return out
+
+
+def shard_cache(cache, cfg: ModelConfig, plan: ShardingPlan, mesh):
+    """A logical ``DecodeCache`` ([L, B, S, Hkv, D] k/v, [L, B, H, P, N]
+    ssm, [L, B, W - 1, conv_ch] conv, pos [B]) -> the plan's layout
+    (``cache_pspecs``): a ``DecodeCache`` whose fields are ``ShardGrid``s
+    of each (row, model) coordinate's contiguous part on its device.  In
+    the prefill plan batch goes over the batch axes and KV heads over
+    ``model``; in the decode plan the sequence goes over ``kv_seq``
+    (``model``, or (data, model) at batch 1) and KV heads are whole; SSM
+    rows follow ``ssm_heads`` and batch, conv windows batch."""
+    from repro_torch.models.model import DecodeCache
+    from repro_torch.models.sharded import ShardGrid
+    specs = cache_pspecs(cfg, plan)
+    parts = {name: [] for name in ("k", "v", "ssm", "conv", "pos")}
+    for row in range(mesh.n_batch):
+        devs = mesh.group(row)
+        for name in parts:
+            t = getattr(cache, name)
+            if t is None:
+                parts[name] = None
+                continue
+            spec = getattr(specs, name)
+            parts[name].append([
+                _on(_take(t, _cache_ranges(spec, t.shape, mesh, row, mi)),
+                    devs[mi]).contiguous() for mi in range(mesh.tp)])
+    return DecodeCache(*(None if parts[n] is None else ShardGrid(parts[n])
+                         for n in ("k", "v", "ssm", "conv", "pos")))
+
+
+def gather_cache(cache, cfg: ModelConfig, plan: ShardingPlan, mesh,
+                 device=None):
+    """``shard_cache``'s inverse: the logical ``DecodeCache`` on
+    ``device`` (default the first coordinate's); replicated parts are
+    taken from their first holder."""
+    from repro_torch.models.model import DecodeCache
+    specs = cache_pspecs(cfg, plan)
+    out = {}
+    for name in ("k", "v", "ssm", "conv", "pos"):
+        grid = getattr(cache, name)
+        if grid is None:
+            out[name] = None
+            continue
+        spec = getattr(specs, name)
+        t0 = grid.parts[0][0]
+        shape = []
+        for a, e in enumerate(spec):
+            # an axis's logical extent: the sum of the distinct shards'
+            sizes = {}
+            for row in range(mesh.n_batch):
+                for mi in range(mesh.tp):
+                    idx = axis_index(e, mesh, row, mi)[0]
+                    sizes[idx] = grid.parts[row][mi].shape[a]
+            shape.append(sum(sizes.values()))
+        t = torch.empty(shape, dtype=t0.dtype, device=device or t0.device)
+        for row in reversed(range(mesh.n_batch)):
+            for mi in reversed(range(mesh.tp)):
+                _put(t, _cache_ranges(spec, shape, mesh, row, mi),
+                     grid.parts[row][mi])
+        out[name] = t
+    return DecodeCache(**out)
+
+
+def reshard_cache(cache, cfg: ModelConfig, src: ShardingPlan,
+                  dst: ShardingPlan, mesh, max_len: int | None = None):
+    """Move a cache from plan ``src``'s layout to plan ``dst``'s (the
+    prefill plan's to the decode plan's: the ``device_put`` between the
+    JAX package's two jitted programs), through the logical cache;
+    ``max_len`` pads the sequence with zeros to that length (room for
+    the decode steps)."""
+    logical = gather_cache(cache, cfg, src, mesh)
+    if max_len is not None and logical.k is not None:
+        S = logical.k.shape[2]
+        pad = [0, 0, 0, 0, 0, max_len - S]
+        logical.k = torch.nn.functional.pad(logical.k, pad)
+        logical.v = torch.nn.functional.pad(logical.v, pad)
+    return shard_cache(logical, cfg, dst, mesh)

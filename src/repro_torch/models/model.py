@@ -113,7 +113,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     router stay fp32); the random values differ (JAX keys cannot be
     reproduced in torch).
     """
-    generator = torch.Generator(device=device)
+    # the meta device (shapes only: ``launch.sharding.param_shapes``) draws
+    # from a CPU generator
+    generator = torch.Generator(
+        device="cpu" if torch.device(device).type == "meta" else device)
     generator.manual_seed(seed)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab()
     q_dim, kv_dim, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
@@ -184,17 +187,12 @@ def layer_params(blocks: dict, layer: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _mlp_residual(x, bp, cfg: ModelConfig, aux: list | None = None,
-                  ffn=None):
+def _mlp_residual(x, bp, cfg: ModelConfig, aux: list | None = None):
     """x + the layer's MLP or MoE; a MoE layer appends its load-balance loss
-    of the MoE input to ``aux`` when one is given.  ``ffn(h)``, when given,
-    computes the dense MLP in place of ``mlp`` (the sharded executor's
-    reduced one)."""
+    of the MoE input to ``aux`` when one is given."""
     if cfg.is_moe or cfg.d_ff > 0:
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        if ffn is not None:
-            m = ffn(h)
-        elif cfg.is_moe:
+        if cfg.is_moe:
             m = moe_lib.moe_block(h, bp["moe"], cfg)
         else:
             m = mlp(h, bp["mlp"], cfg.mlp_variant)

@@ -114,20 +114,37 @@ def dispatch(x: torch.Tensor, p: dict, cfg: ModelConfig,
     pairs."""
     B, S, _ = x.shape
     E, K = cfg.n_experts, cfg.top_k
+    G, C = capacity_groups(S, B, cfg, capacity_factor)
+    N = (B // G) * S                      # tokens per group
+    _, gate_vals, topi = _route(x.reshape(G, N, -1), p["router"], K)
+    keep, slot = capacity_slots(topi, E, C)
+    return G, C, gate_vals, keep, slot
+
+
+def capacity_groups(S: int, B: int, cfg: ModelConfig,
+                    capacity_factor: float | None = None
+                    ) -> tuple[int, int]:
+    """(G, C) of the capacity path for a batch of B sequences of S tokens:
+    ``_pick_groups``'s group count and the slots per (group, expert)."""
+    E, K = cfg.n_experts, cfg.top_k
     cf = (capacity_factor if capacity_factor is not None
           else cfg.moe_capacity_factor)
     G = _pick_groups(S, B, E, K)
-    N = (B // G) * S                      # tokens per group
-    C = max(1, int(math.ceil(K * N * cf / E)))
-    _, gate_vals, topi = _route(x.reshape(G, N, -1), p["router"], K)
-    # position of each (token, slot) in its expert's buffer: the count of
-    # earlier assignments to the same expert in the group, token-major
+    return G, max(1, int(math.ceil(K * (B // G) * S * cf / E)))
+
+
+def capacity_slots(topi: torch.Tensor, E: int, C: int):
+    """(keep, slot) [G, N, K] of expert ids ``topi`` [G, N, K]: a (token,
+    slot) pair's position in its expert's buffer is the count of earlier
+    assignments to the same expert in the group, token-major; pairs past
+    ``C`` are dropped to the dump slot ``E * C``."""
+    G, N, K = topi.shape
     oh = F.one_hot(topi, E).reshape(G, N * K, E)
     pos = torch.cumsum(oh, dim=1) - oh                 # exclusive cumsum
     pos = (pos * oh).sum(-1).reshape(G, N, K)
     keep = pos < C
     slot = torch.where(keep, topi * C + pos, E * C)    # overflow -> dump
-    return G, C, gate_vals, keep, slot
+    return keep, slot
 
 
 def capacity_experts(x: torch.Tensor, p: dict, routing, e0: int = 0
@@ -187,6 +204,20 @@ def load_balance_loss(x: torch.Tensor, p: dict, cfg: ModelConfig
     _, topi = torch.topk(probs, K, dim=-1, sorted=True)
     f = F.one_hot(topi, E).float().sum(1).mean(0)
     return E * torch.sum(f * probs.mean(0)) / K
+
+
+def balance_sums(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``load_balance_loss``'s sums over the tokens of x [..., d]: the
+    count of tokens whose top-k set holds each expert and the sum of each
+    expert's router probability, [E] fp32 each.  A batch split over data
+    shards sums these in shard order and divides by the whole batch's
+    token count once (the product of two batch means)."""
+    E, K = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(
+        x.reshape(-1, x.shape[-1]).float() @ router.float(), dim=-1)
+    _, topi = torch.topk(probs, K, dim=-1, sorted=True)
+    return F.one_hot(topi, E).float().sum(1).sum(0), probs.sum(0)
 
 
 def moe_ref(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:

@@ -60,7 +60,14 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, state, step: int, blocking: bool = False) -> None:
+    def save(self, state, step: int, blocking: bool = False,
+             layout=None) -> None:
+        """Save ``state``; a sharded train state with its ``layout`` (cfg,
+        plan, mesh) is gathered into the logical arrays first, so the
+        checkpoint is the JAX package's layout whatever the plan."""
+        if layout is not None:
+            from repro_torch.launch.sharding import gather_train_state
+            state = gather_train_state(state, *layout)
         flat = flatten_with_paths(state)
         paths = [p for p, _ in flat]
         host_leaves = [_to_host(leaf) for _, leaf in flat]
@@ -118,9 +125,18 @@ class CheckpointManager:
                 out.append(int(name.split("_")[1]))
         return sorted(out)
 
-    def restore(self, template, step: int):
+    def restore(self, template, step: int, layout=None):
         """Restore into the structure of ``template`` (shapes must match):
-        each leaf on the template leaf's device, in its dtype."""
+        each leaf on the template leaf's device, in its dtype.  With a
+        ``layout`` (cfg, plan, mesh) the template is a sharded train state
+        and so is the result: the logical arrays are cut by that plan,
+        whichever plan (or none) saved them."""
+        if layout is not None:
+            from repro_torch.launch.sharding import (gather_train_state,
+                                                     shard_train_state)
+            logical = self.restore(gather_train_state(template, *layout),
+                                   step)
+            return shard_train_state(logical, *layout)
         d = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -136,9 +152,9 @@ class CheckpointManager:
         it = iter(new_leaves)
         return tree_map(lambda _: next(it), template)
 
-    def restore_latest(self, template):
+    def restore_latest(self, template, layout=None):
         steps = self.list_steps()
         if not steps:
             return None
         step = steps[-1]
-        return self.restore(template, step), step
+        return self.restore(template, step, layout), step

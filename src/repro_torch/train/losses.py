@@ -16,6 +16,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits are set to -1e30).  Returns (loss, {"nll", "accuracy",
     "tokens"}), each a 0-d fp32 tensor.
     """
+    nll_sum, acc_sum, count = cross_entropy_sums(logits, labels, cfg, mask)
+    denom = torch.clamp(count, min=1.0)
+    loss = nll_sum / denom
+    acc = acc_sum / denom
+    return loss, {"nll": loss, "accuracy": acc, "tokens": denom}
+
+
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
+                       cfg: ModelConfig, mask: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``cross_entropy``'s sums over the valid tokens: (nll, correct
+    predictions, valid tokens), 0-d fp32 each.  A batch split over data
+    shards sums each in shard order and divides once."""
     Vpad = logits.shape[-1]
     vmask = torch.arange(Vpad, device=logits.device) < cfg.vocab_size
     logits = torch.where(vmask[None, None, :], logits,
@@ -28,7 +41,6 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         valid = valid & (mask > 0)
     valid = valid.float()
-    denom = torch.clamp(valid.sum(), min=1.0)
-    loss = (nll * valid).sum() / denom
-    acc = ((logits.argmax(-1) == labels).float() * valid).sum() / denom
-    return loss, {"nll": loss, "accuracy": acc, "tokens": denom}
+    return ((nll * valid).sum(),
+            ((logits.argmax(-1) == labels).float() * valid).sum(),
+            valid.sum())

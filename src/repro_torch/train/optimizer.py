@@ -97,16 +97,17 @@ def clip_by_global_norm(grads: Any, max_norm: float
     return tree_map(lambda g: g * scale, grads), norm
 
 
-def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
-                 ) -> tuple[Any, dict, dict]:
-    """Returns (params, state, metrics); params, m and v are updated in
-    place and returned, the step counter is a new tensor."""
+def _clipped(grads: Any, cfg: AdamWConfig) -> tuple[Any, torch.Tensor]:
     grads = tree_map(lambda g: g.to(torch.float32), grads)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
-        gnorm = global_norm(grads)
-    step = state["step"] + 1
+        return clip_by_global_norm(grads, cfg.grad_clip)
+    return grads, global_norm(grads)
+
+
+def _updater(step: torch.Tensor, cfg: AdamWConfig) -> tuple[Callable,
+                                                              torch.Tensor]:
+    """(upd(p, m, v, g), lr) of optimizer step ``step``: ``upd`` writes one
+    leaf's new parameter and moments in place."""
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     t = step.to(torch.float32)
@@ -118,14 +119,49 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
     def upd(p, m, v, g):
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)
-        mhat = m / bc1
-        vhat = v / bc2
+        mhat = m / _on(bc1, m.device)
+        vhat = v / _on(bc2, v.device)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
         if cfg.weight_decay > 0 and p.ndim >= 2:   # decay matrices only
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+        p.copy_((p.to(torch.float32) - _on(lr, p.device) * delta)
+                .to(p.dtype))
+    return upd, lr
 
+
+def _on(t: torch.Tensor, device) -> torch.Tensor:
+    return t if t.device == device else t.to(device)
+
+
+def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
+                 ) -> tuple[Any, dict, dict]:
+    """Returns (params, state, metrics); params, m and v are updated in
+    place and returned, the step counter is a new tensor."""
+    grads, gnorm = _clipped(grads, cfg)
+    step = state["step"] + 1
+    upd, lr = _updater(step, cfg)
     tree_map(upd, params, state["m"], state["v"], grads)
+    return params, {"m": state["m"], "v": state["v"], "step": step}, \
+        {"grad_norm": gnorm, "lr": lr}
+
+
+def adamw_update_sharded(params: list, grads: Any, state: dict,
+                         cfg: AdamWConfig, part: Callable
+                         ) -> tuple[list, dict, dict]:
+    """``adamw_update`` over a sharded state: ``params``, ``state["m"]``
+    and ``state["v"]`` are [rows][tp] grids of coordinate trees (the
+    plan's cut, ``launch.sharding.shard_train_state``); ``grads`` is the
+    reduced logical gradient tree, each element once, so its global norm
+    counts every logical element once however many coordinates hold it;
+    ``part(tree, row, mi)`` cuts a logical tree to a coordinate.  Each
+    coordinate updates its own rows and its own m/v rows in place (the
+    update is elementwise: replicated leaves stay equal)."""
+    grads, gnorm = _clipped(grads, cfg)
+    step = state["step"] + 1
+    upd, lr = _updater(step, cfg)
+    for row, (ps, ms, vs) in enumerate(zip(params, state["m"], state["v"])):
+        for mi, (p, m, v) in enumerate(zip(ps, ms, vs)):
+            tree_map(upd, p, m, v, part(grads, row, mi))
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}
 

@@ -375,6 +375,115 @@ def test_flash_decode_kernel_fixed_split_matches_split_plain(cuda, dtype,
     assert not got[2].float().any()
 
 
+# B3's lse form (the decode plan's sequence shards): a data group's shard
+# of a 544-position cache, the long context's shard of 12288 over 4 and
+# one past the position, rows that attend nothing (len <= start, in the
+# last live tile and past it) and gemma2-2b's heads with softcap and window;
+# name, B, S, Hq, Hkv, D, lens, starts, softcap
+LSE_CASES = [
+    ("plans-shard", 4, 272, 32, 4, 128, [272, 256, 1, 0], [0, 0, 0, 0], 0.0),
+    ("long-shard", 1, 3072, 32, 4, 128, [2065], [0], 0.0),
+    ("long-past-pos", 1, 3072, 32, 4, 128, [0], [0], 0.0),
+    ("empty-rows", 4, 300, 32, 4, 128, [100, 300, 45, 40], [200, 299, 40, 45],
+     0.0),
+    ("gemma2-window", 4, 1030, 8, 4, 256, [3, 64, 517, 1030],
+     [0, 3, 456, 969], 50.0),
+]
+LSE_IDS = [c[0] for c in LSE_CASES]
+LSE_ATOL = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [None, 1, 3, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,S,Hq,Hkv,D,lens,starts,cap", LSE_CASES,
+                         ids=LSE_IDS)
+def test_flash_decode_lse_matches_plain(cuda, dtype, n_split, name, B, S, Hq,
+                                        Hkv, D, lens, starts, cap):
+    """The lse form by the wrapper's split count and at fixed ones (the
+    loop writes the lse with one split, the combine with several): the
+    output as the plain version's and bit-equal to the kernel's without
+    the lse, the lse within LSE_ATOL of the plain version's, zeros and
+    -inf on rows that attend nothing; one launch, counted as lse."""
+    q, k, v, ln, st = to_torch(
+        *split_inputs(23, B, S, Hq, Hkv, D, lens, starts), device=cuda)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    scale = 1.0 / D ** 0.5
+    before = (tfd.flash_decode.launches, tfd.flash_decode.lse_launches)
+    if n_split is None:
+        got, lse = tfd.flash_decode(q, k, v, ln, st, cap, scale,
+                                    with_lse=True)
+        plain = tfd.flash_decode(q, k, v, ln, st, cap, scale)
+    else:
+        got, lse = tfd._launch(q, k, v, ln, st, cap, scale, n_split,
+                               with_lse=True)
+        plain = tfd._launch(q, k, v, ln, st, cap, scale, n_split)
+    torch.cuda.synchronize()
+    assert (tfd.flash_decode.launches, tfd.flash_decode.lse_launches) == (
+        before[0] + 2, before[1] + 1)
+    want, want_lse = ref.flash_decode_plain(q, k, v, ln, st, cap, scale,
+                                            with_lse=True)
+    kernel_close(got, want, dtype)
+    assert torch.equal(got, plain)
+    live = want_lse > -torch.inf
+    assert torch.equal(lse > -torch.inf, live)
+    close(lse[live].cpu().numpy(), want_lse[live].cpu().numpy(), LSE_ATOL)
+    assert not got[~live].float().any()
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,dp", [(4, 2), (1, 2)], ids=["batch4", "batch1"])
+def test_decode_plan_on_the_card_equals_the_cpu(cuda, no_tf32, B, dp):
+    """yi-9b's smoke config, fp32: the prefill plan, ``reshard_cache`` and
+    6 greedy steps of the decode plan on (data dp, model 2) virtual chips
+    of the card give the CPU's tokens and logits within 1e-4, launching
+    B2 and B3's lse form, never B1."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.models import init_params, sharded
+    cfg = get_smoke_config("yi-9b")
+    S, steps = 40, 6
+    tokens = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    params = init_params(cfg, 0, torch.float32, "cpu")
+    streams = {}
+    for dev in ("cpu", cuda):
+        mesh = make_small_mesh([dev] * (dp * 2), model=2)
+        pplan, _ = shd.make_plan(cfg, "prefill", False, B, tp=2)
+        dplan, _ = shd.make_plan(cfg, "decode", False, B, tp=2)
+        p = tree_to(params, dev)
+        pm = sharded.PlanModel.build(p, cfg, pplan, mesh)
+        dm = sharded.PlanModel.build(p, cfg, dplan, mesh)
+        ops.reset_launch_counts()
+        logits, cache = sharded.prefill_plan(pm, [
+            x["t"] for x in shd.shard_batch({"t": tokens.to(dev)}, pplan,
+                                            mesh)])
+        cache = shd.reshard_cache(cache, cfg, pplan, dplan, mesh,
+                                  max_len=S + steps)
+        out = [torch.cat(logits)]
+        for _ in range(steps):
+            tok = out[-1].argmax(-1).to(torch.int32)
+            logits, cache = sharded.decode_step_plan(dm, [
+                x["t"] for x in shd.shard_batch({"t": tok}, dplan, mesh)],
+                cache)
+            out.append(torch.cat(logits))
+        streams[str(dev)] = [o.cpu() for o in out]
+        counts = ops.launch_counts()
+    for a, b in zip(streams["cpu"], streams[str(cuda)]):
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+        close(b.numpy(), a.numpy(), 1e-4)
+    assert counts["flash_attention"] > 0 and counts["paged_decode"] == 0
+    assert counts["flash_decode"] == counts["flash_decode_lse"] > 0
+
+
 # the prefill kernel at every head dim, Sq and Sk off the 64-row tile, with
 # softcap, window, query offset and groups 5 and 8;
 # B, Sq, Sk, q_offset, Hq, Hkv, D, causal, softcap, window
