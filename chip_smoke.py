@@ -4,9 +4,9 @@
 
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; it exits non-zero without them.  Phases, in order (a failure exits
-non-zero before the result lines; a failed check of phase 5's "migrate",
-"prefix", "evict", "cluster", "sharded", "plans", "orchestrated",
-"evaluation" or "train" runs
+non-zero before the result lines; a failed check of phase 5's "graphs",
+"migrate", "prefix", "evict", "cluster", "sharded", "plans",
+"orchestrated", "evaluation" or "train" runs
 is reported, and exits non-zero, after phase 6 has run and printed its
 table):
 
@@ -29,7 +29,9 @@ table):
      group of 3, and the "sharded" job's shard-local heads: yi-9b's 16/2
      at tp 2 and 4/1 at tp 8, olmoe's 8/8 of 128 and granite-moe's 12/4
      of 64 at tp 2, mamba2's 16 SSD heads of 64 at tp 2), the prefill
-     kernel also at a chunk's query offset, both
+     kernel also at a chunk's query offset (and its device-offset form,
+     the chunk graph's: the offset as an int32 scalar, one per row and
+     distinct per row, each bit-equal to the by-value form), both
      decode kernels also split over many CTAs and, at fixed split counts,
      against the plain split-and-combine, the dense decode kernel's lse
      form (the decode plan's sequence shards: out bit-equal to the form
@@ -112,14 +114,29 @@ table):
      paged and chunked (the chunks put sinusoidal positions at a query
      offset), then granite-moe-3b-a800m (32) paged, bf16, random weights
      from a seeded generator,
-     each run serving 8 requests through ``ServingEngine``; the launch
+     each run serving 8 requests through ``ServingEngine`` (graphed: the
+     unsharded paged engine's decode horizons and chunk forwards replay
+     one CUDA graph per shape key, ``serving/graphs.py``; every engine of
+     phases 4 and 5 runs so unless its configuration keeps it eager); the
+     launch
      counters are set to 0 just before each run and read just after it,
      every kernel on that run's path must have launched (and the dense run
      no paged decode, the chunked run the prefill kernel more than once per
      layer and request); at least 90 % of the generated tokens must equal a
      teacher-forced forward's argmax; then, on the same weights, the
-     "migrate" runs: yi-9b by handoff, copy, relayout and re-prefill,
-     hymba-1.5b by handoff, copy and re-prefill.  The paged job's source
+     "graphs" job (``GRAPHS_RUNS``: yi-9b paged and chunked, hymba-1.5b
+     and olmoe-1b-7b paged): the run's job served by an eager engine
+     (``graphs=False``) and by a graphed one, cold (each key captured at
+     its first use) and warm (a second pass of the same prompts), each
+     pass's wall, TTFT, decode rate, decode_syncs, B1 (and combine)/B2
+     (and offset)/B4 launches (every kernel counts its own launches on
+     the card, so a replay's count as eager ones), captures, capture
+     seconds, replays and reserved memory printed; the graphed streams,
+     decode_syncs and launches must equal the eager engine's, the warm
+     pass capture nothing, and dropping the graphed engine give its
+     memory back; then the "migrate" runs: yi-9b by
+     handoff, copy, relayout and re-prefill, hymba-1.5b by handoff, copy
+     and re-prefill.  The paged job's source
      serves until every request has 8 tokens, ``migrate_batch`` moves all
      8 requests and the destination finishes the 32 tokens.  Each run must
      meet the report's exact counts (all 8 by the path, the pages held,
@@ -265,6 +282,7 @@ table):
      computing the same function, and again as the same 10 calls replayed
      from a CUDA graph (``device_ms``: no host work between the kernels,
      so a kernel faster than its wrapper's host code shows its own time);
+     the chunk rows also time B2's device-offset form, both ways;
      each timed kernel's output is checked again; the decode rows also
      give their split counts and CTAs, as the wrappers launched them; B2's
      backward at the train runs' shapes beside autograd of
@@ -286,6 +304,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -376,6 +395,19 @@ FULL_WIDTH = (
                 ("paged_decode", "flash_attention")),
     )),
 )
+# phase 5's "graphs" job: the runs (by variant name) served by one eager
+# and one graphed engine on the same prompts, the graphed one twice
+GRAPHS_RUNS = {"yi-9b": ("paged", "chunked"), "hymba-1.5b": ("paged",),
+               "olmoe-1b-7b": ("paged",)}
+# the launch counts (``ops.launch_counts``) the graphed runs must match the
+# eager ones on: B1 and its split combine, B2 and its offset launches, B4
+GRAPHS_COUNTED = ("paged_decode", "paged_decode_combine", "flash_attention",
+                  "flash_attention_offset", "ssd_chunk")
+# the device memory (GiB) a dropped graphed engine may leave reserved beyond
+# the reading before its job: the caches that outlive an engine (cuBLAS
+# workspaces of the capture and side streams, the RoPE frequencies, the
+# launch counters) and nothing of its graphs' pool
+GRAPHS_MEM_SLACK_GIB = 0.25
 # phase 6's chunk shape: 256 queries after 512 resident tokens
 CHUNK, CHUNK_OFFSET = 256, 512
 # phase 5's migrate runs: the restore paths each model takes, after its
@@ -807,12 +839,36 @@ def check_chunk(gen, fa, ref) -> None:
             want = ref.flash_attention_ref(q, k, v, softcap=cap, window=win,
                                            q_offset=off)
             err, rel, ok = agreement(got, want, dtype)
+            # the device-offset form (the chunk graph's): one int32 scalar,
+            # one per row, and per-row offsets that differ, each bit-equal
+            # to the by-value form
+            offs = [off - 7 * b for b in range(B)]
+            dev = {"scalar": torch.tensor(off, dtype=torch.int32,
+                                          device="cuda"),
+                   "rows": torch.full((B,), off, dtype=torch.int32,
+                                      device="cuda")}
+            same = {f: torch.equal(fa.flash_attention(
+                q, k, v, softcap=cap, window=win, q_offset=t), got)
+                for f, t in dev.items()}
+            rows = fa.flash_attention(q, k, v, softcap=cap, window=win,
+                                      q_offset=torch.tensor(
+                                          offs, dtype=torch.int32,
+                                          device="cuda"))
+            same["distinct rows"] = all(torch.equal(
+                rows[b:b + 1], fa.flash_attention(
+                    q[b:b + 1], k[b:b + 1], v[b:b + 1], softcap=cap,
+                    window=win, q_offset=offs[b])) for b in range(B))
             log(f"  flash_attention q_offset {name:14s} {str(dtype):14s} "
                 f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
-                f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}")
+                f"{tol_text(dtype)} {'ok' if ok else 'FAIL'}; device "
+                f"offset bit-equal {same}")
             if not ok:
                 raise SystemExit(f"flash_attention q_offset {name} {dtype} "
                                  "disagrees")
+            if not all(same.values()):
+                raise SystemExit(f"flash_attention q_offset {name} {dtype}: "
+                                 f"the device-offset form differs from the "
+                                 f"by-value form: {same}")
 
 
 def check_prefill_bwd(gen, fa, fab, ref) -> None:
@@ -1102,10 +1158,9 @@ def check_ssd_bwd(gen, ops, ssb, ref) -> None:
     live = [t.clone().requires_grad_(True) for t in inputs]
     y, _ = ops.ssd_chunk(*live)
     dy = rand(gen, 1, 2, 256, 64, 32, scale=1.0).transpose(-1, -2)
-    before = ssb.ssd_chunk_bwd.launches
+    before = ssb.ssd_chunk_bwd.counter["launches"]
     y.backward(dy)
-    torch.cuda.synchronize()
-    launched = ssb.ssd_chunk_bwd.launches - before
+    launched = ssb.ssd_chunk_bwd.counter["launches"] - before
     dS = torch.zeros((1, 2, 32, 64, 128), device="cuda")
     err, rel, ok = ssd_bwd_agreement(
         [t.grad for t in live], ssd_bwd_plain(ref, inputs, dy.contiguous(),
@@ -1141,14 +1196,21 @@ def check_ssd_bwd(gen, ops, ssb, ref) -> None:
 def serve(cfg, params, prompts, new_tokens, device, **engine_kw):
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(cfg, params, device=device, **engine_kw)
-    for rid, p in enumerate(prompts):
-        eng.submit(rid, p, new_tokens)
+    fin, wall = serve_on(eng, prompts, new_tokens)
+    return fin, eng, wall
+
+
+def serve_on(eng, prompts, new_tokens, rid0: int = 0):
+    """Serve ``prompts`` on an existing engine as rids ``rid0 + i``:
+    ({i: finished request}, wall seconds)."""
+    for i, p in enumerate(prompts):
+        eng.submit(rid0 + i, p, new_tokens)
     t0 = time.monotonic()
     fin = eng.run_to_completion()
-    if device != "cpu":
+    if eng.device.type != "cpu":
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    return {r.rid: r for r in fin}, eng, wall
+    return {r.rid - rid0: r for r in fin}, wall
 
 
 def serving_times(fin: dict, wall: float):
@@ -2517,14 +2579,13 @@ def phase_evaluation_smoke(ops) -> None:
     equal the CPU's but for the wall-clock fields, every request
     completes, and the card run launches B1 and B2 (counted from a reset
     just before it)."""
-    from repro_torch.kernels import flash_attention as fa
     t0 = time.monotonic()
     cpu = real_validation_rows("cpu")[1]
     ops.reset_launch_counts()
     rows, card = real_validation_rows("cuda")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    offset = fa.flash_attention.offset_launches
+    offset = counts["flash_attention_offset"]
     for r in rows:
         log(f"  [evaluation smoke] {r}")
     done = any(r.startswith("e2e-real/opt-30b/6c/total,0,completed=12/12")
@@ -2797,7 +2858,6 @@ def phase_orchestrated(ops) -> tuple[dict, list[str]]:
     from repro_torch.core.orchestrator import (Orchestrator,
                                                OrchestratorConfig)
     from repro_torch.core.types import H100_SPEC, ClusterSpec
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import init_params, param_count
     from repro_torch.serving.cluster import ClusterRuntime
     from repro_torch.serving.telemetry import Telemetry
@@ -2900,7 +2960,7 @@ def phase_orchestrated(ops) -> tuple[dict, list[str]]:
     torch.cuda.synchronize()
     t_end = time.monotonic()
     counts = ops.launch_counts()
-    offset = fa.flash_attention.offset_launches
+    offset = counts["flash_attention_offset"]
     line, streams, full_ok = _cluster_numbers(rt, tm, t_end - t_run, t_end,
                                               prompts, counts)
     ttft = {e.rid: e.data["ttft_s"] for e in tm.tracer.events
@@ -3201,6 +3261,10 @@ def phase_full_width(ops, arch: str, variants: tuple,
                      "streams": {r: fin[r].generated for r in fin}})
         # the next run's engine must not meet this one's pool
         del fin, eng
+    for name in GRAPHS_RUNS.get(arch, ()):
+        var, = [v for v in variants if v.name == name]
+        failures += phase_graphs(ops, cfg, params, prompts, var)
+        torch.cuda.empty_cache()
     if arch in COST_MODEL_MODELS:
         log(f"  [{arch}] " + cost_model_text(
             cfg, params, max(lens), 512, runs[0]["variant"].options.get(
@@ -3231,6 +3295,110 @@ def phase_full_width(ops, arch: str, variants: tuple,
     del params
     torch.cuda.empty_cache()
     return runs
+
+
+def graph_counts(ops) -> dict:
+    """The launch counts (``GRAPHS_COUNTED``) the compiled step moves, as
+    the kernels counted them on the card, a replay's launches included."""
+    counts = ops.launch_counts()
+    return {k: counts[k] for k in GRAPHS_COUNTED}
+
+
+def reserved_gib() -> float:
+    """The caching allocator's reserved device memory after a garbage
+    collection and ``empty_cache``: what live tensors and graph pools
+    hold."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2 ** 30
+
+
+def phase_graphs(ops, cfg, params, prompts, var) -> list[str]:
+    """The "graphs" job of one phase-5 run: the job served by an eager
+    engine (``graphs=False``), then by a graphed one (the default: a cold
+    pass that captures each key on its first use, and a warm second pass
+    of the same prompts that only replays).  Prints each pass's wall, TTFT,
+    decode rate, decode_syncs, launches (as the kernels counted them on
+    the card, replays included) and captures, and the reserved device
+    memory before the job, with each engine alive and after each is
+    dropped; returns the failed checks: the graphed streams equal the
+    eager ones token for token, and so do decode_syncs and the B1 (and
+    combine), B2 (and offset) and B4 launches; the warm pass captures
+    nothing; dropping the graphed engine gives its memory back (within
+    ``GRAPHS_MEM_SLACK_GIB`` of the reading before the job)."""
+    tag = f"[graphs {cfg.name} {var.name}]"
+    kw = dict(FULL_WIDTH_ENGINE, **var.options)
+    passes, failed = {}, []
+    mem = {"before": reserved_gib()}
+    eng = None
+    for label in ("eager", "cold", "warm"):
+        ops.reset_launch_counts()
+        if label == "warm":
+            # the cold pass's schedule again: the chunk rotation restarts
+            eng._chunk_rr = 0
+            before = (eng.graph_captures, eng.graph_replays, eng.capture_s,
+                      eng.decode_syncs)
+            fin, wall = serve_on(eng, prompts, 32, rid0=len(prompts))
+        else:
+            fin, eng, wall = serve(cfg, params, prompts, 32, "cuda",
+                                   graphs=label == "cold", **kw)
+            before = (0, 0, 0.0, 0)
+        ttft, rate = serving_times(fin, wall)
+        p = {"streams": {r: fin[r].generated for r in fin},
+             "counts": graph_counts(ops),
+             "captures": eng.graph_captures - before[0],
+             "replays": eng.graph_replays - before[1],
+             "capture_s": eng.capture_s - before[2],
+             "syncs": eng.decode_syncs - before[3]}
+        passes[label] = p
+        del fin
+        mem[label] = reserved_gib()
+        log(f"  {tag} {label}: wall {wall:.3f} s  TTFT mean "
+            f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms  "
+            f"decode {rate:.1f} tok/s  decode_syncs {p['syncs']}  "
+            f"launches {p['counts']}  graph_captures {p['captures']}  "
+            f"capture_s {p['capture_s']:.3f}  graph_replays "
+            f"{p['replays']}  reserved {mem[label]:.3f} GiB; {card_line()}")
+        if label == "eager":
+            # the graphed engine must not meet the eager one's pool
+            del eng
+            mem["eager dropped"] = reserved_gib()
+    keys = len(eng._steps.entries)
+    del eng
+    mem["graphed dropped"] = reserved_gib()
+    log(f"  {tag} reserved GiB {mem}: the graphed engine's {keys} steps "
+        f"and their pool hold {mem['warm'] - mem['eager']:.3f} GiB beyond "
+        f"the eager engine's")
+    if mem["graphed dropped"] > mem["before"] + GRAPHS_MEM_SLACK_GIB:
+        failed.append(f"{tag}: {mem['graphed dropped']:.3f} GiB reserved "
+                      f"after the graphed engine was dropped, "
+                      f"{mem['before']:.3f} GiB before the job")
+    want = passes["eager"]
+    for label in ("cold", "warm"):
+        got = passes[label]
+        same = sum(got["streams"][r] == want["streams"][r]
+                   for r in want["streams"])
+        log(f"  {tag} {label} vs eager: streams equal {same}/"
+            f"{len(want['streams'])}, decode_syncs equal "
+            f"{got['syncs'] == want['syncs']}, launches equal "
+            f"{got['counts'] == want['counts']}")
+        if same != len(want["streams"]):
+            failed.append(f"{tag} {label}: graphed streams differ from the "
+                          "eager engine's")
+        if got["syncs"] != want["syncs"]:
+            failed.append(f"{tag} {label}: decode_syncs {got['syncs']} != "
+                          f"eager {want['syncs']}")
+        if got["counts"] != want["counts"]:
+            failed.append(f"{tag} {label}: launches {got['counts']} != "
+                          f"eager {want['counts']}")
+    if passes["cold"]["captures"] < 1 or passes["warm"]["replays"] < 1:
+        failed.append(f"{tag}: the graphed engine captured or replayed "
+                      "nothing")
+    if passes["warm"]["captures"]:
+        failed.append(f"{tag} warm: {passes['warm']['captures']} captures "
+                      "on a second pass of the same prompts")
+    return failed
 
 
 def _until_next_token(dst, had: dict) -> None:
@@ -3383,7 +3551,6 @@ def phase_prefix(ops, cfg, params) -> list[str]:
     forced agreement, the pages request 0 published unchanged by the hits
     that prefilled and decoded over them, and every block free or held by
     the index alone after retirement.  Returns the checks that failed."""
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.kvcache import gather_tokens
     t_start = time.monotonic()
     job = PREFIX_JOB
@@ -3407,7 +3574,7 @@ def phase_prefix(ops, cfg, params) -> list[str]:
             after_first=keep_published if cache else None,
             prefix_cache=cache, **FULL_WIDTH_ENGINE, **PAGED)
         counts = ops.launch_counts()
-        offset = fa.flash_attention.offset_launches
+        offset = counts["flash_attention_offset"]
         stats = eng.load_stats()
         streams[cache] = {r: fin[r].generated for r in fin}
         ttft = [fin[r].t_first - fin[r].t_submit for r in range(1, job["n"])]
@@ -3490,7 +3657,6 @@ def phase_evict(ops, cfg, params) -> list[str]:
     forward.  Then the host tier's rates: HOST_PAGES evictions and as many
     restores a round, beside a plain pinned copy of the same bytes.
     Returns the checks that failed."""
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kvcache import gather_tokens
     t_start = time.monotonic()
@@ -3534,7 +3700,7 @@ def phase_evict(ops, cfg, params) -> list[str]:
     pc._evict, pc._restore = evict, restore
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    offset = fa.flash_attention.offset_launches
+    offset = counts["flash_attention_offset"]
     L = cfg.n_layers
     launched = (counts["flash_attention"] == job["visits"] * L
                 and offset == (job["visits"] - 2) * L
@@ -4697,6 +4863,14 @@ def time_chunk(gen, fa, ref, run):
                          f"max_row_rel_err {rel:.3e}")
     ms = time_ms(lambda i: fa.flash_attention(q, k, v, q_offset=off))
     device = graph_ms(lambda i: fa.flash_attention(q, k, v, q_offset=off))
+    # the device-offset form, as the chunk graph launches it
+    off_t = torch.tensor(off, dtype=torch.int32, device="cuda")
+    if not torch.equal(fa.flash_attention(q, k, v, q_offset=off_t), got):
+        raise SystemExit("flash_attention's device-offset form differs from "
+                         "its by-value form at the chunk shape")
+    dev_ms = time_ms(lambda i: fa.flash_attention(q, k, v, q_offset=off_t))
+    dev_device = graph_ms(lambda i: fa.flash_attention(q, k, v,
+                                                       q_offset=off_t))
     plain = time_ms(lambda i: ref.flash_attention_ref(q, k, v,
                                                       q_offset=off))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -4711,7 +4885,8 @@ def time_chunk(gen, fa, ref, run):
                 nbytes / HBM_BYTES_PER_S * 1e3,
                 flops / BF16_FLOPS_PER_S * 1e3, lib,
                 f"B={B} C={C} q_offset={off} Sk={off + C} Hq={Hq} Hkv={Hkv} "
-                f"D={D} causal bf16", device_ms=device)
+                f"D={D} causal bf16", device_ms=device,
+                device_offset_ms=dev_ms, device_offset_device_ms=dev_device)
 
 
 def time_ssd(gen, ssd, ref, run):
@@ -5032,16 +5207,19 @@ def main() -> int:
                if "launches_per_step" in r
                else f"{r['launches_per_request']:.1f}/request)")
             + (f"  splits {r['splits']} ({r['ctas']} CTAs)"
-               if "splits" in r else "") + f"  [{r['shape']}]")
+               if "splits" in r else "")
+            + (f"  device-offset form {r['device_offset_ms']:.4f} (graph "
+               f"replay {r['device_offset_device_ms']:.4f})"
+               if "device_offset_ms" in r else "") + f"  [{r['shape']}]")
     log(f"total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
     if failures:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
-        log(f"chip_smoke: {len(failures)} migrate, prefix, evict, cluster, "
-            f"sharded, plans, orchestrated, evaluation or train check(s) "
-            f"failed: "
+        log(f"chip_smoke: {len(failures)} graphs, migrate, prefix, evict, "
+            f"cluster, sharded, plans, orchestrated, evaluation or train "
+            f"check(s) failed: "
             f"{'; '.join(failures)}")
         return 1
     log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ Every ``csrc/*.cu`` is one shared library with a plain C interface, built by
 the sources (every ``csrc/*.cu`` and the ``*.cuh`` headers they include,
 so a changed header rebuilds each library) and flags, and are built at
 first use.  ``build_all`` starts one ``nvcc`` per source, all at once.  A
-failed build raises.
+failed build raises.  ``LaunchCounter`` holds the launch counts each
+kernel keeps on the card.
 """
 from __future__ import annotations
 
@@ -122,3 +123,49 @@ def check_tensor(name: str, t: torch.Tensor, device, dtype, shape) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+class LaunchCounter:
+    """One kernel's launch counts, kept on the card by the kernel itself.
+
+    The wrapper passes ``ptr(device)`` with every launch; the launch's
+    first thread adds one to an int32 slot for each event it counts
+    (``count_launch`` in ``csrc/common.cuh``; ``slots`` names them, the
+    launches first).  So a launch replayed from a captured CUDA graph
+    counts exactly as an eager one does, and nothing is ever added on the
+    host.  Each device has its own slots, made at its first launch, which
+    must not be under a capture (the zero fill would be captured too and
+    reset the slots at every replay).  ``read`` and ``reset`` synchronize
+    the devices.
+    """
+
+    def __init__(self, *slots: str):
+        self.slots = slots
+        self._dev: dict[torch.device, torch.Tensor] = {}
+
+    def ptr(self, device: torch.device) -> int:
+        t = self._dev.get(device)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a kernel's first launch on a device "
+                                   "must not be under a CUDA graph capture")
+            t = self._dev[device] = torch.zeros(
+                len(self.slots), dtype=torch.int32, device=device)
+        return t.data_ptr()
+
+    def read(self) -> dict[str, int]:
+        """The counts summed over the devices (0 where nothing launched)."""
+        total = [0] * len(self.slots)
+        for dev, t in self._dev.items():
+            torch.cuda.synchronize(dev)
+            total = [a + b for a, b in zip(total, t.tolist())]
+        return dict(zip(self.slots, total))
+
+    def __getitem__(self, slot: str) -> int:
+        return self.read()[slot]
+
+    def reset(self) -> None:
+        for dev, t in self._dev.items():
+            torch.cuda.synchronize(dev)
+            t.zero_()
+            torch.cuda.synchronize(dev)

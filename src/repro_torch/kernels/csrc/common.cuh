@@ -29,6 +29,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Launch counting: where `counts` (int32 on the card, owned by the
+// wrapper's `LaunchCounter`) is not null, the grid's first thread adds one
+// to counts[slot] when `event` holds.  The count is made by the launch
+// itself, so a launch replayed from a captured CUDA graph counts as an
+// eager one does.
+__device__ __forceinline__ bool first_thread() {
+  return (blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+          threadIdx.z) == 0;
+}
+
+__device__ __forceinline__ void count_launch(int* counts, int slot,
+                                             bool event = true) {
+  if (counts != nullptr && event && first_thread())
+    atomicAdd(counts + slot, 1);
+}
+
 __device__ __forceinline__ float softcap_score(float x, float cap) {
   return cap > 0.f ? cap * tanhf(x / cap) : x;
 }

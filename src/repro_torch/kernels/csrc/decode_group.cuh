@@ -51,6 +51,13 @@ namespace repro_torch {
 constexpr int kDecodeThreads = 128;
 constexpr int kDecodeWarps = kDecodeThreads / 32;
 
+// The decode kernels' launch-count slots (`count_launch`): the kernel's
+// launches, its combine launches, and (dense kernel only) its launches
+// that wrote the log-sum-exp.
+constexpr int kCountLaunches = 0;
+constexpr int kCountCombines = 1;
+constexpr int kCountLse = 2;
+
 // Where one CTA's result goes when the positions are split: head g's m and
 // l at m[g * stride], l[g * stride], its acc row at acc + g * stride * D.
 // m == nullptr: no split, write the output rows.
@@ -101,11 +108,15 @@ __device__ __forceinline__ DecodePartial split_partial(float* part,
 // sum_s e^(m_s - M) l_s over the splits that attended something, summed
 // in the order of the splits; zeros where none did.  With `lse`, also the
 // row's log-sum-exp M + log(sum_s e^(m_s - M) l_s) in fp32, -inf where no
-// split attended anything.
+// split attended anything.  Counts itself in counts[kCountCombines] and,
+// with `lse`, the caller's launch in counts[kCountLse].
 template <typename T>
 __global__ void __launch_bounds__(kDecodeThreads)
 combine_splits_kernel(const float* __restrict__ part, T* __restrict__ out,
-                      float* __restrict__ lse, int n_split, int D) {
+                      float* __restrict__ lse, int n_split, int D,
+                      int* counts) {
+  count_launch(counts, kCountCombines);
+  count_launch(counts, kCountLse, lse != nullptr);
   const int64_t row = blockIdx.x;
   const int64_t n_rows = static_cast<int64_t>(gridDim.x) * n_split;
   const float* m = part + row * n_split;
@@ -132,10 +143,10 @@ combine_splits_kernel(const float* __restrict__ part, T* __restrict__ out,
 template <typename T>
 inline int launch_combine(const float* part, void* out, int64_t rows,
                           int n_split, int D, cudaStream_t stream,
-                          float* lse = nullptr) {
+                          int* counts, float* lse = nullptr) {
   combine_splits_kernel<T><<<static_cast<unsigned>(rows), kDecodeThreads, 0,
                              stream>>>(part, static_cast<T*>(out), lse,
-                                       n_split, D);
+                                       n_split, D, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,15 @@
 // causal mask k <= q, sliding window k > q - window and an fp32 online
 // softmax over key tiles.  Query row i sits at position q_offset + i for
 // both masks (a prefill chunk after q_offset resident tokens; 0 for a
-// whole prompt), keys at their index.  Ragged Sq / Sk are masked inside
-// the kernel, so no caller pads anything (the non-causal padded-key leak
-// of the JAX padding wrapper does not exist here).  Key tiles past the
+// whole prompt), keys at their index.  The offset comes by value, or, in
+// the device-offset form, from an int32 tensor on the card that each CTA
+// reads at its start (one scalar for every row, or one per batch row): a
+// captured CUDA graph then serves any offset, the engine's chunk forward
+// writing the new one into the tensor before each replay.  Both forms
+// compute the same bits: the loaded value drives the same code.  Ragged
+// Sq / Sk are masked inside the kernel, so no caller pads anything (the
+// non-causal padded-key leak of the JAX padding wrapper does not exist
+// here).  Key tiles past the
 // causal limit are never visited and tiles wholly below the window's lower
 // edge are skipped.
 //
@@ -55,6 +61,23 @@ namespace {
 
 constexpr int kBQ = 64;  // query rows per CTA (both versions)
 
+// counts[0] += 1 for the launch, counts[1] += 1 where a row's query offset
+// (by value, or the device-offset form's, read here) is > 0.  Called
+// before a CTA replaces q_offset by its row's.
+__device__ __forceinline__ void count_prefill(int* counts, int q_offset,
+                                              const int* q_off,
+                                              int q_off_stride) {
+  if (counts == nullptr || !first_thread()) return;
+  bool at_offset = q_offset > 0;
+  if (q_off != nullptr) {
+    at_offset = false;
+    const int rows = q_off_stride == 0 ? 1 : static_cast<int>(gridDim.z);
+    for (int b = 0; b < rows; ++b) at_offset |= q_off[b * q_off_stride] > 0;
+  }
+  atomicAdd(counts, 1);
+  if (at_offset) atomicAdd(counts + 1, 1);
+}
+
 // --------------------------------------------------------------------------
 // fp32: the CUDA-core version.
 // --------------------------------------------------------------------------
@@ -72,14 +95,17 @@ __global__ void __launch_bounds__(kThreads32)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
                     float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                    int q_offset, int causal, int window, float softcap,
-                    float scale) {
+                    int q_offset, const int* __restrict__ q_off,
+                    int q_off_stride, int causal, int window, float softcap,
+                    float scale, int* counts) {
   constexpr int LD = D + 1;
   constexpr int NJ = kBK32 / 4;  // scores per thread
   constexpr int NC = D / 4;      // output columns per thread
   const int q0 = blockIdx.x * kBQ;
   const int hq = blockIdx.y;
   const int b = blockIdx.z;
+  count_prefill(counts, q_offset, q_off, q_off_stride);
+  if (q_off != nullptr) q_offset = q_off[b * q_off_stride];
   const int hk = hq / (Hq / Hkv);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -233,8 +259,9 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                     int q_offset, int causal, int window, float softcap,
-                     float scale) {
+                     int q_offset, const int* __restrict__ q_off,
+                     int q_off_stride, int causal, int window, float softcap,
+                     float scale, int* counts) {
   constexpr int BK = key_tile<D>();
   constexpr int LD = smem_ld<D>();
   constexpr int KSTEPS = D / 16;  // k-steps of Q K^T
@@ -248,6 +275,8 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int hq = blockIdx.y;
   const int b = blockIdx.z;
+  count_prefill(counts, q_offset, q_off, q_off_stride);
+  if (q_off != nullptr) q_offset = q_off[b * q_off_stride];
   const int hk = hq / (Hq / Hkv);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -460,8 +489,11 @@ struct Args {
   const void* v;
   void* out;
   float* lse;
-  int B, Sq, Sk, Hq, Hkv, q_offset, causal, window;
+  int B, Sq, Sk, Hq, Hkv, q_offset;
+  const int* q_off;
+  int q_off_stride, causal, window;
   float softcap, scale;
+  int* counts;
 };
 
 template <int D>
@@ -473,7 +505,8 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   flash_attention_f32<D><<<grid, kThreads32, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.Sq,
-      a.Sk, a.Hq, a.Hkv, a.q_offset, a.causal, a.window, a.softcap, a.scale);
+      a.Sk, a.Hq, a.Hkv, a.q_offset, a.q_off, a.q_off_stride, a.causal,
+      a.window, a.softcap, a.scale, a.counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -488,7 +521,8 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
       static_cast<__nv_bfloat16*>(a.out), a.lse, a.Sq, a.Sk, a.Hq, a.Hkv,
-      a.q_offset, a.causal, a.window, a.softcap, a.scale);
+      a.q_offset, a.q_off, a.q_off_stride, a.causal, a.window, a.softcap,
+      a.scale, a.counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,17 +541,24 @@ int launch(int dtype, const Args& a, cudaStream_t s) {
 // scores over the unmasked keys, which the backward kernels recompute P
 // from (null on the serving path).  Contiguous, one device, 16-byte
 // aligned, D in {32, 64, 128, 256}; query row i at position q_offset + i.
+// The device-offset form: where q_off (int32 on the card) is not null,
+// batch row b's offset is q_off[b * q_off_stride] (stride 0: one offset
+// for every row) and q_offset is not read.  counts: null, or int32 [2] on
+// the card: the launch adds one to counts[0], and one to counts[1] where
+// an offset it reads is > 0.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, void* lse, int B,
                                int Sq, int Sk, int Hq, int Hkv, int D,
-                               int q_offset, int causal, int window,
-                               float softcap, float scale, void* stream) {
+                               int q_offset, const void* q_off,
+                               int q_off_stride, int causal, int window,
+                               float softcap, float scale, void* counts,
+                               void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{q,      k,      v,     out,      static_cast<float*>(lse),
-               B,      Sq,     Sk,    Hq,       Hkv,
-               q_offset, causal, window, softcap, scale};
+  const Args a{q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv,
+               q_offset, static_cast<const int*>(q_off), q_off_stride, causal,
+               window, softcap, scale, static_cast<int*>(counts)};
   switch (D) {
     case 32:
       return launch<32>(dtype, a, s);

@@ -98,7 +98,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
                float* __restrict__ delta, int64_t rows, int Sq, int Hq,
-               int D) {
+               int D, int* counts) {
+  count_launch(counts, 0);
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
                       (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -694,6 +695,7 @@ struct Args {
   void *dq, *dk, *dv;
   int B, Sq, Sk, Hq, Hkv, causal, window;
   float softcap, scale;
+  int* counts;
 };
 
 // delta, then the dK/dV and dQ kernels of the CUDA-core version or, for
@@ -708,7 +710,8 @@ int launch(const Args& a, cudaStream_t s) {
   const int delta_blocks =
       static_cast<int>((rows + kThreads / 32 - 1) / (kThreads / 32));
   attn_bwd_delta<T><<<delta_blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(a.out), dout, a.delta, rows, a.Sq, a.Hq, D);
+      static_cast<const T*>(a.out), dout, a.delta, rows, a.Sq, a.Hq, D,
+      a.counts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -765,14 +768,16 @@ int launch_dtype(int dtype, const Args& a, cudaStream_t s) {
 // bf16); lse and the scratch delta fp32 [B, Hq, Sq].  Contiguous, one
 // device, D in {32, 64, 128, 256}; query row i at position i.  Launches
 // the three kernels on `stream` and returns the first cudaGetLastError()
-// that is not 0 (0 on success).
+// that is not 0 (0 on success).  counts: null, or int32 [1] on the card,
+// to which the call adds one.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv,
                                    int B, int Sq, int Sk, int Hq, int Hkv,
                                    int D, int causal, int window,
-                                   float softcap, float scale, void* stream) {
+                                   float softcap, float scale, void* counts,
+                                   void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q,      k,       v,
@@ -781,7 +786,8 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                dq,     dk,      dv,
                B,      Sq,      Sk,
                Hq,     Hkv,     causal,
-               window, softcap, scale};
+               window, softcap, scale,
+               static_cast<int*>(counts)};
   switch (D) {
     case 32:
       return launch_dtype<32>(dtype, a, s);

@@ -65,7 +65,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lens,
                     const int* __restrict__ starts, T* __restrict__ out,
                     float* __restrict__ part, float* __restrict__ lse, int S,
-                    int Hq, int Hkv, float softcap, float scale) {
+                    int Hq, int Hkv, float softcap, float scale,
+                    int* counts) {
+  count_launch(counts, kCountLaunches);
+  count_launch(counts, kCountLse, lse != nullptr);
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int split = blockIdx.z;
@@ -92,7 +95,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* lens,
            const int* starts, void* out, float* lse, int B, int S, int Hq,
            int Hkv, int n_split, float* part, float softcap, float scale,
-           cudaStream_t stream) {
+           int* counts, cudaStream_t stream) {
   const size_t smem = decode_smem_bytes<T, D>(Hq / Hkv, kTile);
   cudaError_t err = allow_smem(flash_decode_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -101,31 +104,31 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), lens, starts, static_cast<T*>(out),
           n_split > 1 ? part : nullptr, n_split > 1 ? nullptr : lse, S, Hq,
-          Hkv, softcap, scale);
+          Hkv, softcap, scale, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   return launch_combine<T>(part, out, static_cast<int64_t>(B) * Hq, n_split,
-                           D, stream, lse);
+                           D, stream, counts, lse);
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* lens,
                const int* starts, void* out, float* lse, int B, int S,
                int Hq, int Hkv, int D, int n_split, float* part,
-               float softcap, float scale, cudaStream_t s) {
+               float softcap, float scale, int* counts, cudaStream_t s) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, k, v, lens, starts, out, lse, B, S, Hq, Hkv,
-                           n_split, part, softcap, scale, s);
+                           n_split, part, softcap, scale, counts, s);
     case 64:
       return launch<T, 64>(q, k, v, lens, starts, out, lse, B, S, Hq, Hkv,
-                           n_split, part, softcap, scale, s);
+                           n_split, part, softcap, scale, counts, s);
     case 128:
       return launch<T, 128>(q, k, v, lens, starts, out, lse, B, S, Hq, Hkv,
-                            n_split, part, softcap, scale, s);
+                            n_split, part, softcap, scale, counts, s);
     case 256:
       return launch<T, 256>(q, k, v, lens, starts, out, lse, B, S, Hq, Hkv,
-                            n_split, part, softcap, scale, s);
+                            n_split, part, softcap, scale, counts, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -140,27 +143,31 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* lens,
 // floats (unused, may be null, when n_split == 1).  lse: null, or fp32
 // [B, Hq] for each row's log-sum-exp of its attended scores (-inf where
 // it attends nothing), written by the loop with one split and by the
-// combine with several; `out` is the same either way.  Returns
-// cudaGetLastError() after the launches (0 on success).
+// combine with several; `out` is the same either way.  counts: null, or
+// int32 [3] on the card: the launch adds one to counts[0], its combine
+// launch (n_split > 1) one to counts[1], and a launch with lse one to
+// counts[2].  Returns cudaGetLastError() after the launches (0 on
+// success).
 extern "C" int flash_decode(int dtype, const void* q, const void* k,
                             const void* v, const void* lens,
                             const void* starts, void* out, void* lse, int B,
                             int S, int Hq, int Hkv, int D, int n_split,
                             void* part, float softcap, float scale,
-                            void* stream) {
+                            void* counts, void* stream) {
   using namespace repro_torch;
   const int* ln = static_cast<const int*>(lens);
   const int* sb = static_cast<const int*>(starts);
   float* pt = static_cast<float*>(part);
   float* ls = static_cast<float*>(lse);
+  int* ct = static_cast<int*>(counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_split < 1 || (n_split > 1 && pt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
     return dispatch_d<float>(q, k, v, ln, sb, out, ls, B, S, Hq, Hkv, D,
-                             n_split, pt, softcap, scale, s);
+                             n_split, pt, softcap, scale, ct, s);
   if (dtype == kBFloat16)
     return dispatch_d<__nv_bfloat16>(q, k, v, ln, sb, out, ls, B, S, Hq, Hkv,
-                                     D, n_split, pt, softcap, scale, s);
+                                     D, n_split, pt, softcap, scale, ct, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -61,7 +61,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const int* __restrict__ lens,
                     const int* __restrict__ starts, T* __restrict__ out,
                     float* __restrict__ part, int Hq, int Hkv, int page,
-                    int n_pages, float softcap, float scale) {
+                    int n_pages, float softcap, float scale, int* counts) {
+  count_launch(counts, kCountLaunches);
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int split = blockIdx.z;
@@ -86,7 +87,8 @@ template <typename T, int D>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* table, const int* lens, const int* starts, void* out,
            int B, int Hq, int Hkv, int page, int n_pages, int n_split,
-           float* part, float softcap, float scale, cudaStream_t stream) {
+           float* part, float softcap, float scale, int* counts,
+           cudaStream_t stream) {
   const size_t smem = decode_smem_bytes<T, D>(Hq / Hkv, page);
   cudaError_t err = allow_smem(paged_decode_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -95,11 +97,11 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
           static_cast<const T*>(q), static_cast<const T*>(k_pages),
           static_cast<const T*>(v_pages), table, lens, starts,
           static_cast<T*>(out), n_split > 1 ? part : nullptr, Hq, Hkv, page,
-          n_pages, softcap, scale);
+          n_pages, softcap, scale, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   return launch_combine<T>(part, out, static_cast<int64_t>(B) * Hq, n_split,
-                           D, stream);
+                           D, stream, counts);
 }
 
 template <typename T>
@@ -107,24 +109,24 @@ int dispatch_d(const void* q, const void* k_pages, const void* v_pages,
                const int* table, const int* lens, const int* starts,
                void* out, int B, int Hq, int Hkv, int page, int D,
                int n_pages, int n_split, float* part, float softcap,
-               float scale, cudaStream_t s) {
+               float scale, int* counts, cudaStream_t s) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, k_pages, v_pages, table, lens, starts, out, B,
                            Hq, Hkv, page, n_pages, n_split, part, softcap,
-                           scale, s);
+                           scale, counts, s);
     case 64:
       return launch<T, 64>(q, k_pages, v_pages, table, lens, starts, out, B,
                            Hq, Hkv, page, n_pages, n_split, part, softcap,
-                           scale, s);
+                           scale, counts, s);
     case 128:
       return launch<T, 128>(q, k_pages, v_pages, table, lens, starts, out, B,
                             Hq, Hkv, page, n_pages, n_split, part, softcap,
-                            scale, s);
+                            scale, counts, s);
     case 256:
       return launch<T, 256>(q, k_pages, v_pages, table, lens, starts, out, B,
                             Hq, Hkv, page, n_pages, n_split, part, softcap,
-                            scale, s);
+                            scale, counts, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -137,29 +139,32 @@ int dispatch_d(const void* q, const void* k_pages, const void* v_pages,
 // lens/starts [B]; out [B, Hq, D].  All contiguous, on one device, pools
 // 16-byte aligned.  n_split >= 1 page splits; part: fp32 scratch of
 // B * Hq * n_split * (D + 2) floats (unused, may be null, when
-// n_split == 1).  Returns cudaGetLastError() after the launches (0 on
-// success).
+// n_split == 1).  counts: null, or int32 [2] on the card to which the
+// launch adds one, and its combine launch (n_split > 1) one in counts[1].
+// Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int paged_decode(int dtype, const void* q, const void* k_pages,
                             const void* v_pages, const void* table,
                             const void* lens, const void* starts, void* out,
                             int B, int Hq, int Hkv, int page, int D,
                             int n_pages, int n_split, void* part,
-                            float softcap, float scale, void* stream) {
+                            float softcap, float scale, void* counts,
+                            void* stream) {
   using namespace repro_torch;
   const int* tb = static_cast<const int*>(table);
   const int* ln = static_cast<const int*>(lens);
   const int* sb = static_cast<const int*>(starts);
   float* pt = static_cast<float*>(part);
+  int* ct = static_cast<int*>(counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_split < 1 || (n_split > 1 && pt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
     return dispatch_d<float>(q, k_pages, v_pages, tb, ln, sb, out, B, Hq,
                              Hkv, page, D, n_pages, n_split, pt, softcap,
-                             scale, s);
+                             scale, ct, s);
   if (dtype == kBFloat16)
     return dispatch_d<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, sb, out, B,
                                      Hq, Hkv, page, D, n_pages, n_split, pt,
-                                     softcap, scale, s);
+                                     softcap, scale, ct, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -472,7 +472,9 @@ __global__ void __launch_bounds__(kThreads, P <= 64 ? 2 : 1)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const float* __restrict__ Bm,
                  const float* __restrict__ Cm, float* __restrict__ y,
-                 float* __restrict__ S, Shapes sh, int64_t BNc, int n_hb) {
+                 float* __restrict__ S, Shapes sh, int64_t BNc, int n_hb,
+                 int* counts) {
+  count_launch(counts, 0);
   extern __shared__ __align__(16) float sm[];
   const int64_t per_r = static_cast<int64_t>(n_hb) * sh.G * BNc;
   int64_t i = blockIdx.x;
@@ -512,7 +514,7 @@ inline int heads_per_cta(int N, int P) {
 template <int P, int HB>
 int launch_hb(const float* x, const float* dt, const float* A,
               const float* Bm, const float* Cm, float* y, float* S, int BNc,
-              Shapes sh, cudaStream_t stream) {
+              Shapes sh, int* counts, cudaStream_t stream) {
   const int Hg = sh.H / sh.G;
   const int n_hb = (Hg + HB - 1) / HB;  // blocks of <= HB heads
   sh.cs_len = HB * sh.Qpad;
@@ -525,18 +527,19 @@ int launch_hb(const float* x, const float* dt, const float* A,
        static_cast<int64_t>(sh.H) * ((sh.N + kT - 1) / kT));
   if (ctas > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   ssd_chunk_kernel<P, HB><<<static_cast<unsigned>(ctas), kThreads, smem,
-                            stream>>>(x, dt, A, Bm, Cm, y, S, sh, BNc, n_hb);
+                            stream>>>(x, dt, A, Bm, Cm, y, S, sh, BNc, n_hb,
+                                      counts);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int P>
 int launch(const float* x, const float* dt, const float* A, const float* Bm,
            const float* Cm, float* y, float* S, int BNc, const Shapes& sh,
-           cudaStream_t stream) {
+           int* counts, cudaStream_t stream) {
   static_assert(kMaxHeads == 2, "one instantiation per head block size");
   if (heads_per_cta(sh.N, P) == 1)
-    return launch_hb<P, 1>(x, dt, A, Bm, Cm, y, S, BNc, sh, stream);
-  return launch_hb<P, 2>(x, dt, A, Bm, Cm, y, S, BNc, sh, stream);
+    return launch_hb<P, 1>(x, dt, A, Bm, Cm, y, S, BNc, sh, counts, stream);
+  return launch_hb<P, 2>(x, dt, A, Bm, Cm, y, S, BNc, sh, counts, stream);
 }
 
 }  // namespace
@@ -545,12 +548,13 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
 // x [BNc, Q, H, P], dt [BNc, Q, H], A [H], B/C [BNc, Q, G, N] (BNc = batch
 // x chunks), fp32, contiguous, one device; y [BNc, Q, H, P] and
 // S [BNc, H, P, N] are written (y 16-byte aligned).  P in {16, 32, 64,
-// 128}, 1 <= N <= 256, H % G == 0, Q <= 1024.  Returns cudaGetLastError()
+// 128}, 1 <= N <= 256, H % G == 0, Q <= 1024.  counts: null, or int32 [1]
+// on the card, to which the launch adds one.  Returns cudaGetLastError()
 // after the launch (0 on success).
 extern "C" int ssd_chunk(const void* x, const void* dt, const void* A,
                          const void* Bm, const void* Cm, void* y, void* S,
                          int BNc, int Q, int H, int G, int P, int N,
-                         void* stream) {
+                         void* counts, void* stream) {
   using namespace repro_torch;
   if (N < 1 || N > kMaxN || G < 1 || H % G != 0 || Q < 1 || Q > kMaxQ)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -576,15 +580,16 @@ extern "C" int ssd_chunk(const void* x, const void* dt, const void* A,
   const float* cf = static_cast<const float*>(Cm);
   float* yf = static_cast<float*>(y);
   float* sf = static_cast<float*>(S);
+  int* ct = static_cast<int*>(counts);
   switch (P) {
     case 16:
-      return launch<16>(xf, df, af, bf, cf, yf, sf, BNc, sh, s);
+      return launch<16>(xf, df, af, bf, cf, yf, sf, BNc, sh, ct, s);
     case 32:
-      return launch<32>(xf, df, af, bf, cf, yf, sf, BNc, sh, s);
+      return launch<32>(xf, df, af, bf, cf, yf, sf, BNc, sh, ct, s);
     case 64:
-      return launch<64>(xf, df, af, bf, cf, yf, sf, BNc, sh, s);
+      return launch<64>(xf, df, af, bf, cf, yf, sf, BNc, sh, ct, s);
     case 128:
-      return launch<128>(xf, df, af, bf, cf, yf, sf, BNc, sh, s);
+      return launch<128>(xf, df, af, bf, cf, yf, sf, BNc, sh, ct, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

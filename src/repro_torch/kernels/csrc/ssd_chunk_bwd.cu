@@ -212,6 +212,7 @@ struct Args {
   // rowR [BNc, H, n_rt, Q] (row sums of R over one column tile), colR, K
   // and dw [BNc, H, Q]
   float *T, *dBs, *rowR, *colR, *K, *dw;
+  int* counts;  // null, or int32 [1]: the tile launch adds one per call
 };
 
 struct Shapes {
@@ -509,6 +510,7 @@ size_t tile_smem_floats(int Qpad) {
 template <int P, int HB, bool SMALL>
 __global__ void __launch_bounds__(kThreads, SMALL ? 2 : 1)
 ssd_bwd_tiles_kernel(Args a, Shapes sh) {
+  count_launch(a.counts, 0);
   extern __shared__ __align__(16) float sm[];
   constexpr int NT = P / 16;  // 8-column tiles of a warp's P / 2 columns
   constexpr int LDX = P + 4;  // x rows (read along k)
@@ -1019,12 +1021,14 @@ extern "C" int64_t ssd_chunk_bwd_workspace(int BNc, int Q, int H, int N) {
 // [BNc, Q, G, N]; `ws` holds `ssd_chunk_bwd_workspace` floats.  P in {16,
 // 32, 64, 128}, 1 <= N <= 256, H % G == 0, 1 <= Q <= 1024.  Three launches
 // (two where N <= 32); returns the first nonzero cudaGetLastError() (0 on
-// success).
+// success).  counts: null, or int32 [1] on the card, to which the call
+// adds one.
 extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* A,
                              const void* Bm, const void* Cm, const void* dy,
                              const void* dS, void* dx, void* ddt, void* dA,
                              void* dB, void* dC, void* ws, int BNc, int Q,
-                             int H, int G, int P, int N, void* stream) {
+                             int H, int G, int P, int N, void* counts,
+                             void* stream) {
   using namespace repro_torch;
   if (N < 1 || N > kMaxN || G < 1 || H < 1 || H % G != 0 || Q < 1 ||
       Q > kMaxQ || BNc < 1 || !(P == 16 || P == 32 || P == 64 || P == 128))
@@ -1067,6 +1071,7 @@ extern "C" int ssd_chunk_bwd(const void* x, const void* dt, const void* A,
   a.colR = a.rowR + bh * sh.n_rt * Q;
   a.K = a.colR + bh * Q;
   a.dw = a.K + bh * Q;
+  a.counts = static_cast<int*>(counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (P) {
     case 16:

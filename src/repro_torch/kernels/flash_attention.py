@@ -10,16 +10,21 @@ resolved inside the kernel (query head h reads KV head h // group) and
 ragged Sq / Sk are masked there, so nothing is padded or expanded here.
 ``q_offset`` places query row i at position q_offset + i for the causal
 and window masks: a prefill chunk attends to the resident tokens before it
-and to itself.  Its plain version is ``ref.flash_attention_ref``;
-``ops.flash_attention`` picks between them by the tensors' device.
+and to itself.  It is a host int (the by-value form) or an int32 tensor on
+the card, one scalar or one offset per batch row (the device-offset form:
+the kernel reads it, so a captured CUDA graph serves any offset written
+into the tensor before a replay; both forms compute the same bits).  Its
+plain version is ``ref.flash_attention_ref``; ``ops.flash_attention``
+picks between them by the tensors' device.
 
 With ``with_lse`` the kernel also writes each row's log-sum-exp, which the
 backward (``flash_attention_bwd``) recomputes P from; the training path of
 ``ops.flash_attention`` asks for it, serving does not.
 
-``flash_attention.launches`` counts the kernel launches this process made,
-``flash_attention.offset_launches`` those of them with ``q_offset > 0``
-(a chunk, or the resumed prefill of a prefix-cache hit).
+``flash_attention.counter`` (``build.LaunchCounter``) holds the counts
+the kernel keeps on the card: its launches, and those of them at a query
+offset > 0 (a chunk, or the resumed prefill of a prefix-cache hit), which
+the kernel tells from the offset it reads, by value or from the device.
 """
 from __future__ import annotations
 
@@ -36,19 +41,22 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, p]
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, p, i, i, i, f,
+                       f, p, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
-                    window: int = 0, q_offset: int = 0,
+                    window: int = 0, q_offset: int | torch.Tensor = 0,
                     with_lse: bool = False):
     """Launch the prefill kernel on CUDA tensors.
 
     q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D]; fp32 or bf16, D in
-    ``HEAD_DIMS``; query row i at position ``q_offset + i``.  Scores are
+    ``HEAD_DIMS``; query row i at position ``q_offset + i``, ``q_offset``
+    a host int or an int32 tensor on q's device holding one offset or B
+    (the device-offset form: the offset must be >= 0).  Scores are
     scaled by 1/sqrt(D).  Returns out [B, Sq, Hq, D] in q's dtype, and with
     ``with_lse`` also each row's log-sum-exp lse [B, Hq, Sq] fp32 (what
     the backward kernel recomputes P from).
@@ -64,9 +72,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
-    if q_offset < 0:
-        raise ValueError(f"q_offset {q_offset} < 0")
     dev = q.device
+    off_ptr, off_stride = None, 0
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.numel() not in (1, B):
+            raise ValueError(f"a device q_offset holds 1 or B = {B} offsets, "
+                             f"not {q_offset.numel()}")
+        check_tensor("q_offset", q_offset, dev, torch.int32,
+                     tuple(q_offset.shape))
+        off_ptr, off_stride = q_offset.data_ptr(), int(q_offset.numel() > 1)
+        host_offset = 0
+    elif q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    else:
+        host_offset = int(q_offset)
     check_tensor("q", q, dev, q.dtype, (B, Sq, Hq, D))
     check_tensor("k", k, dev, q.dtype, (B, Sk, Hkv, D))
     check_tensor("v", v, dev, q.dtype, (B, Sk, Hkv, D))
@@ -83,15 +102,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = _lib().flash_attention(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), B, Sq, Sk,
-        Hq, Hkv, D, int(q_offset), int(causal), int(window), float(softcap),
-        float(scale), stream)
+        Hq, Hkv, D, host_offset, off_ptr, off_stride, int(causal),
+        int(window), float(softcap), float(scale),
+        flash_attention.counter.ptr(dev), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention.launches += 1
-    flash_attention.offset_launches += q_offset > 0
     return (out, lse) if with_lse else out
 
 
-flash_attention.launches = 0
-flash_attention.offset_launches = 0
+flash_attention.counter = build.LaunchCounter("launches", "offset_launches")

@@ -15,8 +15,9 @@ D = 256 on the CUDA cores.
 Its plain version is ``ref.flash_attention_bwd_plain``;
 ``ops.flash_attention`` calls this from its ``autograd.Function``.
 
-``flash_attention_bwd.launches`` counts the wrapper's calls this process
-made (one call, three kernel launches).
+``flash_attention_bwd.counter`` (``build.LaunchCounter``) holds the calls
+the kernels count on the card (one call, three kernel launches: the
+first counts).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       i, f, f, p]
+                       i, f, f, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -85,12 +86,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
-        int(causal), int(window), float(softcap), 1.0 / (D ** 0.5), stream)
+        int(causal), int(window), float(softcap), 1.0 / (D ** 0.5),
+        flash_attention_bwd.counter.ptr(dev), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+flash_attention_bwd.counter = build.LaunchCounter("launches")

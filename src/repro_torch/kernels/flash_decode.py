@@ -27,11 +27,12 @@ log-sum-exp of its attended scores (-inf where it attends nothing): the
 decode plan (``models/sharded.py``) splits a dense cache by sequence over
 several shards and combines their partial softmaxes with it.
 
-``paged_decode.launches`` and ``flash_decode.launches`` count the wrapper
-calls that launched their kernel (one each, whatever the split;
-``flash_decode.lse_launches`` those of them with ``with_lse``);
+``paged_decode.counter`` and ``flash_decode.counter`` (``build.
+LaunchCounter``) hold the counts the kernels keep on the card: their
+launches (one a wrapper call, whatever the split), their combine
+launches, and for ``flash_decode`` the launches with ``with_lse``;
 ``paged_decode.last_n_split`` and ``flash_decode.last_n_split`` are the
-split counts of their last launches.
+split counts of the wrappers' last calls.
 """
 from __future__ import annotations
 
@@ -47,9 +48,9 @@ from repro_torch.kernels.build import DTYPE_CODES, HEAD_DIMS, check_tensor
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _P, _F, _F, _P],
+                     _I, _P, _F, _F, _P, _P],
     "flash_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _P, _F, _F, _P],
+                     _P, _F, _F, _P, _P],
 }
 # positions per tile of the dense kernel (kTile in csrc/flash_decode.cu);
 # the paged kernel's tile is one page
@@ -135,8 +136,8 @@ def _launch_paged(q: torch.Tensor, k_pages: torch.Tensor,
                   lens: torch.Tensor, start: torch.Tensor, softcap: float,
                   scale: float, n_split: int) -> torch.Tensor:
     """``paged_decode`` at a given ``n_split``; the checks at fixed split
-    counts call it directly.  Counts the launch on ``paged_decode.launches``
-    and keeps the split count it passed to the kernel in
+    counts call it directly.  The kernel counts its launch on
+    ``paged_decode.counter``; the split count passed to it is kept in
     ``paged_decode.last_n_split`` (the grid is (B, Hkv, n_split))."""
     P, Hkv, page, _ = k_pages.shape
     _check_query("paged_decode", q, Hkv)
@@ -162,11 +163,10 @@ def _launch_paged(q: torch.Tensor, k_pages: torch.Tensor,
         v_pages.data_ptr(), block_table.data_ptr(), lens.data_ptr(),
         start.data_ptr(), out.data_ptr(), B, Hq, Hkv, page, D, n_pages,
         int(n_split), None if part is None else part.data_ptr(),
-        float(softcap), float(scale), stream)
+        float(softcap), float(scale), paged_decode.counter.ptr(dev), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
                            f"{err}")
-    paged_decode.launches += 1
     paged_decode.last_n_split = int(n_split)
     return out
 
@@ -180,7 +180,7 @@ def _partials(B: int, Hq: int, D: int, n_split: int, dev):
                        device=dev)
 
 
-paged_decode.launches = 0
+paged_decode.counter = build.LaunchCounter("launches", "combines")
 paged_decode.last_n_split = 0
 
 
@@ -208,10 +208,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lens: torch.Tensor, start: torch.Tensor, softcap: float,
             scale: float, n_split: int, with_lse: bool = False):
     """``flash_decode`` at a given ``n_split``; the checks at fixed split
-    counts call it directly.  Counts the launch on ``flash_decode.launches``
-    (and on ``flash_decode.lse_launches`` with ``with_lse``) and keeps the
-    split count it passed to the kernel in ``flash_decode.last_n_split``
-    (the grid is (B, Hkv, n_split))."""
+    counts call it directly.  The kernels count the launch on
+    ``flash_decode.counter``; the split count passed to them is kept in
+    ``flash_decode.last_n_split`` (the grid is (B, Hkv, n_split))."""
     _check_query("flash_decode", q, k.shape[2])
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -239,16 +238,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lens.data_ptr(), start.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, S, Hq, Hkv, D,
         int(n_split), None if part is None else part.data_ptr(),
-        float(softcap), float(scale), stream)
+        float(softcap), float(scale), flash_decode.counter.ptr(dev), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
-    flash_decode.launches += 1
-    flash_decode.lse_launches += int(with_lse)
     flash_decode.last_n_split = int(n_split)
     return (out, lse) if with_lse else out
 
 
-flash_decode.launches = 0
-flash_decode.lse_launches = 0
+# slots in csrc/decode_group.cuh's order (kCountLaunches, ..)
+flash_decode.counter = build.LaunchCounter("launches", "combines",
+                                           "lse_launches")
 flash_decode.last_n_split = 0

@@ -71,14 +71,21 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
-                    window: int = 0, q_offset: int = 0) -> torch.Tensor:
+                    window: int = 0, q_offset: int | torch.Tensor = 0
+                    ) -> torch.Tensor:
     """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D]; query row
     i at position ``q_offset + i`` (a prefill chunk after ``q_offset``
-    resident tokens).  Differentiable on both devices (on the card through
-    the backward kernel, which takes no query offset); where no gradient
-    is needed (serving) the card launches the forward kernel alone."""
+    resident tokens).  ``q_offset`` is a host int or an int32 tensor on
+    q's device, one offset or one per batch row (the kernel's
+    device-offset form, which a captured CUDA graph replays at any
+    offset).  Differentiable on both devices (on the card through the
+    backward kernel, which takes no query offset); where no gradient is
+    needed (serving) the card launches the forward kernel alone."""
     if q.is_cuda:
         if _needs_grad(q, k, v):
+            if isinstance(q_offset, torch.Tensor):
+                raise ValueError("the prefill backward takes no device "
+                                 "q_offset")
             return _FlashAttention.apply(q, k, v, causal, float(softcap),
                                          int(window), int(q_offset))
         return _fa.flash_attention(q, k, v, causal=causal, softcap=softcap,
@@ -155,22 +162,27 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far, by kernel."""
-    return {"paged_decode": _fd.paged_decode.launches,
-            "flash_decode": _fd.flash_decode.launches,
-            "flash_decode_lse": _fd.flash_decode.lse_launches,
-            "flash_attention": _fa.flash_attention.launches,
-            "flash_attention_bwd": _fab.flash_attention_bwd.launches,
-            "ssd_chunk": _ssd.ssd_chunk.launches,
-            "ssd_chunk_bwd": _ssb.ssd_chunk_bwd.launches}
+    """Kernel launches so far, by kernel, as the kernels counted them on
+    the card (a replayed CUDA graph's launches included); synchronizes
+    the devices.  ``*_combine``: the decode kernels' split-combine
+    launches; ``flash_decode_lse``: B3's launches with the log-sum-exp;
+    ``flash_attention_offset``: B2's launches at a query offset > 0."""
+    pd, fd = _fd.paged_decode.counter.read(), _fd.flash_decode.counter.read()
+    fa = _fa.flash_attention.counter.read()
+    return {"paged_decode": pd["launches"],
+            "paged_decode_combine": pd["combines"],
+            "flash_decode": fd["launches"],
+            "flash_decode_combine": fd["combines"],
+            "flash_decode_lse": fd["lse_launches"],
+            "flash_attention": fa["launches"],
+            "flash_attention_offset": fa["offset_launches"],
+            "flash_attention_bwd":
+                _fab.flash_attention_bwd.counter["launches"],
+            "ssd_chunk": _ssd.ssd_chunk.counter["launches"],
+            "ssd_chunk_bwd": _ssb.ssd_chunk_bwd.counter["launches"]}
 
 
 def reset_launch_counts() -> None:
-    _fd.paged_decode.launches = 0
-    _fd.flash_decode.launches = 0
-    _fd.flash_decode.lse_launches = 0
-    _fa.flash_attention.launches = 0
-    _fa.flash_attention.offset_launches = 0
-    _fab.flash_attention_bwd.launches = 0
-    _ssd.ssd_chunk.launches = 0
-    _ssb.ssd_chunk_bwd.launches = 0
+    for fn in (_fd.paged_decode, _fd.flash_decode, _fa.flash_attention,
+               _fab.flash_attention_bwd, _ssd.ssd_chunk, _ssb.ssd_chunk_bwd):
+        fn.counter.reset()

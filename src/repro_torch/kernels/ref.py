@@ -42,7 +42,8 @@ def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
                         q_offset=0):
     """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D]; query
     row i sits at position ``q_offset + i`` for the causal and window
-    masks."""
+    masks; ``q_offset`` is an int or an integer tensor holding one offset
+    or one per batch row, as the kernel's device-offset form takes it."""
     s, _, _ = _scores(q, k, causal, softcap, window, q_offset)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p,
@@ -51,8 +52,9 @@ def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
 
 def _scores(q, k, causal, softcap, window, q_offset):
     """(scaled, softcapped scores [B, Hq, Sq, Sk] fp32 with NEG_INF where
-    masked, tanh(z / softcap) or None, the mask [Sq, Sk]) of the prefill
-    attention, K expanded to the query heads."""
+    masked, tanh(z / softcap) or None, the mask [1 or B, 1, Sq, Sk]) of
+    the prefill attention, K expanded to the query heads; a tensor
+    ``q_offset`` holds one offset or one per batch row."""
     Sq, Hq, D = q.shape[1], q.shape[2], q.shape[3]
     Sk = k.shape[1]
     z = torch.einsum("bqhd,bkhd->bhqk", q.float(),
@@ -61,14 +63,19 @@ def _scores(q, k, causal, softcap, window, q_offset):
     if softcap > 0:
         t = torch.tanh(z / softcap)
         z = softcap * t
-    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    if isinstance(q_offset, torch.Tensor):
+        qp = q_offset.long().reshape(-1, 1, 1, 1) + qp      # [B, 1, Sq, 1]
+    else:
+        qp = q_offset + qp
     kp = torch.arange(Sk, device=q.device)[None, :]
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         ok = ok & (kp <= qp)
     if window > 0:
         ok = ok & (kp > qp - window)
-    return torch.where(ok[None, None], z, torch.full_like(z, NEG_INF)), t, ok
+    ok = ok.reshape(-1, 1, Sq, Sk)
+    return torch.where(ok, z, torch.full_like(z, NEG_INF)), t, ok
 
 
 def flash_attention_lse_ref(q, k, *, causal=True, softcap=0.0, window=0,
@@ -97,7 +104,7 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=True,
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = 1.0 / (D ** 0.5)
     s, t, ok = _scores(q, k, causal, softcap, window, 0)
-    p = torch.where(ok[None, None], torch.exp(s - lse[..., None]),
+    p = torch.where(ok, torch.exp(s - lse[..., None]),
                     torch.zeros_like(s))                     # [B, Hq, Sq, Sk]
     do = dout.float()
     delta = (do * out.float()).sum(-1).transpose(1, 2)      # [B, Hq, Sq]

@@ -20,8 +20,9 @@ be contiguous, not 16-byte aligned (unaligned rows are staged with 4-byte
 copies).  Its plain version is ``ref.ssd_chunk_bwd_plain``;
 ``ops.ssd_chunk`` calls this from its ``autograd.Function``.
 
-``ssd_chunk_bwd.launches`` counts the wrapper's calls this process made
-(one call, two or three kernel launches).
+``ssd_chunk_bwd.counter`` (``build.LaunchCounter``) holds the calls the
+kernels count on the card (one call, two or three kernel launches: the
+tile launch, which every call makes, counts).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.ssd_chunk_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 13 + [i] * 6 + [p]
+        fn.argtypes = [p] * 13 + [i] * 6 + [p, p]
         fn.restype = ctypes.c_int
         ws = lib.ssd_chunk_bwd_workspace
         ws.argtypes = [i] * 4
@@ -79,12 +80,12 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
         C_.data_ptr(), dy.data_ptr(), dS.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        ws.data_ptr(), BNc, Q, H, G, P, N, stream)
+        ws.data_ptr(), BNc, Q, H, G, P, N, ssd_chunk_bwd.counter.ptr(dev),
+        stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    ssd_chunk_bwd.launches += 1
     return dx, ddt, dA, dB, dC
 
 
-ssd_chunk_bwd.launches = 0
+ssd_chunk_bwd.counter = build.LaunchCounter("launches")

@@ -7,7 +7,8 @@ ragged chunk length Q is masked inside the kernel, so nothing is padded
 either.  Its plain version is ``ref.ssd_chunk_plain``; ``ops.ssd_chunk``
 picks between them by the tensors' device.
 
-``ssd_chunk.launches`` counts the kernel launches this process made.
+``ssd_chunk.counter`` (``build.LaunchCounter``) holds the launches the
+kernel counts on the card.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.ssd_chunk
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -80,12 +81,11 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     err = _lib().ssd_chunk(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
         C_.data_ptr(), y.data_ptr(), S.data_ptr(), Bsz * Nc, Q, H, G, P, N,
-        stream)
+        ssd_chunk.counter.ptr(dev), stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error "
                            f"{err}")
-    ssd_chunk.launches += 1
     return y, S
 
 
-ssd_chunk.launches = 0
+ssd_chunk.counter = build.LaunchCounter("launches")

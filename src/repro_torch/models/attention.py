@@ -69,8 +69,9 @@ def _decode_window(pos: torch.Tensor, cfg: ModelConfig, is_local: bool):
 
 def prefill_chunk_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
                             k_pages: torch.Tensor, v_pages: torch.Tensor,
-                            block_table: torch.Tensor, start: int,
-                            n_valid: int, trash_page: int,
+                            block_table: torch.Tensor,
+                            start: int | torch.Tensor,
+                            n_valid: int | torch.Tensor, trash_page: int,
                             is_local: bool = False) -> torch.Tensor:
     """One prefill *chunk* attending the paged prefix and itself.
 
@@ -82,7 +83,9 @@ def prefill_chunk_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
         ``n_valid`` goes to ``trash_page``.
       block_table: [B, n_pages] int32 page ids covering ``start + C``.
       start: tokens already resident (earlier chunks); n_valid: real
-        tokens in this chunk.
+        tokens in this chunk.  Ints, or int32 device scalars: positions,
+        the valid mask, the page ids and the prefill kernel's query offset
+        (its device-offset form) are then all made on the device.
     Returns: attn_out [B, C, d_model] (rows past ``n_valid`` are junk).
     """
     B, C = x.shape[0], x.shape[1]

@@ -37,12 +37,24 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+_FREQS: dict = {}
+
+
+def _rope_freqs_on(d: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs`` as fp32 on ``device``, copied there once: a copy
+    from host memory cannot sit inside a captured CUDA graph, and the
+    first, eager run of every graphed step fills this cache."""
+    key = (d, theta, torch.device(device))
+    if key not in _FREQS:
+        _FREQS[key] = torch.as_tensor(rope_freqs(d, theta),
+                                      dtype=torch.float32, device=device)
+    return _FREQS[key]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [B, S, H, D]; positions: [B, S]."""
-    d = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
-                            device=x.device)
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs          # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

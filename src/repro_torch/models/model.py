@@ -263,9 +263,20 @@ def lm_logits(params, cfg: ModelConfig, x):
     return softcap(logits, cfg.final_logit_softcap)
 
 
-def _positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
-    return torch.arange(start, start + S, dtype=torch.int32,
-                        device=device).expand(B, S)
+def _positions(B: int, S: int, device, start: int | torch.Tensor = 0
+               ) -> torch.Tensor:
+    """[B, S] int32 positions ``start + arange(S)``; ``start`` an int or
+    an int32 device scalar (the chunk graph's, read on the device)."""
+    return (torch.arange(S, dtype=torch.int32, device=device)
+            + start).expand(B, S)
+
+
+def _last_row(x: torch.Tensor, n_valid: int | torch.Tensor) -> torch.Tensor:
+    """x[:, n_valid - 1:n_valid] [B, 1, d]; a device ``n_valid`` is taken
+    by an index op, which reads nothing back to the host."""
+    if isinstance(n_valid, torch.Tensor):
+        return x.index_select(1, (n_valid - 1).reshape(1).long())
+    return x[:, n_valid - 1:n_valid]
 
 
 def _shape(tokens, embeds):
@@ -327,20 +338,25 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
     B, S, device = _shape(tokens, embeds)
     positions = _positions(B, S, device)
     x = embed_inputs(params, cfg, tokens, embeds, positions)
-    per_layer = []
+    # each layer's caches go straight into the layer-stacked tensors, so a
+    # layer's own copy is freed with it (no list of L copies to stack)
+    stacked = [None] * 4
     for layer in range(cfg.n_layers):
         x, caches = _block(x, layer_params(params["blocks"], layer), cfg,
                            layer, positions)
-        per_layer.append(caches)
+        for i, c in enumerate(caches):
+            if c is not None:
+                if stacked[i] is None:
+                    stacked[i] = c.new_empty((cfg.n_layers, *c.shape))
+                stacked[i][layer] = c
     logits = lm_logits(params, cfg, x[:, -1:, :])[:, 0]
-    stacked = [None if parts[0] is None else torch.stack(parts)
-               for parts in zip(*per_layer)]
     return logits, PrefillCache(*stacked)
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor, block_table: torch.Tensor,
-                  start: int, n_valid: int, trash_page: int) -> torch.Tensor:
+                  start: int | torch.Tensor, n_valid: int | torch.Tensor,
+                  trash_page: int) -> torch.Tensor:
     """One *chunk* of a paged prefill: positions ``start + [0, C)``.
 
     tokens [B, C] int32, every sequence at the same ``start``; only the
@@ -348,6 +364,10 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     ``trash_page``).  Each layer writes the chunk's K/V into the pools
     k/v [L, P, Hkv, page, D] in place and attends to the earlier chunks
     through ``block_table`` [B, n_pages] (pages covering ``start + C``).
+    ``start`` and ``n_valid`` are ints or int32 device scalars, as the
+    JAX package's jitted chunk takes them: with scalars nothing here reads
+    a device value back to the host, so a captured CUDA graph of one
+    (chunk bucket, page bucket) serves every offset and length.
     Returns the logits at position ``start + n_valid - 1`` [B, Vpad] fp32.
     Models with SSM layers raise, as in the JAX package: the SSD scan has
     no per-position state to resume a bucketed chunk from.
@@ -365,7 +385,7 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
             h, bp["attn"], cfg, k[layer], v[layer], block_table, start,
             n_valid, trash_page, cfg.local_is_local(layer))
         x = _mlp_residual(_mix_residual(x, mix, bp, cfg), bp, cfg)
-    return lm_logits(params, cfg, x[:, n_valid - 1:n_valid])[:, 0]
+    return lm_logits(params, cfg, _last_row(x, n_valid))[:, 0]
 
 
 # --------------------------------------------------------------------------

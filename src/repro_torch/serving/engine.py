@@ -32,6 +32,23 @@ the same for every horizon.
 reading it back; ``finish_step(pending)`` performs the transfer and
 retirement; ``step()`` is their composition.
 
+The compiled step (``serving.graphs``), as the JAX engine jits its hot
+path: on an unsharded paged engine the whole device half of a decode
+horizon (the slots' table, lens and SSM row gathers, the loop, the
+scatter back and the trash slot's lens pinned to 0) is one step per
+(batch bucket, page bucket, horizon), and on any unsharded engine a chunk
+forward is one per (chunk bucket, page bucket) with ``start`` and
+``n_valid`` as device scalars.
+On the card the first call of a key runs eagerly and is then captured as
+a CUDA graph; later calls copy their inputs into the key's buffers and
+replay it (``graph_captures``, ``graph_replays``, ``capture_s``; not in
+``load_stats()``).  On the CPU the same buffers are reused and nothing is
+captured.  What stays eager, chosen by configuration: the one-shot
+prefill (shaped per prompt length), the dense mode's decode (its gather
+is sized per step by the longest context), sharded engines, and a sampled
+decode (its per-step ``torch.Generator`` cannot be captured).  ``graphs=False`` runs it all
+eagerly, with ``start``/``n_valid`` as host ints.
+
 Models with SSM layers (mamba2, hymba) keep one SSM state and conv window
 row per slot on the device: prefill writes a request's rows, each decode
 dispatch gathers the batch's rows into the loop's state and scatters them
@@ -122,6 +139,7 @@ from repro_torch.models import (DecodeCache, PagedDecodeState,
 from repro_torch.models import sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sampling import sample
+from repro_torch.serving.graphs import StepGraphs, leaves
 from repro_torch.serving.kvcache import (BlockPool, PagedKVCache,
                                          copy_blocks, relayout_blocks,
                                          reshard_blocks)
@@ -242,7 +260,7 @@ class ServingEngine:
                  prefix_cache: bool = False, device="cuda",
                  mesh=None, shard_plan=None,
                  clock=None, telemetry=None, trace_id: int = 0,
-                 role: str = "mixed"):
+                 role: str = "mixed", graphs: bool = True):
         """``params`` must already live on ``device``; ``dtype`` is the KV
         pool's dtype.  Runs on CUDA unless ``device="cpu"`` is passed.
         ``decode_mode`` is "paged" or "dense" (horizon 1 only);
@@ -253,7 +271,9 @@ class ServingEngine:
         it.  ``prefix_cache`` turns on the pool's prefix cache (ignored for
         models with SSM layers or no attention).  ``clock``,
         ``telemetry``, ``trace_id`` and ``role``: see the module
-        docstring.
+        docstring.  ``graphs=False`` runs the decode horizon and the chunk
+        forward eagerly where the configuration would compile them (see
+        the module docstring).
 
         ``mesh`` (``launch.mesh.make_replica_mesh``) + ``shard_plan``
         (``launch.sharding.make_plan(cfg, "serve", ...)``) run the replica
@@ -378,6 +398,37 @@ class ServingEngine:
                 self.prefix_cache.telemetry = self.telemetry
         # (rid, cached tokens, context tokens) per admission
         self.prefix_events: list[tuple[int, int, int]] = []
+        # the compiled steps: the chunk forward of an unsharded engine (in
+        # both modes the same forward over the paged pool), and its paged
+        # decode horizon when greedy
+        self._steps = StepGraphs(self.device)
+        self._chunk_graphs = graphs and mesh is None
+        self._decode_graphs = (self._chunk_graphs and greedy
+                               and decode_mode == "paged")
+
+    @property
+    def graph_captures(self) -> int:
+        """Compiled-step entries built: on the card each is a capture."""
+        return self._steps.captures
+
+    @property
+    def graph_replays(self) -> int:
+        """Compiled-step calls served by an existing entry."""
+        return self._steps.replays
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds spent capturing (the first calls' eager runs not
+        included)."""
+        return self._steps.capture_s
+
+    def _graph_reads(self) -> list[torch.Tensor]:
+        """Every tensor a compiled step reads besides its inputs: a new
+        address drops the graphs."""
+        c = self.cache
+        return ([c.block_table_dev, c.seq_lens_dev]
+                + [t for t in (c.k, c.v, c.ssm, c.conv) if t is not None]
+                + leaves(self.params))
 
     # -- submission ------------------------------------------------------------
 
@@ -805,11 +856,24 @@ class ServingEngine:
         need = (start + n_valid + bs - 1) // bs
         n_pages = _pow2_bucket(need, self.cache.max_blocks_per_seq)
         self.prefill_tokens += n_valid
+        tokens = torch.from_numpy(buf).to(self.device)
+        table = self.cache.block_table_dev[r.slot:r.slot + 1, :n_pages]
+        if not self._chunk_graphs:
+            return self._prefill_chunk(
+                self.params, self.cfg, tokens, self.cache.k, self.cache.v,
+                table, start, n_valid, self.cache.pool.trash_page)
+        pos = torch.tensor([start, n_valid], dtype=torch.int32).to(
+            self.device)
+        return self._steps.run(
+            ("chunk", bucket, n_pages),
+            dict(tokens=tokens, table=table, start=pos[0], n_valid=pos[1]),
+            self._chunk_step, self._graph_reads())
+
+    def _chunk_step(self, tokens, table, start, n_valid) -> torch.Tensor:
+        """The chunk forward on device scalars ``start``/``n_valid``."""
         return self._prefill_chunk(
-            self.params, self.cfg, torch.from_numpy(buf).to(self.device),
-            self.cache.k, self.cache.v,
-            self.cache.block_table_dev[r.slot:r.slot + 1, :n_pages], start,
-            n_valid, self.cache.pool.trash_page)
+            self.params, self.cfg, tokens, self.cache.k, self.cache.v, table,
+            start, n_valid, self.cache.pool.trash_page)
 
     def _first_token(self, r: EngineRequest, logits: torch.Tensor) -> None:
         """A finished prefill's logits give the request its next token;
@@ -928,6 +992,25 @@ class ServingEngine:
         if self.telemetry.enabled:
             self.telemetry.emit("dispatch", replica=self.trace_id, n=B,
                                 h=horizon)
+
+        def step(slot_t, last):
+            return self._decode_step(slot_t, last, n_pages, horizon, step0)
+
+        if self._decode_graphs:
+            # the graph's output is copied out: a later replay cannot
+            # overwrite a horizon that has not been synced
+            toks = self._steps.run(("decode", bucket, n_pages, horizon),
+                                   dict(slot_t=slot_t, last=last), step,
+                                   self._graph_reads())
+        else:
+            toks = step(slot_t, last)
+        return PendingDecode(slots, toks, horizon)
+
+    def _decode_step(self, slot_t, last, n_pages: int, horizon: int,
+                     step0: int) -> torch.Tensor:
+        """The device half of a decode horizon over the slots ``slot_t``
+        (trash-padded) fed ``last``: gather their table, lens and SSM rows,
+        run the loop, scatter lens and rows back.  Returns [B, horizon]."""
         cache = self.cache
         has_ssm = cache.ssm is not None
         state = PagedDecodeState(
@@ -943,12 +1026,12 @@ class ServingEngine:
             step0=step0)
         cache.seq_lens_dev[slot_t] = state.lens
         # padded rows advanced the trash slot's lens; pin it back to 0
-        cache.seq_lens_dev[trash] = 0
+        cache.seq_lens_dev[cache.trash_slot].zero_()
         if has_ssm:
             # padded rows land on the trash row, which no slot reads
             cache.ssm[:, slot_t] = state.ssm
             cache.conv[:, slot_t] = state.conv
-        return PendingDecode(slots, toks, horizon)
+        return toks
 
     def _finish_decode(self, pending: PendingDecode) -> None:
         """Sync a dispatched horizon: ONE [B, H] device->host transfer."""

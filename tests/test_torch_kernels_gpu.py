@@ -211,10 +211,10 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, name, B, Hq, Hkv, D,
         *paged_inputs(11, B, Hq, Hkv, D, page, lens, window=win,
                       trash_rows=trash), device=cuda)
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
-    before = tfd.paged_decode.launches
+    before = tfd.paged_decode.counter["launches"]
     got = tfd.paged_decode(q, kp, vp, tb, ln, st, cap, 1.0 / D ** 0.5)
     torch.cuda.synchronize()
-    assert tfd.paged_decode.launches == before + 1
+    assert tfd.paged_decode.counter["launches"] == before + 1
     want = ref.paged_decode_plain(q, kp, vp, tb, ln, st, cap, 1.0 / D ** 0.5)
     kernel_close(got, want, dtype)
 
@@ -248,10 +248,10 @@ def test_paged_decode_kernel_many_splits_matches_plain(cuda, dtype, name, B,
     tb[:, :live.shape[1]] = live
     splits = tfd.split_count(B, Hkv, n_pages * 16, 16, tfd.sm_count(cuda))
     assert splits > 1 and B * Hkv * splits >= tfd.sm_count(cuda)
-    before = tfd.paged_decode.launches
+    before = tfd.paged_decode.counter["launches"]
     got = tfd.paged_decode(q, kp, vp, tb, ln, st, 0.0, 1.0 / D ** 0.5)
     torch.cuda.synchronize()
-    assert tfd.paged_decode.launches == before + 1
+    assert tfd.paged_decode.counter["launches"] == before + 1
     assert tfd.paged_decode.last_n_split == splits
     want = ref.paged_decode_plain(q, kp, vp, tb, ln, st, 0.0, 1.0 / D ** 0.5)
     kernel_close(got, want, dtype)
@@ -270,11 +270,11 @@ def test_paged_decode_kernel_fixed_split_matches_split_plain(cuda, dtype,
         *paged_inputs(24, 7, 8, 2, 128, 16, [300, 17, 0, 16, 15, 1, 250],
                       window=100, trash_rows=(1,)), device=cuda)
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
-    before = tfd.paged_decode.launches
+    before = tfd.paged_decode.counter["launches"]
     got = tfd._launch_paged(q, kp, vp, tb, ln, st, 30.0, 1.0 / 128 ** 0.5,
                             n_split)
     torch.cuda.synchronize()
-    assert tfd.paged_decode.launches == before + 1
+    assert tfd.paged_decode.counter["launches"] == before + 1
     assert tfd.paged_decode.last_n_split == n_split
     want = ref.paged_decode_split_plain(q, kp, vp, tb, ln, st, 30.0,
                                         1.0 / 128 ** 0.5, n_split)
@@ -296,11 +296,11 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, Hq,
                                               Hkv, D, causal, cap, win):
     q, k, v = (t.to(dtype) for t in to_torch(
         *flash_inputs(12, B, Sq, Sk, Hq, Hkv, D), device=cuda))
-    before = tfa.flash_attention.launches
+    before = tfa.flash_attention.counter["launches"]
     got = tfa.flash_attention(q, k, v, causal=causal, softcap=cap,
                               window=win)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
+    assert tfa.flash_attention.counter["launches"] == before + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=cap,
                                    window=win)
     kernel_close(got, want, dtype)
@@ -321,10 +321,10 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, name, B, S, Hq, Hkv,
     q, k, v, ln, st = to_torch(
         *dense_inputs(16, B, S, Hq, Hkv, D, lens, window=win), device=cuda)
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    before = tfd.flash_decode.launches
+    before = tfd.flash_decode.counter["launches"]
     got = tfd.flash_decode(q, k, v, ln, st, cap, 1.0 / D ** 0.5)
     torch.cuda.synchronize()
-    assert tfd.flash_decode.launches == before + 1
+    assert tfd.flash_decode.counter["launches"] == before + 1
     want = ref.flash_decode_plain(q, k, v, ln, st, cap, 1.0 / D ** 0.5)
     kernel_close(got, want, dtype)
 
@@ -343,10 +343,10 @@ def test_flash_decode_kernel_many_splits_matches_plain(cuda, dtype, name, B,
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     splits = tfd.split_count(B, Hkv, S, tfd.TILE, tfd.sm_count(cuda))
     assert splits > 1
-    before = tfd.flash_decode.launches
+    before = tfd.flash_decode.counter["launches"]
     got = tfd.flash_decode(q, k, v, ln, st, 0.0, 1.0 / D ** 0.5)
     torch.cuda.synchronize()
-    assert tfd.flash_decode.launches == before + 1
+    assert tfd.flash_decode.counter["launches"] == before + 1
     assert tfd.flash_decode.last_n_split == splits
     want = ref.flash_decode_plain(q, k, v, ln, st, 0.0, 1.0 / D ** 0.5)
     kernel_close(got, want, dtype)
@@ -364,10 +364,10 @@ def test_flash_decode_kernel_fixed_split_matches_split_plain(cuda, dtype,
         *split_inputs(22, 3, 1000, 8, 2, 128, [1000, 517, 0], [0, 250, 0]),
         device=cuda)
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    before = tfd.flash_decode.launches
+    before = tfd.flash_decode.counter["launches"]
     got = tfd._launch(q, k, v, ln, st, 30.0, 1.0 / 128 ** 0.5, n_split)
     torch.cuda.synchronize()
-    assert tfd.flash_decode.launches == before + 1
+    assert tfd.flash_decode.counter["launches"] == before + 1
     assert tfd.flash_decode.last_n_split == n_split
     want = ref.flash_decode_split_plain(q, k, v, ln, st, 30.0,
                                         1.0 / 128 ** 0.5, n_split)
@@ -409,7 +409,7 @@ def test_flash_decode_lse_matches_plain(cuda, dtype, n_split, name, B, S, Hq,
         *split_inputs(23, B, S, Hq, Hkv, D, lens, starts), device=cuda)
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     scale = 1.0 / D ** 0.5
-    before = (tfd.flash_decode.launches, tfd.flash_decode.lse_launches)
+    before = tfd.flash_decode.counter.read()
     if n_split is None:
         got, lse = tfd.flash_decode(q, k, v, ln, st, cap, scale,
                                     with_lse=True)
@@ -419,8 +419,9 @@ def test_flash_decode_lse_matches_plain(cuda, dtype, n_split, name, B, S, Hq,
                                with_lse=True)
         plain = tfd._launch(q, k, v, ln, st, cap, scale, n_split)
     torch.cuda.synchronize()
-    assert (tfd.flash_decode.launches, tfd.flash_decode.lse_launches) == (
-        before[0] + 2, before[1] + 1)
+    after = tfd.flash_decode.counter.read()
+    assert (after["launches"], after["lse_launches"]) == (
+        before["launches"] + 2, before["lse_launches"] + 1)
     want, want_lse = ref.flash_decode_plain(q, k, v, ln, st, cap, scale,
                                             with_lse=True)
     kernel_close(got, want, dtype)
@@ -507,11 +508,11 @@ def test_flash_attention_kernel_edges_match_plain(cuda, dtype, B, Sq, Sk, off,
                                                   win):
     q, k, v = (t.to(dtype) for t in to_torch(
         *flash_inputs(23, B, Sq, Sk, Hq, Hkv, D), device=cuda))
-    before = tfa.flash_attention.launches
+    before = tfa.flash_attention.counter["launches"]
     got = tfa.flash_attention(q, k, v, causal=causal, softcap=cap,
                               window=win, q_offset=off)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
+    assert tfa.flash_attention.counter["launches"] == before + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=cap,
                                    window=win, q_offset=off)
     kernel_close(got, want, dtype)
@@ -531,11 +532,11 @@ def test_flash_attention_q_offset_kernel_matches_plain(cuda, dtype, name, B,
     keys before and in it."""
     q, k, v = (t.to(dtype) for t in to_torch(
         *flash_inputs(17, B, C, off + C, Hq, Hkv, D), device=cuda))
-    before = tfa.flash_attention.launches
+    before = tfa.flash_attention.counter["launches"]
     got = tfa.flash_attention(q, k, v, softcap=cap, window=win,
                               q_offset=off)
     torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
+    assert tfa.flash_attention.counter["launches"] == before + 1
     want = ref.flash_attention_ref(q, k, v, softcap=cap, window=win,
                                    q_offset=off)
     kernel_close(got, want, dtype)
@@ -566,10 +567,10 @@ def test_paged_decode_kernel_family_heads_match_plain(cuda, dtype, name, Hq,
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     tb = torch.zeros((8, 64), dtype=torch.int32, device=cuda)
     tb[:, :live.shape[1]] = live
-    before = tfd.paged_decode.launches
+    before = tfd.paged_decode.counter["launches"]
     got = tfd.paged_decode(q, kp, vp, tb, ln, st, 0.0, 1.0 / D ** 0.5)
     torch.cuda.synchronize()
-    assert tfd.paged_decode.launches == before + 1
+    assert tfd.paged_decode.counter["launches"] == before + 1
     want = ref.paged_decode_plain(q, kp, vp, tb, ln, st, 0.0, 1.0 / D ** 0.5)
     kernel_close(got, want, dtype)
 
@@ -584,10 +585,10 @@ def test_flash_attention_kernel_family_heads_match_plain(cuda, dtype, name,
     for Sq, off in ((300, 0), (256, 512)):
         q, k, v = (t.to(dtype) for t in to_torch(
             *flash_inputs(32, 1, Sq, off + Sq, Hq, Hkv, D), device=cuda))
-        before = tfa.flash_attention.launches
+        before = tfa.flash_attention.counter["launches"]
         got = tfa.flash_attention(q, k, v, q_offset=off)
         torch.cuda.synchronize()
-        assert tfa.flash_attention.launches == before + 1
+        assert tfa.flash_attention.counter["launches"] == before + 1
         want = ref.flash_attention_ref(q, k, v, q_offset=off)
         kernel_close(got, want, dtype)
 
@@ -619,10 +620,10 @@ def test_ssd_chunk_kernel_matches_plain(cuda, name, B, Nc, Q, H, P, N, G):
                                 device=cuda)
     if name == "unaligned":
         x, dt, A, Bm, Cm = (unaligned(t) for t in (x, dt, A, Bm, Cm))
-    before = tssd.ssd_chunk.launches
+    before = tssd.ssd_chunk.counter["launches"]
     y, S = tssd.ssd_chunk(x, dt, A, Bm, Cm)
     torch.cuda.synchronize()
-    assert tssd.ssd_chunk.launches == before + 1
+    assert tssd.ssd_chunk.counter["launches"] == before + 1
     y_want, S_want = ref.ssd_chunk_plain(x, dt, A, Bm, Cm)
     assert row_rel_err(y, y_want) <= ROW_RTOL_SSD
     assert row_rel_err(S, S_want) <= ROW_RTOL_SSD
@@ -1021,13 +1022,13 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, name, B, S,
         B, S, Hq, D).astype(np.float32)).to(cuda, dtype)
     out, lse = tfa.flash_attention(q, k, v, softcap=cap, window=win,
                                    with_lse=True)
-    before = tfab.flash_attention_bwd.launches
+    before = tfab.flash_attention_bwd.counter["launches"]
     got = tfab.flash_attention_bwd(q, k, v, out, dout, lse, softcap=cap,
                                    window=win)
     again = tfab.flash_attention_bwd(q, k, v, out, dout, lse, softcap=cap,
                                      window=win)
     torch.cuda.synchronize()
-    assert tfab.flash_attention_bwd.launches == before + 2
+    assert tfab.flash_attention_bwd.counter["launches"] == before + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     close(lse.cpu().numpy(), ref.flash_attention_lse_ref(
         q, k, softcap=cap, window=win).cpu().numpy(), 1e-4)
@@ -1048,10 +1049,10 @@ def test_ops_flash_attention_grad_runs_the_backward_kernel(cuda):
     live = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = ops.flash_attention(*live, window=20)
     dout = torch.randn(2, 4, 50, 64, device=cuda).transpose(1, 2)
-    before = tfab.flash_attention_bwd.launches
+    before = tfab.flash_attention_bwd.counter["launches"]
     out.backward(dout)
     torch.cuda.synchronize()
-    assert tfab.flash_attention_bwd.launches == before + 1
+    assert tfab.flash_attention_bwd.counter["launches"] == before + 1
     lse = ref.flash_attention_lse_ref(q, k, window=20)
     want = ref.flash_attention_bwd_plain(q, k, v, out.detach(),
                                          dout.contiguous(), lse, True, 0.0,
@@ -1106,10 +1107,10 @@ def test_ssd_chunk_bwd_kernel_matches_plain(cuda, name, B, Nc, Q, H, P, N,
     args = ssd_bwd_inputs(31, B, Nc, Q, H, P, N, G, cuda)
     if name == "ragged-n13":
         args = [unaligned(t) for t in args]
-    before = tssb.ssd_chunk_bwd.launches
+    before = tssb.ssd_chunk_bwd.counter["launches"]
     got = tssb.ssd_chunk_bwd(*args)
     torch.cuda.synchronize()
-    assert tssb.ssd_chunk_bwd.launches == before + 1
+    assert tssb.ssd_chunk_bwd.counter["launches"] == before + 1
     ssd_bwd_close(got, ssd_bwd_want(args))
 
 
@@ -1159,10 +1160,10 @@ def test_ops_ssd_chunk_grad_runs_the_backward_kernel(cuda):
     live = [t.clone().requires_grad_(True) for t in args[:5]]
     y, _ = ops.ssd_chunk(*live)
     dy = args[5].transpose(-1, -2).contiguous().transpose(-1, -2)
-    before = tssb.ssd_chunk_bwd.launches
+    before = tssb.ssd_chunk_bwd.counter["launches"]
     y.backward(dy)
     torch.cuda.synchronize()
-    assert tssb.ssd_chunk_bwd.launches == before + 1
+    assert tssb.ssd_chunk_bwd.counter["launches"] == before + 1
     ssd_bwd_close([t.grad for t in live],
                   ssd_bwd_want(args[:5] + [dy.contiguous(),
                                            torch.zeros_like(args[6])]))
@@ -1200,3 +1201,128 @@ def test_mamba2_train_step_on_the_card_equals_the_cpu(cuda, no_tf32):
                                rtol=1e-5)
     for a, b in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])):
         close(a.detach().cpu().numpy(), b.numpy(), 1e-5)
+
+
+# --------------------------------------------------------------------------
+# The compiled step on the card (``serving.graphs``): B2's device-offset
+# form, kernels replayed from a captured graph, a graphed engine.
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,C,off,Hq,Hkv,D,cap,win", CHUNK_CASES,
+                         ids=CHUNK_IDS)
+def test_flash_attention_device_offset_is_bit_equal(cuda, dtype, name, B, C,
+                                                    off, Hq, Hkv, D, cap,
+                                                    win):
+    """The offset as an int32 device scalar, one per row, and per-row
+    offsets that differ: each bit-equal to the by-value form.  The kernel
+    counts each launch, and in ``offset_launches`` those whose offset it
+    read is > 0, as for the by-value form."""
+    q, k, v = (t.to(dtype) for t in to_torch(
+        *flash_inputs(19, B, C, off + C, Hq, Hkv, D), device=cuda))
+    kw = dict(softcap=cap, window=win)
+    want = tfa.flash_attention(q, k, v, q_offset=off, **kw)
+    before = tfa.flash_attention.counter.read()
+    for t in (torch.tensor(off, dtype=torch.int32, device=cuda),
+              torch.full((B,), off, dtype=torch.int32, device=cuda)):
+        assert torch.equal(tfa.flash_attention(q, k, v, q_offset=t, **kw),
+                           want)
+    assert tfa.flash_attention.counter.read() == {
+        "launches": before["launches"] + 2,
+        "offset_launches": before["offset_launches"] + 2 * (off > 0)}
+    offs = [off - 7 * b for b in range(B)]
+    got = tfa.flash_attention(q, k, v, q_offset=torch.tensor(
+        offs, dtype=torch.int32, device=cuda), **kw)
+    for b in range(B):
+        assert torch.equal(got[b:b + 1], tfa.flash_attention(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], q_offset=offs[b], **kw))
+
+
+@pytest.mark.gpu
+def test_captured_kernels_replay_their_eager_calls(cuda):
+    """B1 and B2 (device offset) captured in one CUDA graph, replayed on
+    new inputs copied into the static buffers: bit-equal to eager calls on
+    those inputs.  The capture counts no launch; each replay counts B1's
+    and B2's, and B2's offset launch where the offset written before it is
+    > 0."""
+    from repro_torch.kernels import ops
+    scale = 1.0 / 32 ** 0.5
+    paged = [t.to(cuda) for t in to_torch(*paged_inputs(
+        23, 3, 4, 2, 32, 8, [5, 17, 40]))]
+    paged[:3] = [t.to(torch.bfloat16) for t in paged[:3]]
+    q, kp, vp, table, lens, start = paged
+    fq, fk, fv = (t.to(torch.bfloat16) for t in to_torch(
+        *flash_inputs(24, 1, 24, 64, 4, 2, 32), device=cuda))
+    off = torch.tensor(40, dtype=torch.int32, device=cuda)
+
+    def calls():
+        return (tfd.paged_decode(q, kp, vp, table, lens, start, 0.0, scale),
+                tfa.flash_attention(fq, fk, fv, q_offset=off))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    keys = ("paged_decode", "flash_attention", "flash_attention_offset")
+
+    def counts():
+        c = ops.launch_counts()
+        return [c[k] for k in keys]
+
+    before = counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    assert counts() == before
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    for new_off in (40, 13, 0):
+        q.copy_(torch.randn(q.shape, generator=gen, device=cuda))
+        fq.copy_(torch.randn(fq.shape, generator=gen, device=cuda))
+        lens.copy_(torch.randint(1, 41, lens.shape, generator=gen,
+                                 device=cuda, dtype=torch.int32))
+        off.fill_(new_off)
+        was = counts()
+        graph.replay()
+        assert counts() == [was[0] + 1, was[1] + 1, was[2] + (new_off > 0)]
+        for got, want in zip(outs, calls()):
+            assert torch.equal(got, want), new_off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-9b", "hymba-1.5b", "olmoe-1b-7b"])
+def test_graphed_engine_equals_eager_on_the_card(cuda, arch):
+    """A smoke engine in bf16 (paged at horizon 4, 16-token chunks, which
+    the SSM model ignores): the graphed engine's streams, decode_syncs and
+    B1, B2 (and offset) and B4 launches equal the eager engine's, and a
+    warm second pass captures nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cs = _chip_smoke()
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 40, 23, 61, 17)]
+    kw = dict(num_blocks=128, block_size=8, max_seqs=4, decode_horizon=4,
+              prefill_chunk_tokens=16, dtype=torch.bfloat16)
+    runs = []
+    for graphs in (False, True):
+        eng = ServingEngine(cfg, params, device=cuda, graphs=graphs, **kw)
+        for rid0 in (0, 100):
+            ops.reset_launch_counts()
+            captures = eng.graph_captures
+            fin, _ = cs.serve_on(eng, prompts, 12, rid0=rid0)
+            eng._chunk_rr = 0
+            runs.append(({r: fin[r].generated for r in fin},
+                         cs.graph_counts(ops), eng.graph_captures - captures))
+    (eager, counts, _), _, (cold, cold_counts, built), (
+        warm, warm_counts, rebuilt) = runs
+    assert cold == eager and warm == eager
+    assert cold_counts == counts and warm_counts == counts
+    assert built > 0 and rebuilt == 0

@@ -168,8 +168,9 @@ def test_paged_decode_wrapper_refuses_cpu_tensors():
 
 def test_fixed_paged_split_entry_refuses_cpu_tensors_and_counts_nothing():
     args = to_torch(*paged_inputs(46, 2, 4, 2, 32, 8, [9, 30]))
-    before = (tfd.paged_decode.launches, tfd.paged_decode.last_n_split)
+    before = (tfd.paged_decode.counter["launches"],
+              tfd.paged_decode.last_n_split)
     with pytest.raises(ValueError, match="CUDA kernel"):
         tfd._launch_paged(*args, 0.0, 1.0, 2)
-    assert (tfd.paged_decode.launches,
+    assert (tfd.paged_decode.counter["launches"],
             tfd.paged_decode.last_n_split) == before

@@ -233,7 +233,7 @@ def test_flash_decode_wrapper_refuses_cpu_tensors():
 
 def test_fixed_split_entry_refuses_cpu_tensors_and_counts_nothing():
     args = to_torch(*split_inputs(37, 2, 40, 4, 2, 32, [40, 9], [0, 0]))
-    before = tfd.flash_decode.launches
+    before = tfd.flash_decode.counter["launches"]
     with pytest.raises(ValueError, match="CUDA kernel"):
         tfd._launch(*args, 0.0, 1.0, 2)
-    assert tfd.flash_decode.launches == before
+    assert tfd.flash_decode.counter["launches"] == before
