@@ -14,12 +14,12 @@ table):
   2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a)
      and print registers and spills (the prefill backward's instantiations
      and the SSD chunk backward's three kernels too); count the tensor-core
-     instructions
-     (``HMMA``, from ``cuobjdump -sass``) of each prefill, prefill
-     backward and SSD chunk instantiation and fail if the bf16 prefill
-     ones, the bf16 backward ones at D <= 128 or the SSD chunk one the
-     served models use (P = 64) have none (the SSD chunk backward's count
-     is printed: it runs on the CUDA cores);
+     instructions (``HMMA`` of ``mma.sync`` and ``HGMMA`` of ``wgmma``,
+     apart, from ``cuobjdump -sass``) of each prefill, prefill backward and
+     SSD chunk instantiation and fail if the bf16 prefill ones (HMMA), the
+     bf16 backward's dK/dV and dQ kernels at any head dim (HGMMA) or the
+     SSD chunk kernel and its backward's tile kernel at the served models'
+     P = 64 (HMMA) have none;
   3. hold each kernel against its plain PyTorch version on the card, fp32
      (absolute 1e-4; the SSD chunk kernel 1e-4 of each output row's
      largest value) and bf16 (1e-2 of each output row's largest value), at
@@ -264,7 +264,10 @@ table):
      layers (1.34 B parameters), the same batch, 10 steps: finite losses,
      the last below the first; (f) mamba2-370m and hymba-1.5b at 2 layers,
      fp32, seq 320 (a padded chunk), one gradient on the card and the CPU
-     as (c); each run prints its median step time, tokens/s, model-FLOPs
+     as (c); (g) gemma2-2b at its published widths reduced to 2 of 26
+     layers (B2's backward at D = 256 under softcap 50), lr 3e-6, 4
+     steps of (b)'s batch: finite losses, the last below the first; each
+     run prints its median step time, tokens/s, model-FLOPs
      share, peak memory and B2's and B4's forward and backward launches
      (each exactly what the steps imply) beside the card's line; last the
      "plans" job's train runs (``PLANS_TRAIN``): ``Trainer(plan=, mesh=)``
@@ -285,9 +288,11 @@ table):
      the chunk rows also time B2's device-offset form, both ways;
      each timed kernel's output is checked again; the decode rows also
      give their split counts and CTAs, as the wrappers launched them; B2's
-     backward at the train runs' shapes beside autograd of
-     ``scaled_dot_product_attention`` with K/V expanded, its launches a
-     step; B4's backward at (d)'s and (e)'s microbatch shapes (no library
+     backward at the train runs' shapes (gemma2-2b's with its softcap and
+     window), twice bit-equal, each of its launches' device time from the
+     profiler, beside autograd of ``scaled_dot_product_attention`` with
+     K/V expanded (of compiled ``flex_attention`` under a softcap), its
+     launches a step; B4's backward at (d)'s and (e)'s microbatch shapes (no library
      call computes it), its launches a step.
 
 Phase 6 also times the kernels at the sharded runs' shard shapes
@@ -525,6 +530,12 @@ TRAIN_D = dict(arch="mamba2-370m", steps=12, every=6, batch=2, seq=2048,
 TRAIN_E = dict(arch="hymba-1.5b", steps=10, batch=2, seq=2048,
                microbatches=2, lr=3e-5)
 TRAIN_F = dict(layers=2, batch=1, seq=320)
+# (g) gemma2-2b at its published widths cut to 2 layers (a local and a
+# global one; 730 M parameters, 11.7 GB of master weights, moments and
+# gradients, the 256 000-word embedding most of it): B2's backward at
+# D = 256 under its softcap of 50 in bf16, at (b)'s learning rate
+TRAIN_G = dict(arch="gemma2-2b", layers=2, steps=4, batch=2, seq=2048,
+               microbatches=2, lr=3e-6)
 # test_training_reduces_loss's margin: the last 10 steps' mean nll below
 # the first 10's by this much
 LOSS_MARGIN = 0.05
@@ -636,9 +647,11 @@ def graph_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def hmma_counts(build, lib: str) -> dict[str, int]:
-    """{kernel function: HMMA instructions in its SASS} for the library
-    built from ``csrc/<lib>.cu``, from ``cuobjdump -sass``."""
+def hmma_counts(build, lib: str) -> dict[str, dict[str, int]]:
+    """{kernel function: {"HMMA": n, "HGMMA": m}}: the tensor-core
+    instructions in its SASS for the library built from
+    ``csrc/<lib>.cu``, from ``cuobjdump -sass``; HMMA is ``mma.sync``'s,
+    HGMMA ``wgmma``'s."""
     text = subprocess.run(
         [build.cuda_tool("cuobjdump"), "-sass", str(build.lib_path(lib))],
         check=True, capture_output=True, text=True).stdout
@@ -646,10 +659,16 @@ def hmma_counts(build, lib: str) -> dict[str, int]:
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for kind in ("HGMMA", "HMMA"):
+                if kind in line:
+                    counts[fn][kind] += 1
     return counts
+
+
+def tensor_core_text(n: dict) -> str:
+    return f"{n['HMMA']:5d} HMMA {n['HGMMA']:5d} HGMMA"
 
 
 # --------------------------------------------------------------------------
@@ -4083,8 +4102,9 @@ def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
     gradient on the card against the CPU, (d) mamba2-370m at all 48 layers
     with its resume, (e) hymba-1.5b at all 32 layers, (f) 2-layer
     full-width mamba2-370m and hymba-1.5b gradients on the card against
-    the CPU.  Returns the runs (phase 6 times B2's and B4's backwards at
-    their shapes) and the failed checks."""
+    the CPU, (g) gemma2-2b at 2 layers (B2's backward at D = 256).
+    Returns the runs (phase 6 times B2's and B4's backwards at their
+    shapes) and the failed checks."""
     from repro_torch.configs import get_config
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.trainer import TrainConfig
@@ -4180,6 +4200,26 @@ def phase_train(ops, card: str) -> tuple[list[dict], list[str]]:
         batch = {k: np.ascontiguousarray(v[:job["batch"], :job["seq"]])
                  for k, v in batch.items()}
         record(*check_gradient("f", ops, cfg, batch))
+
+    # (g) gemma2-2b at its published widths, TRAIN_G["layers"] layers
+    job = TRAIN_G
+    cfg = dataclasses.replace(get_config(job["arch"]),
+                              n_layers=job["layers"])
+    tcfg = TrainConfig(opt=AdamWConfig(lr=job["lr"], warmup_steps=1,
+                                       total_steps=1000),
+                       remat=True, microbatches=job["microbatches"])
+    run = train_run(ops, cfg, tcfg, train_batches(cfg, job["batch"],
+                                                  job["seq"], job["steps"]))
+    log(f"  [train g] gemma2-2b at published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, softcap {cfg.attn_logit_softcap}, window "
+        f"{cfg.local_window} on local layers, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), reduced to {cfg.n_layers} of 26 layers: "
+        f"{run['params']:,} params; batch {job['batch']} x seq "
+        f"{job['seq']}, {tcfg.microbatches} microbatches, remat, lr "
+        f"{tcfg.opt.lr}, bf16 compute")
+    record(*check_falls("g", cfg, tcfg, job, run, card))
+    timed_run("gemma2-2b-2l", cfg, tcfg, job, run, ("flash_attention_bwd",))
     return runs, failures
 
 
@@ -4939,58 +4979,132 @@ def time_ssd(gen, ssd, ref, run):
                     t_bytes, 3 * flops / TF32_FLOPS_PER_S * 1e3))
 
 
+def bwd_by_launch(fab, call, kw) -> dict[str, float]:
+    """{kernel: device ms a call} of B2's backward, from the profiler over
+    10 calls: its launches (delta, then dK/dV, in two passes at D = 256,
+    and dQ) by the name after ``attn_bwd_``."""
+    from torch.profiler import ProfilerActivity, profile
+    fab.flash_attention_bwd(*call, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fab.flash_attention_bwd(*call, **kw)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "attn_bwd_" in e.key:
+            name = e.key.split("attn_bwd_", 1)[1].split("(", 1)[0]
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = e.cuda_time_total
+            out[name] = out.get(name, 0.0) + t / 10 / 1e3
+    return out
+
+
+def library_attention_bwd(q, k, v, dout, softcap, window):
+    """One PyTorch call computing B2's backward, as ``call(i)`` ->
+    (dq, dk, dv) in [B, H, S, D] (``torch.autograd.grad`` through a kept
+    graph, K/V expanded to the query heads): of
+    ``scaled_dot_product_attention`` (is_causal) without a softcap, which
+    SDPA does not take; with one, of ``flex_attention`` compiled, the cap
+    as its score_mod and the causal window as a block mask (Inductor's and
+    Triton's caches under the checkout's ``build/``)."""
+    S, rep = q.shape[1], q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    if softcap > 0:
+        build = os.path.join(HERE, "build")
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                              os.path.join(build, "inductor"))
+        os.environ.setdefault("TRITON_CACHE_DIR",
+                              os.path.join(build, "triton"))
+        from torch.nn.attention import flex_attention as fx
+
+        def causal(b, h, q_idx, kv_idx):
+            ok = kv_idx <= q_idx
+            return ok & (kv_idx > q_idx - window) if window > 0 else ok
+
+        def cap(score, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(score / softcap)
+        mask = fx.create_block_mask(causal, None, None, S, S, device="cuda")
+        flex = torch.compile(fx.flex_attention, dynamic=False)
+        o = flex(qt, kt, vt, score_mod=cap, block_mask=mask,
+                 enable_gqa=True)
+    else:
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1),
+            is_causal=True)
+    dot = dout.transpose(1, 2)
+    return lambda i: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                         retain_graph=True)
+
+
+def bwd_bound_ms(B, S, Hq, Hkv, D, window) -> tuple[float, float]:
+    """B2's backward's bound, (bytes ms, operations ms): q, k, v, out, dO
+    and lse read and dq, dk, dv written once at the memory rate; five
+    products of 2 D FLOPs per unmasked (q, k) pair and head at the bf16
+    rate."""
+    if 0 < window < S:
+        pairs = B * sum(min(i + 1, window) for i in range(S))
+    else:
+        pairs = B * S * (S + 1) // 2
+    nbytes = (2 * (3 * B * S * Hq * D + 2 * B * S * Hkv * D)   # q out dO k v
+              + 4 * B * Hq * S                                  # lse
+              + 2 * (B * S * Hq * D + 2 * B * S * Hkv * D))     # dq dk dv
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            5 * 2 * pairs * D * Hq / BF16_FLOPS_PER_S * 1e3)
+
+
 def time_prefill_bwd(gen, fa, fab, ref, run):
     """B2's backward at a train run's shape (B = its microbatch, S = its
-    sequence, the model's heads), bf16, on the forward kernel's out and lse
-    and a random dO.  Library: autograd of ``scaled_dot_product_attention``
-    (is_causal) with K/V expanded to the query heads, the backward timed
-    (``torch.autograd.grad`` through the kept graph).  Bound: five products
-    of 2 D FLOPs per unmasked (q, k) pair and head at the bf16 rate, or q,
-    k, v, out, dO and lse read and dq, dk, dv written once."""
+    sequence, the model's heads, softcap and local window), bf16, on the
+    forward kernel's out and lse and a random dO, twice bit-equal; each
+    launch's device time (``bwd_by_launch``).  Library:
+    ``library_attention_bwd`` (its distance from the plain version kept
+    too).  Bound: ``bwd_bound_ms``."""
     cfg = run["cfg"]
     B, S = run["shape"]
     Hq, Hkv, D = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    cap, win = cfg.attn_logit_softcap, cfg.local_window
     q = rand(gen, B, S, Hq, D, dtype=torch.bfloat16)
     k = rand(gen, B, S, Hkv, D, dtype=torch.bfloat16)
     v = rand(gen, B, S, Hkv, D, dtype=torch.bfloat16)
     dout = rand(gen, B, S, Hq, D, dtype=torch.bfloat16)
-    out, lse = fa.flash_attention(q, k, v, with_lse=True)
-    got = fab.flash_attention_bwd(q, k, v, out, dout, lse)
-    want = ref.flash_attention_bwd_plain(q, k, v, out, dout, lse)
+    out, lse = fa.flash_attention(q, k, v, softcap=cap, window=win,
+                                  with_lse=True)
+    call, kw = (q, k, v, out, dout, lse), dict(softcap=cap, window=win)
+    got = fab.flash_attention_bwd(*call, **kw)
+    again = fab.flash_attention_bwd(*call, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.flash_attention_bwd_plain(*call, True, cap, win)
     err = rel = 0.0
     for g, w in zip(got, want):
         e, r, ok = grad_agreement(g, w, torch.bfloat16)
         err, rel = max(err, e), max(rel, r)
-        if not ok:
+        if not ok or not same:
             raise SystemExit(f"flash_attention_bwd disagrees at the timing "
-                             f"shape: max_row_rel_err {r:.3e}")
+                             f"shape: max_row_rel_err {r:.3e}, twice "
+                             f"bit-equal {same}")
     # 10 groups of 5: the call takes up to ~16 ms at yi-9b's shape
-    ms = time_ms(lambda i: fab.flash_attention_bwd(q, k, v, out, dout, lse),
-                 reps=10, inner=5)
-    device = graph_ms(lambda i: fab.flash_attention_bwd(q, k, v, out, dout,
-                                                        lse), reps=10,
-                      inner=5)
+    ms = time_ms(lambda i: fab.flash_attention_bwd(*call, **kw), reps=10,
+                 inner=5)
+    device = graph_ms(lambda i: fab.flash_attention_bwd(*call, **kw),
+                      reps=10, inner=5)
+    by_launch = bwd_by_launch(fab, call, kw)
     plain = time_ms(lambda i: ref.flash_attention_bwd_plain(
-        q, k, v, out, dout, lse), reps=5, inner=2)
-    rep = Hq // Hkv
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
-    o = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1),
-        is_causal=True)
-    dot = dout.transpose(1, 2)
-    lib = time_ms(lambda i: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                retain_graph=True))
-    pairs = B * S * (S + 1) // 2                 # unmasked (q, k) pairs
-    flops = 5 * 2 * pairs * D * Hq
-    nbytes = (2 * (3 * B * S * Hq * D + 2 * B * S * Hkv * D)   # q out dO k v
-              + 4 * B * Hq * S                                  # lse
-              + 2 * (B * S * Hq * D + 2 * B * S * Hkv * D))     # dq dk dv
+        *call, True, cap, win), reps=5, inner=2)
+    library = library_attention_bwd(q, k, v, dout, cap, win)
+    lib_rel = max(grad_agreement(g.transpose(1, 2), w, torch.bfloat16)[1]
+                  for g, w in zip(library(0), want))
+    lib = time_ms(library)
     row = _row("flash_attention_bwd", run, err, rel, ms, plain,
-               nbytes / HBM_BYTES_PER_S * 1e3,
-               flops / BF16_FLOPS_PER_S * 1e3, lib,
-               f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16",
-               device_ms=device)
+               *bwd_bound_ms(B, S, Hq, Hkv, D, win), lib,
+               f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal"
+               + (f" softcap={cap:g}" if cap > 0 else "")
+               + (f" window={win}" if win > 0 else "") + " bf16",
+               device_ms=device, by_launch_ms=by_launch,
+               twice_bit_equal=same, library_max_row_rel_err=lib_rel)
     row["launches_per_step"] = row.pop("launches_per_request")
     return row
 
@@ -5096,34 +5210,39 @@ def main() -> int:
                 log(f"    {name}: {regs}; {spills} [{fn}]")
     hmma = hmma_counts(build, "flash_attention")
     for fn, n in sorted(hmma.items()):
-        log(f"    flash_attention SASS: {n:5d} HMMA in {fn}")
-    bf16 = {fn: n for fn, n in hmma.items() if "flash_attention_bf16" in fn}
+        log(f"    flash_attention SASS: {tensor_core_text(n)} in {fn}")
+    bf16 = {fn: n["HMMA"] for fn, n in hmma.items()
+            if "flash_attention_bf16" in fn}
     if len(bf16) != len(build.HEAD_DIMS) or not all(bf16.values()):
         raise SystemExit(f"the bf16 prefill kernels do not all run on the "
                          f"tensor cores: HMMA counts {bf16}")
     hmma = hmma_counts(build, "flash_attention_bwd")
     for fn, n in sorted(hmma.items()):
-        log(f"    flash_attention_bwd SASS: {n:5d} HMMA in {fn}")
-    # the bf16 backward at D <= 128 (the train path) is the tensor-core one
-    tc = {fn: n for fn, n in hmma.items() if "_tc" in fn}
-    if len(tc) != 2 * 3 or not all(tc.values()):
-        raise SystemExit(f"the bf16 backward kernels at D <= 128 do not all "
-                         f"run on the tensor cores: HMMA counts {tc}")
+        log(f"    flash_attention_bwd SASS: {tensor_core_text(n)} in {fn}")
+    # the bf16 backward's product kernels (dK/dV, in two passes at D = 256,
+    # and dQ) at every head dim run on wgmma
+    for kernel in ("attn_bwd_dkdv_wg", "attn_bwd_dq_wg"):
+        for d in build.HEAD_DIMS:
+            wg = {fn: n["HGMMA"] for fn, n in hmma.items()
+                  if f"{kernel}ILi{d}E" in fn}
+            if not wg or not all(wg.values()):
+                raise SystemExit(f"the bf16 backward's {kernel} at D = {d} "
+                                 f"does not run on wgmma: HGMMA counts {wg}")
     hmma = hmma_counts(build, "ssd_chunk")
     for fn, n in sorted(hmma.items()):
-        log(f"    ssd_chunk SASS: {n:5d} HMMA in {fn}")
+        log(f"    ssd_chunk SASS: {tensor_core_text(n)} in {fn}")
     # the instantiations for the served models' SSM head dim (P = 64),
     # one for each head block size
-    served = {fn: n for fn, n in hmma.items()
+    served = {fn: n["HMMA"] for fn, n in hmma.items()
               if "ssd_chunk_kernelILi64E" in fn}
     if not served or not all(served.values()):
         raise SystemExit(f"the SSD chunk kernel at P = 64 does not run on "
                          f"the tensor cores: HMMA counts {served}")
     hmma = hmma_counts(build, "ssd_chunk_bwd")
     for fn, n in sorted(hmma.items()):
-        log(f"    ssd_chunk_bwd SASS: {n:5d} HMMA in {fn}")
+        log(f"    ssd_chunk_bwd SASS: {tensor_core_text(n)} in {fn}")
     # its tile kernel at the served models' P = 64 (3xTF32 mma.sync)
-    served = {fn: n for fn, n in hmma.items()
+    served = {fn: n["HMMA"] for fn, n in hmma.items()
               if "ssd_bwd_tiles_kernelILi64E" in fn}
     if not served or not all(served.values()):
         raise SystemExit(f"the SSD backward's tile kernel at P = 64 does not "
@@ -5170,8 +5289,8 @@ def main() -> int:
     log(f"[5.{len(FULL_WIDTH) + 3}] the trainer: yi-100m with a resume, "
         f"yi-9b at {TRAIN_B['layers']} layers, a full-width gradient "
         f"against the CPU, mamba2-370m (48 layers) with a resume, "
-        f"hymba-1.5b (32 layers), 2-layer SSM gradients against the CPU "
-        f"(train)")
+        f"hymba-1.5b (32 layers), 2-layer SSM gradients against the CPU, "
+        f"gemma2-2b at {TRAIN_G['layers']} layers (train)")
     train_runs, failed = phase_train(ops, card)
     runs += train_runs
     failures += failed
@@ -5210,7 +5329,10 @@ def main() -> int:
                if "splits" in r else "")
             + (f"  device-offset form {r['device_offset_ms']:.4f} (graph "
                f"replay {r['device_offset_device_ms']:.4f})"
-               if "device_offset_ms" in r else "") + f"  [{r['shape']}]")
+               if "device_offset_ms" in r else "")
+            + ("  by launch " + ", ".join(
+                f"{k} {t:.4f}" for k, t in r["by_launch_ms"].items())
+               if "by_launch_ms" in r else "") + f"  [{r['shape']}]")
     log(f"total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -13,47 +13,62 @@
 // k <= q, the sliding window k > q - window, the tanh softcap (chain rule
 // ds *= 1 - tanh^2(z / cap)), scale 1/sqrt(D) and GQA (dk and dv sum over
 // the group's query heads).  Ragged Sq / Sk are masked in the kernels.
+// With delta = rowsum(dO O): P = exp(s - lse), dS = P (dP - delta),
+// dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.  In bf16, P and dS are
+// rounded to bf16 as the operands of their products, with fp32 sums.
 //
-// The FlashAttention-2 scheme without atomics, so the gradients are
-// deterministic (the same inputs give the same bits):
-//   1. delta[b, h, i] = sum_d dO * O over row i (one warp a row);
-//   2. one CTA per (batch, KV head, key tile) keeps the tile's K and V and
-//      its dK, dV accumulators, and walks the group's query heads and the
-//      query tiles that can see the tile: it recomputes P = exp(s - lse) in
-//      fp32, dP = dO V^T, dS = P (dP - delta), and adds P^T dO to dV and
-//      dS^T Q to dK;
-//   3. one CTA per (batch, query head, query tile) keeps the tile's Q, dO
-//      and dQ accumulator and walks the key tiles it sees: dQ += dS K.
-// Each backward call is these three launches.  In bf16, P and dS are
-// rounded to bf16 as the operands of their products (the precision of the
-// forward's tensor-core products), with fp32 sums.
+// What bounds it on an H100: operations.  Five products of 2 D FLOPs per
+// unmasked (query, key) pair and head (S, dP, dV, dK, dQ), half the pairs
+// under the causal mask, at 989 TFLOP/s bf16, against ~2 bytes an element
+// moved once.  No atomics anywhere, so the same inputs give the same bits
+// (resumed training runs stay bit-equal); that costs two recomputed
+// products, so the kernels issue seven, on whole 64 x 64 tiles.
 //
-// What bounds it on an H100: operations (five products of 2 Sq Sk D a
-// head, halved under the causal mask) against ~2 bytes an element moved;
-// only the tensor cores come near that bound.
+// bf16, every head dim (32, 64, 128, 256): two launches (three at D = 256).
+//   1. dQ, one CTA (one warpgroup) per (batch, query head, 64-query tile),
+//      the last tiles first: it writes delta of its rows for launch 2, then
+//      walks the key steps its queries see: S = Q K^T and dP = dO V^T,
+//      P and dS, dQ += dS K.
+//   2. dK and dV, one CTA per (batch, KV head, 64-key tile, rank).  The
+//      group's query heads are dealt over a thread-block cluster of
+//      `split` CTAs (the largest divisor of the group up to 8): rank r
+//      walks heads r, r + split, .. and the query steps each sees, S^T =
+//      K Q^T and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q.  So the
+//      causal mask's 32:1 spread between the first and the last key tile
+//      no longer sits on a few long CTAs walking 8 heads in series: every
+//      SM has CTAs at the train shapes and the longest does under twice the
+//      mean.  The cluster then sums its fp32 partials in rank order
+//      through distributed shared memory (each CTA a share of the rows),
+//      so the sum is fixed whatever the schedule.  At D = 256, dK and dV
+//      (128 accumulator registers a thread each) are two launches of this
+//      kernel, dV then dK.
+// How each part meets the bound:
+//   - Products on `wgmma` (m64nNk16, fp32 accumulators, wgmma.cuh): K, V
+//     (or Q, dO) are shared-memory A operands of the score products; P^T
+//     and dS^T (dS) go from the accumulator fragments straight into the
+//     register A operand of the next product; Q, dO and K are read
+//     MN-major through the descriptor's transpose bit.  Tiles sit in the
+//     128-byte swizzle (64-byte at D = 32) the descriptors name.
+//   - A two-stage ring: the next step's Q, dO, lse and delta (dK/dV) or K
+//     and V (dQ) load by 16-byte cp.async into the other stage while the
+//     current step's products run; no step waits on a load it issued.
+//   - The elementwise pass: exp2 on the special-function unit, the mask
+//     only on tiles at the diagonal, the window or the ragged end.
+//   - Occupancy: steps of 64 queries (keys), 32 at D = 256, keep two CTAs
+//     an SM at D = 128 (98 KB of shared memory each) and three at
+//     D <= 64 (registers capped at 168), so one CTA's elementwise pass
+//     overlaps another's products.
 //
-// bf16 at D <= 128, the training path: steps 2 and 3 run on the tensor
-// cores, `mma.sync` m16n8k16 with the forward's fragment layouts and
-// `ldmatrix` helpers (common.cuh).  Four warps a CTA, each owning 16 rows:
-// 16 keys of a 64-key dK/dV tile, stepping over 32 queries at a time, or
-// 16 queries of a 64-query dQ tile, stepping over 32 keys.  S^T and dP^T
-// (S and dP) are accumulated in registers; P^T and dS^T become bf16 A
-// operands straight from the accumulators, and Q, dO or K are read as
-// transposed B operands from shared memory (rows padded by 16 bytes).
-// Tiles are loaded by 16-byte cp.async, one stage.  dK and dV (16 x D
-// fp32 each a warp) take 128 registers a thread at D = 128, which is why
-// D = 256 stays on the CUDA cores.  Shared memory: 192 rows of D + 8 bf16,
-// 15 KB at D = 32 to 52 KB at D = 128.
-//
-// fp32, and bf16 at D = 256: the first, CUDA-core version: fp32 FMAs from
-// fp32 tiles of 32 rows in shared memory (padded to D + 1 floats so the
-// column reads spread over the banks), 256 threads, two score products
-// recomputed in the dQ pass.  Shared memory: 4 tiles of 32 x (D + 1)
-// floats and two 32 x 33 score tiles, 25 KB at D = 32 to 140 KB at
-// D = 256.
+// fp32: the first, CUDA-core version, the parity path of the fp32 train
+// steps: delta (one warp a row), then the dK/dV and dQ kernels on fp32
+// FMAs from fp32 tiles of 32 rows in shared memory (padded to D + 1 floats
+// so the column reads spread over the banks), 256 threads, dQ recomputing
+// the two score products.  Shared memory: 4 tiles of 32 x (D + 1) floats
+// and two 32 x 33 score tiles, 25 KB at D = 32 to 140 KB at D = 256.
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace repro_torch {
 namespace {
@@ -326,67 +341,225 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// bf16, D <= 128: the tensor-core version (mma.sync m16n8k16, the
-// fragment layouts of the forward's bf16 kernel).
+// bf16: the wgmma version.  One warpgroup a CTA; warp w owns rows
+// 16 w .. 16 w + 15 of every 64-row accumulator (wgmma's M).
 // --------------------------------------------------------------------------
 
-constexpr int kTcThreads = 128;  // four warps, 16 rows each
-constexpr int kTcKeys = 64;      // keys a dK/dV CTA (16 a warp)
-constexpr int kTcQStep = 32;     // queries a step of the dK/dV CTA
-constexpr int kTcQRows = 64;     // queries a dQ CTA (16 a warp)
-constexpr int kTcKStep = 32;     // keys a step of the dQ CTA
+constexpr int kWgThreads = 128;  // one warpgroup
+constexpr int kRows = 64;        // keys of a dK/dV CTA, queries of a dQ CTA
+constexpr int kMaxSplit = 8;     // the portable thread-block cluster size
 
+// Queries a step of the dK/dV pass (the N of S^T) and keys a step of the
+// dQ pass: 64, or 32 at D = 256, where the D / 2 fp32 accumulator
+// registers a thread of dK (dV, dQ) leave room for two 16-register score
+// tiles only.
 template <int D>
-constexpr size_t tc_smem_bytes() {
-  // 64 + 64 + 32 + 32 rows of D bf16 (+ a 16-byte pad), then lse and delta
-  return static_cast<size_t>(2 * kTcKeys + 2 * kTcQStep) * (D + 8) *
-             sizeof(__nv_bfloat16) +
-         2 * kTcQRows * sizeof(float);
+__host__ __device__ constexpr int step_rows() {
+  return D == 256 ? 32 : 64;
 }
 
-// Copies rows [r0, r0 + rows) of head h of x [B, S, H, D] (bf16) into a
-// rows x (D + 8) shared tile with 16-byte cp.async, zeros past S.
+// CTAs an SM: at D <= 64 the tiles leave room for three in shared memory,
+// and the registers are capped to match (168 a thread); above, shared
+// memory alone sets it (two at D = 128, one at D = 256).
 template <int D>
-__device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* x, int b,
-                                             int r0, int rows, int S, int H,
-                                             int h) {
-  constexpr int CH = D / 8;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const __nv_bfloat16* base = x + static_cast<int64_t>(b) * S * row +
-                              static_cast<int64_t>(h) * D;
-  for (int i = threadIdx.x; i < rows * CH; i += kTcThreads) {
-    const int r = i / CH;
-    const int c = i - r * CH;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + r * (D + 8) + c * 8,
-               base + (ok ? (r0 + r) * row : 0) + c * 8, ok);
-  }
+__host__ __device__ constexpr int min_ctas() {
+  return D <= 64 ? 3 : 1;
 }
 
-// P and dS of one element of a score tile, in place of its scaled score
-// s and of dP.
-__device__ __forceinline__ void tc_p_ds(float& s, float& dp, bool ok,
-                                        float lse, float delta, float softcap,
-                                        float scale) {
-  const float z = s * scale;
-  float sc = z, dcap = 1.f;
+// What a dK/dV launch computes: both (D <= 128), or one of them (D = 256,
+// whose dK and dV accumulators take 128 registers a thread each).
+enum Pass { kDkDv = 0, kDvOnly = 1, kDkOnly = 2 };
+
+// The passes' shared memory: K and V tiles and two stages of Q and dO
+// tiles with their rows' lse and delta; the cluster sum reuses it for one
+// 64 x (D + 4) fp32 partial.  1024 bytes of slack align the tiles.
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  constexpr size_t BQ = step_rows<D>();
+  const size_t tiles = 2 * kRows * D * 2 + 2 * (2 * BQ * D * 2 + 2 * BQ * 4);
+  const size_t partial = static_cast<size_t>(kRows) * (D + 4) * 4;
+  return 1024 + (tiles > partial ? tiles : partial);
+}
+
+// The dQ pass's: Q and dO tiles, two stages of K and V tiles, the rows'
+// lse and delta.
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  constexpr size_t BK = step_rows<D>();
+  return 1024 + 2 * kRows * D * 2 + 2 * 2 * BK * D * 2 + 2 * kRows * 4;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit alone (flushing denormals to 0: P is
+// rounded to bf16 or summed in fp32, where they do not count).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P and dS of one element of a score tile, in place of its unscaled score
+// s and of dP: P = exp(z - lse) with z = s * scale (tanh-capped under a
+// softcap) taken as exp2 (`sl` = scale log2(e), `ll` = lse log2(e)), and
+// dS = P (dP - delta) (1 - tanh^2 under a softcap).
+__device__ __forceinline__ void p_ds(float& s, float& dp, bool ok, float ll,
+                                     float delta, float softcap, float scale,
+                                     float sl) {
+  float x, dcap = 1.f;
   if (softcap > 0.f) {
-    const float t = tanhf(z / softcap);
-    sc = softcap * t;
+    const float t = tanhf(s * scale / softcap);
+    x = softcap * kLog2e * t - ll;
     dcap = 1.f - t * t;
+  } else {
+    x = fmaf(s, sl, -ll);
   }
-  const float p = ok ? expf(sc - lse) : 0.f;
+  const float p = ok ? fast_exp2(x) : 0.f;
   s = p;
   dp = p * (dp - delta) * dcap;
 }
 
-// dK, dV of one (batch, KV head, 64-key tile); warp w owns keys 16 w..
-// Per step: S^T = K Q^T and dP^T = V dO^T for 32 queries, then
-// dV += P^T dO and dK += dS^T Q with P^T, dS^T as bf16 A operands.
+__device__ __forceinline__ float p_only(float s, bool ok, float ll,
+                                        float softcap, float scale,
+                                        float sl) {
+  const float x = softcap > 0.f
+                      ? softcap * kLog2e * tanhf(s * scale / softcap) - ll
+                      : fmaf(s, sl, -ll);
+  return ok ? fast_exp2(x) : 0.f;
+}
+
+__device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Sk,
+                                        int causal, int window) {
+  return qp < Sq && kp < Sk && (!causal || kp <= qp) &&
+         (window <= 0 || kp > qp - window);
+}
+
+// Whether every (query, key) pair of queries [q0, q0 + nq) and keys
+// [k0, k0 + nk) is visible: such a tile skips the mask.
+__device__ __forceinline__ bool all_visible(int q0, int nq, int k0, int nk,
+                                            int Sq, int Sk, int causal,
+                                            int window) {
+  return q0 + nq <= Sq && k0 + nk <= Sk && (!causal || k0 + nk - 1 <= q0) &&
+         (window <= 0 || k0 > q0 + nq - 1 - window);
+}
+
+// The A fragment of k-step kk of a product whose A is an accumulator
+// (64 x N, N = 16 * steps), rounded to bf16: accumulator element 4 n + e
+// is row g + 8 (e >> 1), column 8 n + 2 t4 + (e & 1), as in mma.sync.
+template <int N>
+__device__ __forceinline__ void a_fragment(uint32_t (&a)[4],
+                                           const float (&d)[N], int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// sum of the products of two rows of 8 bf16
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t bw[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 af = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&aw[i]));
+    const float2 bf = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&bw[i]));
+    s += af.x * bf.x + af.y * bf.y;
+  }
+  return s;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Writes a 64 x D accumulator (rows from row0 of a [B, S, H, D] tensor's
+// head h) as bf16 times `mul`, rows past S skipped.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-attn_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
+__device__ __forceinline__ void store_rows(__nv_bfloat16* x,
+                                           const float (&acc)[D / 2],
+                                           float mul, int b, int row0,
+                                           int S, int H, int h) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = row0 + warp * 16 + (lane >> 2) + 8 * i;
+    if (p >= S) continue;
+    __nv_bfloat16* row = x + ((static_cast<int64_t>(b) * S + p) * H + h) *
+                                 D + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * mul,
+                                acc[4 * n + 2 * i + 1] * mul);
+  }
+}
+
+// The sum over a cluster of `split` CTAs of their 64 x D partials, in rank
+// order, written as bf16 times `mul`: each CTA puts its partial in its own
+// shared memory (`red`, rows of D + 4 floats), then sums a share of the
+// rows from every CTA's through distributed shared memory.
+template <int D>
+__device__ __forceinline__ void cluster_sum_rows(
+    float* red, const float (&acc)[D / 2], __nv_bfloat16* x, float mul,
+    int split, int b, int row0, int S, int H, int h) {
+  constexpr int LD = D + 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float* row = red + (warp * 16 + (lane >> 2) + 8 * i) * LD +
+                 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+  }
+  cluster_sync();
+  const int per = (kRows + split - 1) / split;
+  const int r0 = static_cast<int>(cluster_rank()) * per;
+  const int r1 = min(kRows, r0 + per);
+  for (int i = threadIdx.x; i < (r1 - r0) * (D / 4); i += kWgThreads) {
+    const int r = r0 + i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    float4 sum = ld_cluster_f4(red + r * LD + c, 0);
+    for (int src = 1; src < split; ++src) {
+      const float4 part = ld_cluster_f4(red + r * LD + c, src);
+      sum.x += part.x;
+      sum.y += part.y;
+      sum.z += part.z;
+      sum.w += part.w;
+    }
+    const int p = row0 + r;
+    if (p < S) {
+      __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
+          x + ((static_cast<int64_t>(b) * S + p) * H + h) * D + c);
+      out[0] = __floats2bfloat162_rn(sum.x * mul, sum.y * mul);
+      out[1] = __floats2bfloat162_rn(sum.z * mul, sum.w * mul);
+    }
+  }
+  cluster_sync();  // every CTA has read `red` before it changes or exits
+}
+
+// dK and/or dV of one (batch, KV head, 64-key tile), from the query heads
+// rank, rank + split, .. of the group (the CTA's rank in its cluster of
+// `split`); the cluster sums the heads' partials in rank order.  Per step
+// of BQ queries of one head: S^T = K Q^T and dP^T = V dO^T (K, V the
+// shared-memory A operands), then dV += P^T dO and dK += dS^T Q with P^T
+// and dS^T as register A operands and dO, Q read MN-major.  The next
+// step's Q, dO, lse and delta load into the other stage meanwhile.
+template <int D, int PASS>
+__global__ void __launch_bounds__(kWgThreads, min_ctas<D>())
+attn_bwd_dkdv_wg(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const __nv_bfloat16* __restrict__ dout,
@@ -394,294 +567,321 @@ attn_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
                  const float* __restrict__ delta,
                  __nv_bfloat16* __restrict__ dk,
                  __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int Hq,
-                 int Hkv, int causal, int window, float softcap,
-                 float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KSTEPS = D / 16;
-  constexpr int NQ = kTcQStep / 8;  // n-tiles of S^T (queries)
-  constexpr int NO = D / 8;         // n-tiles of dK, dV (columns)
-  const int k0 = blockIdx.x * kTcKeys;
+                 int Hkv, int causal, int window, float softcap, float scale,
+                 int split) {
+  constexpr int BQ = step_rows<D>();
+  constexpr bool DV = PASS != kDkOnly;
+  constexpr bool DK = PASS != kDvOnly;
+  constexpr int TILE_K = kRows * D * 2;  // bytes of the K or the V tile
+  constexpr int TILE_Q = BQ * D * 2;     // bytes of a Q or a dO tile
+  constexpr int STAGE = 2 * TILE_Q;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rank = blockIdx.x % split;
+  const int k0 = blockIdx.x / split * kRows;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int group = Hq / Hkv;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+  const int h0 = hk * group + rank;
+  const float sl = scale * kLog2e;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kTcKeys * LD;
-  __nv_bfloat16* Qs = Vs + kTcKeys * LD;
-  __nv_bfloat16* dOs = Qs + kTcQStep * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + kTcQStep * LD);
-  float* delta_s = lse_s + kTcQStep;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + TILE_K;
+  unsigned char* ring = Vs + TILE_K;
+  float* rows = reinterpret_cast<float*>(ring + 2 * STAGE);  // lse, delta
 
-  tc_load_rows<D>(Ks, k, b, k0, kTcKeys, Sk, Hkv, hk);
-  tc_load_rows<D>(Vs, v, b, k0, kTcKeys, Sk, Hkv, hk);
-  cp_async_commit();
-
-  // the query steps that see a key of this tile
-  const int k_last = min(k0 + kTcKeys, Sk) - 1;
-  const int qt_begin = causal ? k0 / kTcQStep : 0;
+  // the query steps that see a key of this tile, for each of its heads
+  const int k_last = min(k0 + kRows, Sk) - 1;
+  const int qt_begin = causal ? k0 / BQ : 0;
   int q_stop = Sq;
   if (window > 0) q_stop = min(q_stop, k_last + window);
-  const int qt_end = (q_stop + kTcQStep - 1) / kTcQStep;
+  const int n_qt = max(0, (q_stop + BQ - 1) / BQ - qt_begin);
+  const int n_steps = group / split * n_qt;
 
-  // ldmatrix lane addresses, as in the forward: A rows, B from rows (the
-  // n index is a smem row), B transposed (the k index is a smem row)
-  const int a_row = warp * 16 + (lane & 15);
-  const int a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) * 8;
-  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int t_col = (lane >> 4) * 8;
+  auto load_step = [&](int s, int stage) {
+    const int h = h0 + split * (s / n_qt);
+    const int q0 = (qt_begin + s % n_qt) * BQ;
+    unsigned char* Qt = ring + stage * STAGE;
+    load_tile_async<D, BQ, kWgThreads>(Qt, q, b, q0, Sq, Hq, h, tid);
+    load_tile_async<D, BQ, kWgThreads>(Qt + TILE_Q, dout, b, q0, Sq, Hq, h,
+                                       tid);
+    if (tid < BQ) {
+      const int64_t at = (static_cast<int64_t>(b) * Hq + h) * Sq;
+      const bool ok = q0 + tid < Sq;
+      float* r = rows + stage * 2 * BQ;
+      cp_async4(r + tid, lse + at + (ok ? q0 + tid : 0), ok);
+      cp_async4(r + BQ + tid, delta + at + (ok ? q0 + tid : 0), ok);
+    }
+  };
 
-  float dk_acc[NO][4], dv_acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  load_tile_async<D, kRows, kWgThreads>(Ks, k, b, k0, Sk, Hkv, hk, tid);
+  if (DK)
+    load_tile_async<D, kRows, kWgThreads>(Vs, v, b, k0, Sk, Hkv, hk, tid);
+  if (n_steps > 0) load_step(0, 0);
+  cp_async_commit();
 
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kTcQStep;
-      __syncthreads();  // the previous step's Q, dO, lse, delta consumed
-      tc_load_rows<D>(Qs, q, b, q0, kTcQStep, Sq, Hq, h);
-      tc_load_rows<D>(dOs, dout, b, q0, kTcQStep, Sq, Hq, h);
-      cp_async_commit();
-      if (threadIdx.x < kTcQStep) {
-        const int p = q0 + threadIdx.x;
-        const int64_t at = (static_cast<int64_t>(b) * Hq + h) * Sq + p;
-        lse_s[threadIdx.x] = p < Sq ? lse[at] : 0.f;
-        delta_s[threadIdx.x] = p < Sq ? delta[at] : 0.f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
+  float dv_acc[DV ? D / 2 : 2], dk_acc[DK ? D / 2 : 2];
+  zero(dv_acc);
+  zero(dk_acc);
 
-      float st[NQ][4], dpt[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t ak[4], av[4];
-        ldmatrix_x4(ak, Ks + a_row * LD + ks * 16 + a_col);
-        ldmatrix_x4(av, Vs + a_row * LD + ks * 16 + a_col);
-#pragma unroll
-        for (int jp = 0; jp < NQ / 2; ++jp) {
-          uint32_t bq[4], bo[4];
-          ldmatrix_x4(bq, Qs + (jp * 16 + b_row) * LD + ks * 16 + b_col);
-          ldmatrix_x4(bo, dOs + (jp * 16 + b_row) * LD + ks * 16 + b_col);
-          mma_bf16(st[2 * jp], ak, bq[0], bq[1]);
-          mma_bf16(st[2 * jp + 1], ak, bq[2], bq[3]);
-          mma_bf16(dpt[2 * jp], av, bo[0], bo[1]);
-          mma_bf16(dpt[2 * jp + 1], av, bo[2], bo[3]);
-        }
-      }
+  for (int s = 0; s < n_steps; ++s) {
+    const int stage = s & 1;
+    cp_async_wait<0>();  // this step's tiles, loaded during the last step
+    fence_async_shared();
+    __syncthreads();  // ... visible to all; every thread past the last step
+    if (s + 1 < n_steps) load_step(s + 1, stage ^ 1);
+    cp_async_commit();
+    const unsigned char* Qt = ring + stage * STAGE;
+    const unsigned char* dOt = Qt + TILE_Q;
+    const float* lse_s = rows + stage * 2 * BQ;
+    const float* delta_s = lse_s + BQ;
+    const int q0 = (qt_begin + s % n_qt) * BQ;
 
-      // accumulator element e of n-tile n: key row g + 8 (e >> 1) of the
-      // warp, query column 8 n + 2 t4 + (e & 1)
+    float st[BQ / 2], dpt[DK ? BQ / 2 : 2];
+    zero(st);
+    zero(dpt);
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_ss<BQ>(st, desc_kmajor<D>(Ks + kmajor_step<D>(kRows, ks)),
+                   desc_kmajor<D>(Qt + kmajor_step<D>(BQ, ks)), 1);
+      if constexpr (DK)
+        wgmma_ss<BQ>(dpt, desc_kmajor<D>(Vs + kmajor_step<D>(kRows, ks)),
+                     desc_kmajor<D>(dOt + kmajor_step<D>(BQ, ks)), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // element 4 n + e: key row 16 warp + g + 8 (e >> 1) of the tile,
+    // query column 8 n + 2 t4 + (e & 1) of the step
+    auto elementwise = [&](auto masked) {
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const int qi = 8 * n + 2 * (lane & 3);
+        const float2 ll = make_float2(lse_s[qi] * kLog2e,
+                                      lse_s[qi + 1] * kLog2e);
+        const float2 dl = make_float2(delta_s[qi], delta_s[qi + 1]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kp = k0 + warp * 16 + g + (e >> 1) * 8;
-          const int qi = n * 8 + 2 * t4 + (e & 1);
-          const int qp = q0 + qi;
-          const bool ok = qp < Sq && kp < Sk && (!causal || kp <= qp) &&
-                          (window <= 0 || kp > qp - window);
-          tc_p_ds(st[n][e], dpt[n][e], ok, lse_s[qi], delta_s[qi], softcap,
-                  scale);
+          bool ok = true;
+          if constexpr (decltype(masked)::value)
+            ok = visible(q0 + qi + (e & 1),
+                         k0 + warp * 16 + (lane >> 2) + 8 * (e >> 1), Sq,
+                         Sk, causal, window);
+          const float l = e & 1 ? ll.y : ll.x;
+          if constexpr (DK)
+            p_ds(st[4 * n + e], dpt[4 * n + e], ok, l,
+                 e & 1 ? dl.y : dl.x, softcap, scale, sl);
+          else
+            st[4 * n + e] = p_only(st[4 * n + e], ok, l, softcap, scale,
+                                   sl);
         }
       }
+    };
+    if (all_visible(q0, BQ, k0, kRows, Sq, Sk, causal, window))
+      elementwise(std::false_type{});
+    else
+      elementwise(std::true_type{});
 
+    // every A fragment is written before the fence that orders it before
+    // the products reading it
+    uint32_t pa[BQ / 16][4], sa[DK ? BQ / 16 : 1][4];
 #pragma unroll
-      for (int kk = 0; kk < kTcQStep / 16; ++kk) {
-        const uint32_t ap[4] = {
-            pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-            pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-            pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-            pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-        const uint32_t as[4] = {
-            pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-            pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-            pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-            pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t bo[4], bq[4];
-          ldmatrix_x4_trans(bo,
-                            dOs + (kk * 16 + t_row) * LD + dp * 16 + t_col);
-          ldmatrix_x4_trans(bq,
-                            Qs + (kk * 16 + t_row) * LD + dp * 16 + t_col);
-          mma_bf16(dv_acc[2 * dp], ap, bo[0], bo[1]);
-          mma_bf16(dv_acc[2 * dp + 1], ap, bo[2], bo[3]);
-          mma_bf16(dk_acc[2 * dp], as, bq[0], bq[1]);
-          mma_bf16(dk_acc[2 * dp + 1], as, bq[2], bq[3]);
-        }
-      }
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      a_fragment(pa[kk], st, kk);
+      if constexpr (DK) a_fragment(sa[kk], dpt, kk);
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      if constexpr (DV)
+        wgmma_rs_t<D>(dv_acc, pa[kk], desc_mnmajor<D>(dOt, BQ, kk), 1);
+      if constexpr (DK)
+        wgmma_rs_t<D>(dk_acc, sa[kk], desc_mnmajor<D>(Qt, BQ, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
   }
   cp_async_wait<0>();
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kp = k0 + warp * 16 + g + i * 8;
-    if (kp >= Sk) continue;
-    const int64_t at =
-        ((static_cast<int64_t>(b) * Sk + kp) * Hkv + hk) * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8) =
-          __floats2bfloat162_rn(dk_acc[n][2 * i] * scale,
-                                dk_acc[n][2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
-    }
+  if (split == 1) {
+    if constexpr (DV) store_rows<D>(dv, dv_acc, 1.f, b, k0, Sk, Hkv, hk);
+    if constexpr (DK) store_rows<D>(dk, dk_acc, scale, b, k0, Sk, Hkv, hk);
+  } else {
+    float* red = reinterpret_cast<float*>(Ks);
+    if constexpr (DV)
+      cluster_sum_rows<D>(red, dv_acc, dv, 1.f, split, b, k0, Sk, Hkv, hk);
+    if constexpr (DK)
+      cluster_sum_rows<D>(red, dk_acc, dk, scale, split, b, k0, Sk, Hkv,
+                          hk);
   }
 }
 
-// dQ of one (batch, query head, 64-query tile); warp w owns queries
-// 16 w..  Per step of 32 keys: S = Q K^T, dP = dO V^T, then dQ += dS K.
+// dQ of one (batch, query head, 64-query tile), and first delta =
+// rowsum(dO O) of its rows, which it keeps and writes for the dK/dV launch
+// that follows.  Per step of BK keys: S = Q K^T and dP = dO V^T (Q, dO the
+// shared-memory A operands), then dQ += dS K with dS as the register A
+// operand and K read MN-major.  The next step's K and V load into the
+// other stage meanwhile.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-attn_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
+__global__ void __launch_bounds__(kWgThreads, min_ctas<D>())
+attn_bwd_dq_wg(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
+               const __nv_bfloat16* __restrict__ out,
                const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta,
+               const float* __restrict__ lse, float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq,
-               int Hkv, int causal, int window, float softcap, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KSTEPS = D / 16;
-  constexpr int NK = kTcKStep / 8;  // n-tiles of S (keys)
-  constexpr int NO = D / 8;
+               int Hkv, int causal, int window, float softcap, float scale,
+               int* counts) {
+  constexpr int BK = step_rows<D>();
+  constexpr int TILE_Q = kRows * D * 2;  // bytes of the Q or the dO tile
+  constexpr int TILE_K = BK * D * 2;     // bytes of a K or a V tile
+  constexpr int STAGE = 2 * TILE_K;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   // the last query tiles see the most key tiles: hand them out first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcQRows;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+  const float sl = scale * kLog2e;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + kTcQRows * LD;
-  __nv_bfloat16* Ks = dOs + kTcQRows * LD;
-  __nv_bfloat16* Vs = Ks + kTcKStep * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + kTcKStep * LD);
-  float* delta_s = lse_s + kTcQRows;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* dOs = Qs + TILE_Q;
+  unsigned char* ring = dOs + TILE_Q;
+  float* lse_s = reinterpret_cast<float*>(ring + 2 * STAGE);
+  float* delta_s = lse_s + kRows;
 
-  tc_load_rows<D>(Qs, q, b, q0, kTcQRows, Sq, Hq, h);
-  tc_load_rows<D>(dOs, dout, b, q0, kTcQRows, Sq, Hq, h);
+  const int q_last = min(q0 + kRows, Sq) - 1;
+  int kt_end = (Sk + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, q_last / BK + 1);
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int n_steps = max(0, kt_end - kt_begin);
+
+  auto load_step = [&](int s, int stage) {
+    const int k0 = (kt_begin + s) * BK;
+    unsigned char* Kt = ring + stage * STAGE;
+    load_tile_async<D, BK, kWgThreads>(Kt, k, b, k0, Sk, Hkv, hk, tid);
+    load_tile_async<D, BK, kWgThreads>(Kt + TILE_K, v, b, k0, Sk, Hkv, hk,
+                                       tid);
+  };
+
+  count_launch(counts, 0);
+  load_tile_async<D, kRows, kWgThreads>(Qs, q, b, q0, Sq, Hq, h, tid);
+  load_tile_async<D, kRows, kWgThreads>(dOs, dout, b, q0, Sq, Hq, h, tid);
+  const int64_t row_at = (static_cast<int64_t>(b) * Hq + h) * Sq;
+  if (tid < kRows) {
+    const bool ok = q0 + tid < Sq;
+    cp_async4(lse_s + tid, lse + row_at + (ok ? q0 + tid : 0), ok);
+  }
+  if (n_steps > 0) load_step(0, 0);
   cp_async_commit();
-  if (threadIdx.x < kTcQRows) {
-    const int p = q0 + threadIdx.x;
-    const int64_t at = (static_cast<int64_t>(b) * Hq + h) * Sq + p;
-    lse_s[threadIdx.x] = p < Sq ? lse[at] : 0.f;
-    delta_s[threadIdx.x] = p < Sq ? delta[at] : 0.f;
+
+  // delta of row tid / 2, half a row a thread
+  static_assert(2 * kRows == kWgThreads, "two threads a query row");
+  {
+    const int qp = q0 + (tid >> 1);
+    float sum = 0.f;
+    if (qp < Sq) {
+      const int64_t at = ((static_cast<int64_t>(b) * Sq + qp) * Hq + h) *
+                             D + (tid & 1) * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c)
+        sum += dot8(*reinterpret_cast<const uint4*>(out + at + 8 * c),
+                    *reinterpret_cast<const uint4*>(dout + at + 8 * c));
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((tid & 1) == 0) {
+      delta_s[tid >> 1] = sum;
+      if (qp < Sq) delta[row_at + qp] = sum;
+    }
   }
 
-  const int q_last = min(q0 + kTcQRows, Sq) - 1;
-  int kt_end = (Sk + kTcKStep - 1) / kTcKStep;
-  if (causal) kt_end = min(kt_end, q_last / kTcKStep + 1);
-  const int kt_begin =
-      window > 0 ? max(0, q0 - window + 1) / kTcKStep : 0;
+  float dq_acc[D / 2];
+  zero(dq_acc);
+  // this thread's two query rows' lse log2(e) and delta
+  float ll[2], dl[2];
 
-  const int a_row = warp * 16 + (lane & 15);
-  const int a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) * 8;
-  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int t_col = (lane >> 4) * 8;
-
-  float dq_acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kTcKStep;
-    __syncthreads();  // the previous step's K and V consumed
-    tc_load_rows<D>(Ks, k, b, k0, kTcKStep, Sk, Hkv, hk);
-    tc_load_rows<D>(Vs, v, b, k0, kTcKStep, Sk, Hkv, hk);
+  for (int s = 0; s < n_steps; ++s) {
+    const int stage = s & 1;
+    cp_async_wait<0>();  // this step's tiles, loaded during the last step
+    fence_async_shared();
+    __syncthreads();  // ... visible to all; every thread past the last step
+    if (s + 1 < n_steps) load_step(s + 1, stage ^ 1);
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float s[NK][4], dp[NK][4];
+    if (s == 0) {
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t aq[4], ao[4];
-      ldmatrix_x4(aq, Qs + a_row * LD + ks * 16 + a_col);
-      ldmatrix_x4(ao, dOs + a_row * LD + ks * 16 + a_col);
-#pragma unroll
-      for (int jp = 0; jp < NK / 2; ++jp) {
-        uint32_t bk[4], bv[4];
-        ldmatrix_x4(bk, Ks + (jp * 16 + b_row) * LD + ks * 16 + b_col);
-        ldmatrix_x4(bv, Vs + (jp * 16 + b_row) * LD + ks * 16 + b_col);
-        mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
-        mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[2 * jp], ao, bv[0], bv[1]);
-        mma_bf16(dp[2 * jp + 1], ao, bv[2], bv[3]);
+      for (int i = 0; i < 2; ++i) {
+        const int qi = warp * 16 + (lane >> 2) + 8 * i;
+        ll[i] = lse_s[qi] * kLog2e;
+        dl[i] = delta_s[qi];
       }
     }
+    const unsigned char* Kt = ring + stage * STAGE;
+    const unsigned char* Vt = Kt + TILE_K;
+    const int k0 = (kt_begin + s) * BK;
 
-    // element e of n-tile n: query row g + 8 (e >> 1) of the warp, key
-    // column 8 n + 2 t4 + (e & 1)
+    float sc[BK / 2], dp[BK / 2];
+    zero(sc);
+    zero(dp);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = warp * 16 + g + (e >> 1) * 8;
-        const int qp = q0 + qi;
-        const int kp = k0 + n * 8 + 2 * t4 + (e & 1);
-        const bool ok = qp < Sq && kp < Sk && (!causal || kp <= qp) &&
-                        (window <= 0 || kp > qp - window);
-        tc_p_ds(s[n][e], dp[n][e], ok, lse_s[qi], delta_s[qi], softcap,
-                scale);
-      }
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_ss<BK>(sc, desc_kmajor<D>(Qs + kmajor_step<D>(kRows, ks)),
+                   desc_kmajor<D>(Kt + kmajor_step<D>(BK, ks)), 1);
+      wgmma_ss<BK>(dp, desc_kmajor<D>(dOs + kmajor_step<D>(kRows, ks)),
+                   desc_kmajor<D>(Vt + kmajor_step<D>(BK, ks)), 1);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
 
+    // element 4 n + e: query row 16 warp + g + 8 (e >> 1) of the tile,
+    // key column 8 n + 2 t4 + (e & 1) of the step
+    auto elementwise = [&](auto masked) {
 #pragma unroll
-    for (int kk = 0; kk < kTcKStep / 16; ++kk) {
-      const uint32_t as[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+      for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
-        uint32_t bk[4];
-        ldmatrix_x4_trans(bk, Ks + (kk * 16 + t_row) * LD + d * 16 + t_col);
-        mma_bf16(dq_acc[2 * d], as, bk[0], bk[1]);
-        mma_bf16(dq_acc[2 * d + 1], as, bk[2], bk[3]);
+        for (int e = 0; e < 4; ++e) {
+          bool ok = true;
+          if constexpr (decltype(masked)::value)
+            ok = visible(q0 + warp * 16 + (lane >> 2) + 8 * (e >> 1),
+                         k0 + 8 * n + 2 * (lane & 3) + (e & 1), Sq, Sk,
+                         causal, window);
+          p_ds(sc[4 * n + e], dp[4 * n + e], ok, ll[e >> 1], dl[e >> 1],
+               softcap, scale, sl);
+        }
       }
-    }
+    };
+    if (all_visible(q0, kRows, k0, BK, Sq, Sk, causal, window))
+      elementwise(std::false_type{});
+    else
+      elementwise(std::true_type{});
+
+    uint32_t sa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) a_fragment(sa[kk], dp, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_t<D>(dq_acc, sa[kk], desc_mnmajor<D>(Kt, BK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
   }
   cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qp = q0 + warp * 16 + g + i * 8;
-    if (qp >= Sq) continue;
-    __nv_bfloat16* row = dq + ((static_cast<int64_t>(b) * Sq + qp) * Hq + h) *
-                                  D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
-          __floats2bfloat162_rn(dq_acc[n][2 * i] * scale,
-                                dq_acc[n][2 * i + 1] * scale);
-  }
+  store_rows<D>(dq, dq_acc, scale, b, q0, Sq, Hq, h);
 }
 
 // --------------------------------------------------------------------------
@@ -698,42 +898,77 @@ struct Args {
   int* counts;
 };
 
-// delta, then the dK/dV and dQ kernels of the CUDA-core version or, for
-// bf16 at D <= 128, of the tensor-core one.
+// The CTAs of one (KV head, key tile) in the dK/dV pass: the largest
+// divisor of the group that a portable cluster holds.
+inline int dkdv_split(int group) {
+  for (int c = group < kMaxSplit ? group : kMaxSplit; c > 1; --c)
+    if (group % c == 0) return c;
+  return 1;
+}
+
+template <int D, int PASS>
+cudaError_t launch_dkdv_wg(const Args& a, cudaStream_t s) {
+  const size_t smem = dkdv_smem_bytes<D>();
+  cudaError_t err = allow_smem(attn_bwd_dkdv_wg<D, PASS>, smem);
+  if (err != cudaSuccess) return err;
+  const int split = dkdv_split(a.Hq / a.Hkv);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.Sk + kRows - 1) / kRows * split, a.Hkv, a.B);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  using bf16 = __nv_bfloat16;
+  return cudaLaunchKernelEx(
+      &cfg, attn_bwd_dkdv_wg<D, PASS>, static_cast<const bf16*>(a.q),
+      static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window,
+      a.softcap, a.scale, split);
+}
+
+// bf16: the wgmma kernels, dQ (which writes delta) then dK/dV (in two
+// passes at D = 256); fp32: delta, then the CUDA-core dK/dV and dQ.
 template <typename T, int D>
 int launch(const Args& a, cudaStream_t s) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  const int64_t rows = static_cast<int64_t>(a.B) * a.Sq * a.Hq;
-  const int delta_blocks =
-      static_cast<int>((rows + kThreads / 32 - 1) / (kThreads / 32));
-  attn_bwd_delta<T><<<delta_blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(a.out), dout, a.delta, rows, a.Sq, a.Hq, D,
-      a.counts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  if constexpr (std::is_same_v<T, __nv_bfloat16> && D <= 128) {
-    const size_t smem = tc_smem_bytes<D>();
-    err = allow_smem(attn_bwd_dkdv_tc<D>, smem);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const size_t smem = dq_smem_bytes<D>();
+    cudaError_t err = allow_smem(attn_bwd_dq_wg<D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid_kv((a.Sk + kTcKeys - 1) / kTcKeys, a.Hkv, a.B);
-    attn_bwd_dkdv_tc<D><<<grid_kv, kTcThreads, smem, s>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window,
-        a.softcap, a.scale);
+    const dim3 grid_q((a.Sq + kRows - 1) / kRows, a.Hq, a.B);
+    attn_bwd_dq_wg<D><<<grid_q, kWgThreads, smem, s>>>(
+        q, k, v, static_cast<const T*>(a.out), dout, a.lse, a.delta,
+        static_cast<T*>(a.dq), a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window,
+        a.softcap, a.scale, a.counts);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = allow_smem(attn_bwd_dq_tc<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid_q((a.Sq + kTcQRows - 1) / kTcQRows, a.Hq, a.B);
-    attn_bwd_dq_tc<D><<<grid_q, kTcThreads, smem, s>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.Sq, a.Sk,
-        a.Hq, a.Hkv, a.causal, a.window, a.softcap, a.scale);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (D == 256) {
+      err = launch_dkdv_wg<D, kDvOnly>(a, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = launch_dkdv_wg<D, kDkOnly>(a, s);
+    } else {
+      err = launch_dkdv_wg<D, kDkDv>(a, s);
+    }
+    return static_cast<int>(err);
   } else {
+    const int64_t rows = static_cast<int64_t>(a.B) * a.Sq * a.Hq;
+    attn_bwd_delta<T>
+        <<<static_cast<int>((rows + kThreads / 32 - 1) / (kThreads / 32)),
+           kThreads, 0, s>>>(static_cast<const T*>(a.out), dout, a.delta,
+                             rows, a.Sq, a.Hq, D, a.counts);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     const size_t smem = smem_bytes<D>();
     err = allow_smem(attn_bwd_dkdv<T, D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -5,19 +5,21 @@ Replaces no TPU kernel: the JAX package differentiates its plain
 ``full_attention`` with XLA's autodiff and has no backward kernel; this is
 the port's counterpart of that autodiff for the prefill kernel
 (``flash_attention``).  From q, k, v, the forward's out and its per-row
-log-sum-exp, and dO, three launches (delta = rowsum(dO * O); dK and dV a
-key tile at a time over the group's query heads; dQ a query tile at a time)
-give dq, dk, dv with no atomics, so the same inputs give the same bits.
-Causal mask, window and softcap as the forward, GQA summed over the group,
-ragged Sq / Sk; queries at positions 0.. (training has no query offset).
-bf16 at D <= 128 runs on the tensor cores (``mma.sync``); fp32 and bf16 at
-D = 256 on the CUDA cores.
+log-sum-exp, and dO, the kernels give dq, dk, dv with no atomics, so the
+same inputs give the same bits.  Causal mask, window and softcap as the
+forward, GQA summed over the group, ragged Sq / Sk; queries at positions
+0.. (training has no query offset).  bf16, at every head dim, runs on
+``wgmma`` from a two-stage ring of swizzled tiles: dQ a query tile at a
+time (it writes delta = rowsum(dO * O) first), then dK and dV a key tile
+at a time with the group's query heads dealt over a thread-block cluster
+that sums them in a fixed order (dV and dK in two launches at D = 256).
+fp32 runs on the CUDA cores: delta, dK/dV, dQ.
 Its plain version is ``ref.flash_attention_bwd_plain``;
 ``ops.flash_attention`` calls this from its ``autograd.Function``.
 
 ``flash_attention_bwd.counter`` (``build.LaunchCounter``) holds the calls
-the kernels count on the card (one call, three kernel launches: the
-first counts).
+the kernels count on the card (one call, two to three kernel launches:
+the first counts).
 """
 from __future__ import annotations
 

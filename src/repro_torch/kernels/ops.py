@@ -43,7 +43,9 @@ def grad_guard(kernel: str, *tensors: torch.Tensor) -> None:
 class _FlashAttention(torch.autograd.Function):
     """The prefill kernel with the hand-written backward kernel: the
     forward also writes each row's log-sum-exp and saves q, k, v, out and
-    lse for the backward."""
+    lse for the backward (``kernels/flash_attention_bwd.py``: in bf16
+    ``wgmma`` kernels, dK/dV summed over the group's heads by a cluster in
+    a fixed order)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, softcap, window, q_offset):

@@ -19,7 +19,9 @@ tile is a page.
 ``flash_attention_bwd_plain`` is the plain version of the prefill
 attention's backward kernel (the formulas written out, not autograd), and
 ``flash_attention_lse_ref`` the log-sum-exp the forward kernel writes for
-it.
+it; ``attention_bwd_split`` lists the work of the backward's bf16 CTAs
+and ``flash_attention_bwd_split_plain`` sums the gradients in their
+order.
 ``ssd_chunk_plain`` is the plain version of the SSD chunk kernel: it takes
 B/C per group, as the kernel does, where ``ssd_chunk_ref`` takes them
 already broadcast to heads.
@@ -121,6 +123,127 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=True,
     rep = Hq // Hkv
     dk = dk.reshape(B, Sk, Hkv, rep, D).sum(3)
     dv = dv.reshape(B, Sk, Hkv, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_split(B: int, Sq: int, Sk: int, Hq: int, Hkv: int,
+                        D: int, causal: bool = True, window: int = 0
+                        ) -> dict:
+    """The work of the backward kernel's bf16 launches
+    (``csrc/flash_attention_bwd.cu``), as its CTAs take it.
+
+    dK/dV: one CTA per (batch, KV head, 64-key tile, rank), the ranks
+    forming a cluster of ``split`` CTAs (the largest divisor of the group
+    up to 8); rank r walks the group's query heads r, r + split, .. and,
+    for each, the query steps (64 queries, 32 at D = 256) that see a key
+    of its tile.  dQ: one CTA per (batch, query head, 64-query tile)
+    walking the key steps (64 keys, 32 at D = 256) its queries see.
+    Returns {"split", "step", "dkdv": [(b, hk, k0, rank, [(h, q0), ..])],
+    "dq": [(b, h, q0, [k0, ..])]}.
+    """
+    rows, step = 64, (32 if D == 256 else 64)
+    group = Hq // Hkv
+    split = max(c for c in range(1, min(group, 8) + 1) if group % c == 0)
+    dkdv = []
+    for b in range(B):
+        for hk in range(Hkv):
+            for k0 in range(0, Sk, rows):
+                k_last = min(k0 + rows, Sk) - 1
+                qt_begin = k0 // step if causal else 0
+                q_stop = min(Sq, k_last + window) if window > 0 else Sq
+                qts = range(qt_begin, -(-q_stop // step))
+                for rank in range(split):
+                    heads = range(hk * group + rank, (hk + 1) * group, split)
+                    dkdv.append((b, hk, k0, rank,
+                                 [(h, qt * step) for h in heads
+                                  for qt in qts]))
+    dq = []
+    for b in range(B):
+        for h in range(Hq):
+            for q0 in range(0, Sq, rows):
+                kt_end = -(-Sk // step)
+                if causal:
+                    kt_end = min(kt_end, (min(q0 + rows, Sq) - 1) // step + 1)
+                kt_begin = max(0, q0 - window + 1) // step if window > 0 else 0
+                dq.append((b, h, q0, [kt * step
+                                      for kt in range(kt_begin, kt_end)]))
+    return {"split": split, "step": step, "dkdv": dkdv, "dq": dq}
+
+
+def flash_attention_bwd_split_plain(q, k, v, out, dout, lse, causal=True,
+                                    softcap=0.0, window=0):
+    """``flash_attention_bwd_plain`` summed in the bf16 kernels' order:
+    each dK/dV CTA of ``attention_bwd_split`` adds its steps' P^T dO and
+    dS^T Q into fp32 partials, a cluster's partials are summed in rank
+    order (dK then scaled), and each dQ CTA adds its steps' dS K.  P and dS
+    are rounded to bf16 as product operands where the inputs are bf16.
+    Returns (dq, dk, dv) in the inputs' dtype.
+    """
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / (D ** 0.5)
+    work = attention_bwd_split(B, Sq, Sk, Hq, Hkv, D, causal, window)
+    rows, step = 64, work["step"]
+    bf16 = q.dtype == torch.bfloat16
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
+    delta = (gf * of).sum(-1)                               # [B, Sq, Hq]
+
+    def tile(b, h, q0, nq, k0, nk):
+        """P and dS of queries [q0, q0 + nq), keys [k0, k0 + nk) of head
+        h, cut to the tensors' ends."""
+        hk = h // group
+        qs = slice(q0, min(q0 + nq, Sq))
+        ks = slice(k0, min(k0 + nk, Sk))
+        z = qf[b, qs, h] @ kf[b, ks, hk].T * scale
+        t = None
+        if softcap > 0:
+            t = torch.tanh(z / softcap)
+            z = softcap * t
+        qp = torch.arange(qs.start, qs.stop)[:, None]
+        kp = torch.arange(ks.start, ks.stop)[None, :]
+        ok = torch.ones_like(z, dtype=torch.bool)
+        if causal:
+            ok = ok & (kp <= qp)
+        if window > 0:
+            ok = ok & (kp > qp - window)
+        p = torch.where(ok, torch.exp(z - lse[b, h, qs, None]),
+                        torch.zeros_like(z))
+        dp = gf[b, qs, h] @ vf[b, ks, hk].T
+        ds = p * (dp - delta[b, qs, h, None])
+        if t is not None:
+            ds = ds * (1 - t * t)
+        if bf16:
+            p = p.to(torch.bfloat16).float()
+            ds = ds.to(torch.bfloat16).float()
+        return qs, ks, p, ds
+
+    dk = torch.zeros(B, Sk, Hkv, D)
+    dv = torch.zeros(B, Sk, Hkv, D)
+    parts = {}
+    for b, hk, k0, rank, steps in work["dkdv"]:
+        nk = min(k0 + rows, Sk) - k0
+        pdk, pdv = torch.zeros(nk, D), torch.zeros(nk, D)
+        for h, q0 in steps:
+            qs, ks, p, ds = tile(b, h, q0, step, k0, rows)
+            pdv += p.T @ gf[b, qs, h]
+            pdk += ds.T @ qf[b, qs, h]
+        parts.setdefault((b, hk, k0), []).append((rank, pdk, pdv))
+    for (b, hk, k0), ranked in parts.items():
+        ranked.sort(key=lambda x: x[0])
+        sk, sv = ranked[0][1].clone(), ranked[0][2].clone()
+        for _, pdk, pdv in ranked[1:]:
+            sk += pdk
+            sv += pdv
+        dk[b, k0:k0 + sk.shape[0], hk] = sk * scale
+        dv[b, k0:k0 + sv.shape[0], hk] = sv
+    dq = torch.zeros(B, Sq, Hq, D)
+    for b, h, q0, k0s in work["dq"]:
+        acc = torch.zeros(min(q0 + rows, Sq) - q0, D)
+        for k0 in k0s:
+            qs, ks, _, ds = tile(b, h, q0, rows, k0, step)
+            acc += ds @ kf[b, ks, h // group]
+        dq[b, q0:q0 + acc.shape[0], h] = acc * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

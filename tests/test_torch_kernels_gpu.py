@@ -979,12 +979,19 @@ def test_real_validation_on_the_card_equals_the_cpu(cuda, no_tf32):
 
 
 # B2's backward: name, B, S, Hq, Hkv, D, softcap, window (every head dim,
-# groups of 1, 3 and 8, ragged S, a window and a softcap)
+# groups of 1, 3, 5 and 8, ragged S, a window and a softcap).  The last
+# three make the bf16 kernels' split show: a group of 8 summed over a
+# cluster of 8 CTAs at an S that is no multiple of a tile (64 keys, 64 or
+# 32 queries a step), hymba's group of 5 under a window, and gemma2-2b's
+# D = 256 (two dK/dV passes, 32-row steps) with its softcap and a window
 BWD_CASES = [
     ("d32-group1", 2, 77, 4, 4, 32, 0.0, 0),
     ("d64-group3", 2, 100, 12, 4, 64, 0.0, 0),
     ("d128-group8-cap", 1, 130, 32, 4, 128, 30.0, 0),
     ("d256-window-cap", 1, 99, 8, 4, 256, 50.0, 40),
+    ("d128-group8-s651", 1, 651, 16, 2, 128, 0.0, 0),
+    ("d64-group5-window", 2, 333, 10, 2, 64, 0.0, 100),
+    ("d256-cap-window-s517", 1, 517, 4, 2, 256, 50.0, 200),
 ]
 # a bf16 gradient row's largest value is floored at this share of the
 # tensor's: the first query's dq is zero in exact arithmetic, and both
@@ -1037,6 +1044,32 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, name, B, S,
     for g, w in zip(got, want):
         assert g.dtype == dtype
         grad_close(g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,S,Hq,Hkv,D,cap,win", BWD_CASES[4:],
+                         ids=[c[0] for c in BWD_CASES[4:]])
+def test_flash_attention_bwd_sums_heads_in_a_fixed_order(cuda, name, B, S,
+                                                         Hq, Hkv, D, cap,
+                                                         win):
+    """bf16: dK and dV, summed over each group's query heads by a cluster
+    of CTAs in rank order, come out bit-equal on every call, also with
+    other launches between the calls."""
+    q, k, v = (t.to(torch.bfloat16) for t in to_torch(
+        *flash_inputs(24, B, S, S, Hq, Hkv, D), device=cuda))
+    dout = torch.from_numpy(np.random.RandomState(25).randn(
+        B, S, Hq, D).astype(np.float32)).to(cuda, torch.bfloat16)
+    out, lse = tfa.flash_attention(q, k, v, softcap=cap, window=win,
+                                   with_lse=True)
+    first = tfab.flash_attention_bwd(q, k, v, out, dout, lse, softcap=cap,
+                                     window=win)
+    for i in range(3):
+        tfa.flash_attention(*(t[:, :S - 7 * i].contiguous()
+                              for t in (q, k, v)))
+        again = tfab.flash_attention_bwd(q, k, v, out, dout, lse,
+                                         softcap=cap, window=win)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.gpu
