@@ -115,26 +115,33 @@ table):
      offset), then granite-moe-3b-a800m (32) paged, bf16, random weights
      from a seeded generator,
      each run serving 8 requests through ``ServingEngine`` (graphed: the
-     unsharded paged engine's decode horizons and chunk forwards replay
-     one CUDA graph per shape key, ``serving/graphs.py``; every engine of
-     phases 4 and 5 runs so unless its configuration keeps it eager); the
-     launch
-     counters are set to 0 just before each run and read just after it,
+     unsharded engine's one-shot prefills, paged decode horizons and
+     chunk forwards replay one CUDA graph per shape key,
+     ``serving/graphs.py``; every engine of phases 4 and 5 runs so unless
+     its configuration keeps it eager: the dense decode, sharded engines);
+     the launch counters are set to 0 just before each run and read just after it,
      every kernel on that run's path must have launched (and the dense run
      no paged decode, the chunked run the prefill kernel more than once per
      layer and request); at least 90 % of the generated tokens must equal a
      teacher-forced forward's argmax; then, on the same weights, the
-     "graphs" job (``GRAPHS_RUNS``: yi-9b paged and chunked, hymba-1.5b
-     and olmoe-1b-7b paged): the run's job served by an eager engine
-     (``graphs=False``) and by a graphed one, cold (each key captured at
-     its first use) and warm (a second pass of the same prompts), each
-     pass's wall, TTFT, decode rate, decode_syncs, B1 (and combine)/B2
-     (and offset)/B4 launches (every kernel counts its own launches on
-     the card, so a replay's count as eager ones), captures, capture
-     seconds, replays and reserved memory printed; the graphed streams,
-     decode_syncs and launches must equal the eager engine's, the warm
-     pass capture nothing, and dropping the graphed engine give its
-     memory back; then the "migrate" runs: yi-9b by
+     "graphs" job (``GRAPHS_RUNS``: yi-9b paged, chunked and sampled (the
+     paged run with ``greedy=False``: the counter-based sampler inside the
+     decode graphs), hymba-1.5b and olmoe-1b-7b paged): the run's job
+     served by an eager engine (``graphs=False``) and by a graphed one
+     three times: cold (each decode and chunk key captured at its first
+     use, each prefill key run eagerly), second (the same prompts, the
+     sampler restarted: each prefill key captured at its second call)
+     and warm (a third pass, replays only), each pass's wall, TTFT,
+     decode rate, decode_syncs, B1 (and combine)/B2 (and offset)/B4
+     launches (every kernel counts its own launches on the card, so a
+     replay's count as eager ones), the prefill groups run eagerly,
+     captured and replayed apart from decode and chunk captures and
+     replays, capture seconds and reserved memory printed, and the four
+     TTFTs side by side; the graphed streams, decode_syncs and launches
+     must equal the eager engine's, the second pass capture only prefill
+     keys, the warm pass capture nothing and replay every prefill the
+     cold pass ran, and dropping the graphed engine give its memory back;
+     then the "migrate" runs: yi-9b by
      handoff, copy, relayout and re-prefill, hymba-1.5b by handoff, copy
      and re-prefill.  The paged job's source
      serves until every request has 8 tokens, ``migrate_batch`` moves all
@@ -173,7 +180,9 @@ table):
      handoffs, nothing recomputed); each run must launch the paged
      decode and prefill kernels, finish 16 x 32 tokens, leave the pool
      whole and meet the 90 % agreement, and prints its switch or
-     recovery stalls, TTFT and decode rate beside the card's line; last,
+     recovery stalls, TTFT and decode rate beside the card's line (the
+     migrate and cluster jobs also print how many of their prefill groups
+     ran eagerly, were captured or replayed); last,
      on each model's weights after its other runs, its "sharded" job: the
      paged job on replica meshes of virtual chips, every entry this card
      (``SHARDED_RUNS``): (tp 1, pp 1) gives the paged run's tokens to the
@@ -401,9 +410,11 @@ FULL_WIDTH = (
     )),
 )
 # phase 5's "graphs" job: the runs (by variant name) served by one eager
-# and one graphed engine on the same prompts, the graphed one twice
-GRAPHS_RUNS = {"yi-9b": ("paged", "chunked"), "hymba-1.5b": ("paged",),
-               "olmoe-1b-7b": ("paged",)}
+# and one graphed engine on the same prompts, the graphed one twice;
+# GRAPHS_SAMPLED's runs are a variant's options with sampled decoding
+GRAPHS_RUNS = {"yi-9b": ("paged", "chunked", "sampled"),
+               "hymba-1.5b": ("paged",), "olmoe-1b-7b": ("paged",)}
+GRAPHS_SAMPLED = {"sampled": "paged"}
 # the launch counts (``ops.launch_counts``) the graphed runs must match the
 # eager ones on: B1 and its split combine, B2 and its offset launches, B4
 GRAPHS_COUNTED = ("paged_decode", "paged_decode_combine", "flash_attention",
@@ -3223,8 +3234,10 @@ def phase_full_width(ops, arch: str, variants: tuple,
     runs = []
     for var in variants:
         kw = dict(FULL_WIDTH_ENGINE, **var.options)
-        # warm-up: cuBLAS handles, allocator, kernel modules
-        serve(cfg, params, [np.arange(64, dtype=np.int32)], 4, "cuda", **kw)
+        # warm-up: cuBLAS handles, allocator, kernel modules (eager: the
+        # run's own engine captures its steps)
+        serve(cfg, params, [np.arange(64, dtype=np.int32)], 4, "cuda",
+              **dict(kw, graphs=False))
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         fin, eng, wall = serve(cfg, params, prompts, 32, "cuda", **kw)
@@ -3281,7 +3294,11 @@ def phase_full_width(ops, arch: str, variants: tuple,
         # the next run's engine must not meet this one's pool
         del fin, eng
     for name in GRAPHS_RUNS.get(arch, ()):
-        var, = [v for v in variants if v.name == name]
+        base = GRAPHS_SAMPLED.get(name, name)
+        var, = [v for v in variants if v.name == base]
+        if name in GRAPHS_SAMPLED:
+            var = var._replace(name=name,
+                               options=dict(var.options, greedy=False))
         failures += phase_graphs(ops, cfg, params, prompts, var)
         torch.cuda.empty_cache()
     if arch in COST_MODEL_MODELS:
@@ -3290,15 +3307,19 @@ def phase_full_width(ops, arch: str, variants: tuple,
                 "num_blocks", FULL_WIDTH_ENGINE["num_blocks"]))
             + f"; {card_line()}")
     for path in MIGRATE.get(arch, ()):
-        failures += phase_migrate(ops, cfg, params, prompts, path,
-                                  runs[0]["streams"])
+        with prefill_tally() as tally:
+            failures += phase_migrate(ops, cfg, params, prompts, path,
+                                      runs[0]["streams"])
+        log(f"  [migrate {path}] {prefill_share(tally)}")
         torch.cuda.empty_cache()
     if arch in PREFIX_MODELS:
         failures += phase_prefix(ops, cfg, params)
         failures += phase_evict(ops, cfg, params)
         torch.cuda.empty_cache()
     if arch in CLUSTER_MODELS:
-        failures += phase_cluster(ops, cfg, params)
+        with prefill_tally() as tally:
+            failures += phase_cluster(ops, cfg, params)
+        log(f"  [cluster] {prefill_share(tally)}")
         torch.cuda.empty_cache()
     if arch in SHARDED_RUNS:
         failed, sharded_runs = phase_sharded(ops, cfg, params, prompts,
@@ -3323,6 +3344,52 @@ def graph_counts(ops) -> dict:
     return {k: counts[k] for k in GRAPHS_COUNTED}
 
 
+def step_counts(eng) -> tuple:
+    """(compiled-step calls run eagerly at an ``ON_REUSE`` key's first
+    call, entries built and calls replayed, by kind; capture seconds;
+    decode_syncs) of ``eng`` so far."""
+    st = eng._steps
+    return (collections.Counter(st.eager), collections.Counter(st.built),
+            collections.Counter(st.replayed), st.capture_s, eng.decode_syncs)
+
+
+PREFILL_WAYS = ("eager", "built", "replayed")
+
+
+@contextlib.contextmanager
+def prefill_tally():
+    """Counts, over every engine that serves inside the block, how the
+    one-shot prefill groups ran: eagerly at their key's first call, built
+    (captured) at its second, or replayed."""
+    from repro_torch.serving import graphs
+    tally = collections.Counter()
+    run = graphs.StepGraphs.run
+
+    def counting(self, key, inputs, step, reads):
+        if key[0] != "prefill":
+            return run(self, key, inputs, step, reads)
+        before = [getattr(self, w)["prefill"] for w in PREFILL_WAYS]
+        out = run(self, key, inputs, step, reads)
+        for w, n in zip(PREFILL_WAYS, before):
+            tally[w] += getattr(self, w)["prefill"] - n
+        return out
+
+    graphs.StepGraphs.run = counting
+    try:
+        yield tally
+    finally:
+        graphs.StepGraphs.run = run
+
+
+def prefill_share(tally) -> str:
+    """A ``prefill_tally``'s groups and the share of them replayed."""
+    n = sum(tally[w] for w in PREFILL_WAYS)
+    share = tally["replayed"] / n if n else 0.0
+    return (f"{n} prefill groups: {tally['eager']} eager at their key's "
+            f"first call, {tally['built']} captured at its second, "
+            f"{tally['replayed']} replayed (replayed share {share:.3f})")
+
+
 def reserved_gib() -> float:
     """The caching allocator's reserved device memory after a garbage
     collection and ``empty_cache``: what live tensors and graph pools
@@ -3335,66 +3402,87 @@ def reserved_gib() -> float:
 
 def phase_graphs(ops, cfg, params, prompts, var) -> list[str]:
     """The "graphs" job of one phase-5 run: the job served by an eager
-    engine (``graphs=False``), then by a graphed one (the default: a cold
-    pass that captures each key on its first use, and a warm second pass
-    of the same prompts that only replays).  Prints each pass's wall, TTFT,
-    decode rate, decode_syncs, launches (as the kernels counted them on
-    the card, replays included) and captures, and the reserved device
-    memory before the job, with each engine alive and after each is
-    dropped; returns the failed checks: the graphed streams equal the
-    eager ones token for token, and so do decode_syncs and the B1 (and
-    combine), B2 (and offset) and B4 launches; the warm pass captures
-    nothing; dropping the graphed engine gives its memory back (within
-    ``GRAPHS_MEM_SLACK_GIB`` of the reading before the job)."""
+    engine (``graphs=False``), then by a graphed one (the default) three
+    times: a cold pass that captures each decode and chunk key on its
+    first use and runs each prefill key eagerly, a second pass of the
+    same prompts that captures the prefill keys (``graphs.ON_REUSE``: a
+    prefill key is captured at its second call) and a warm third that
+    only replays; a sampled run's sampler restarts each pass, so every
+    pass draws as the others.  Prints each pass's wall, TTFT, decode
+    rate, decode_syncs, launches (as the kernels counted them on the card,
+    replays included), the prefill groups run eagerly, captured and
+    replayed apart from the decode and chunk steps' captures and replays,
+    capture seconds, and the reserved device memory before the job, with
+    each engine alive and after each is dropped; returns the failed
+    checks: the graphed streams equal the eager ones token for token, and
+    so do decode_syncs and the B1 (and combine), B2 (and offset) and B4
+    launches; the second pass captures no decode or chunk key and runs no
+    prefill eagerly; the warm pass captures nothing and replays each
+    prefill the cold pass ran; dropping the graphed engine gives its
+    memory back (within ``GRAPHS_MEM_SLACK_GIB`` of the reading before the
+    job)."""
     tag = f"[graphs {cfg.name} {var.name}]"
     kw = dict(FULL_WIDTH_ENGINE, **var.options)
     passes, failed = {}, []
     mem = {"before": reserved_gib()}
     eng = None
-    for label in ("eager", "cold", "warm"):
+    labels = ("eager", "cold", "second", "warm")
+    for n, label in enumerate(labels):
         ops.reset_launch_counts()
-        if label == "warm":
-            # the cold pass's schedule again: the chunk rotation restarts
+        if label in ("second", "warm"):
+            # the cold pass's schedule again: the chunk rotation and the
+            # sampler restart
             eng._chunk_rr = 0
-            before = (eng.graph_captures, eng.graph_replays, eng.capture_s,
-                      eng.decode_syncs)
-            fin, wall = serve_on(eng, prompts, 32, rid0=len(prompts))
+            eng._sample_step = 0
+            eng._gen.manual_seed(eng.seed)
+            before = step_counts(eng)
+            fin, wall = serve_on(eng, prompts, 32, rid0=n * len(prompts))
         else:
             fin, eng, wall = serve(cfg, params, prompts, 32, "cuda",
                                    graphs=label == "cold", **kw)
-            before = (0, 0, 0.0, 0)
+            before = (collections.Counter(), collections.Counter(),
+                      collections.Counter(), 0.0, 0)
         ttft, rate = serving_times(fin, wall)
+        after = step_counts(eng)
+        eager, built, replayed = (after[i] - before[i] for i in range(3))
         p = {"streams": {r: fin[r].generated for r in fin},
              "counts": graph_counts(ops),
-             "captures": eng.graph_captures - before[0],
-             "replays": eng.graph_replays - before[1],
-             "capture_s": eng.capture_s - before[2],
-             "syncs": eng.decode_syncs - before[3]}
+             "captures": sum(built.values()),
+             "replays": sum(replayed.values()),
+             "prefill": (eager["prefill"], built["prefill"],
+                         replayed["prefill"]),
+             "capture_s": after[3] - before[3],
+             "syncs": after[4] - before[4],
+             "ttft_ms": float(np.mean(ttft)) * 1e3}
         passes[label] = p
         del fin
         mem[label] = reserved_gib()
+        steps = p["captures"] - built["prefill"], p["replays"] - replayed[
+            "prefill"]
         log(f"  {tag} {label}: wall {wall:.3f} s  TTFT mean "
-            f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms  "
+            f"{p['ttft_ms']:.1f} ms max {np.max(ttft) * 1e3:.1f} ms  "
             f"decode {rate:.1f} tok/s  decode_syncs {p['syncs']}  "
-            f"launches {p['counts']}  graph_captures {p['captures']}  "
-            f"capture_s {p['capture_s']:.3f}  graph_replays "
-            f"{p['replays']}  reserved {mem[label]:.3f} GiB; {card_line()}")
+            f"launches {p['counts']}  prefill eager/captured/replayed "
+            f"{'/'.join(map(str, p['prefill']))}  decode/chunk captures "
+            f"{steps[0]} replays {steps[1]}  capture_s "
+            f"{p['capture_s']:.3f}  reserved {mem[label]:.3f} GiB; "
+            f"{card_line()}")
         if label == "eager":
             # the graphed engine must not meet the eager one's pool
             del eng
             mem["eager dropped"] = reserved_gib()
-    keys = len(eng._steps.entries)
+    keys, evicted = len(eng._steps.entries), sum(eng._steps.evicted.values())
     del eng
     mem["graphed dropped"] = reserved_gib()
     log(f"  {tag} reserved GiB {mem}: the graphed engine's {keys} steps "
-        f"and their pool hold {mem['warm'] - mem['eager']:.3f} GiB beyond "
-        f"the eager engine's")
+        f"({evicted} prefill entries evicted) and their pool hold "
+        f"{mem['warm'] - mem['eager']:.3f} GiB beyond the eager engine's")
     if mem["graphed dropped"] > mem["before"] + GRAPHS_MEM_SLACK_GIB:
         failed.append(f"{tag}: {mem['graphed dropped']:.3f} GiB reserved "
                       f"after the graphed engine was dropped, "
                       f"{mem['before']:.3f} GiB before the job")
     want = passes["eager"]
-    for label in ("cold", "warm"):
+    for label in labels[1:]:
         got = passes[label]
         same = sum(got["streams"][r] == want["streams"][r]
                    for r in want["streams"])
@@ -3411,12 +3499,24 @@ def phase_graphs(ops, cfg, params, prompts, var) -> list[str]:
         if got["counts"] != want["counts"]:
             failed.append(f"{tag} {label}: launches {got['counts']} != "
                           f"eager {want['counts']}")
-    if passes["cold"]["captures"] < 1 or passes["warm"]["replays"] < 1:
+    cold, second, warm = passes["cold"], passes["second"], passes["warm"]
+    if cold["captures"] < 1 or warm["replays"] < 1:
         failed.append(f"{tag}: the graphed engine captured or replayed "
                       "nothing")
-    if passes["warm"]["captures"]:
-        failed.append(f"{tag} warm: {passes['warm']['captures']} captures "
-                      "on a second pass of the same prompts")
+    if second["captures"] != second["prefill"][1] or second["prefill"][0]:
+        failed.append(f"{tag} second: {second['captures']} captures, "
+                      f"prefill eager/captured/replayed {second['prefill']}:"
+                      " only the prefill keys may be captured, none run "
+                      "eagerly")
+    if warm["captures"]:
+        failed.append(f"{tag} warm: {warm['captures']} captures on a third "
+                      "pass of the same prompts")
+    cold_prefills = sum(cold["prefill"])
+    if warm["prefill"][2] != cold_prefills:
+        failed.append(f"{tag} warm: {warm['prefill'][2]} prefills replayed, "
+                      f"the cold pass ran {cold_prefills}")
+    log(f"  {tag} TTFT mean: " + ", ".join(
+        f"{label} {passes[label]['ttft_ms']:.1f} ms" for label in labels))
     return failed
 
 

@@ -11,4 +11,5 @@ from repro_torch.models.model import (  # noqa: F401
     param_count,
     prefill,
     prefill_chunk,
+    prefill_paged,
 )

@@ -55,6 +55,27 @@ def full_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return out.reshape(B, S, cfg.q_dim) @ p["wo"], k, v
 
 
+def write_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                ) -> None:
+    """A one-shot prefill's K/V written into its pages IN PLACE.
+
+    k_pages / v_pages: [P, Hkv, page, D] one layer's pool; pages [B, n]
+    int32 page ids, n = ceil(S / page), distinct; k / v [B, S, Hkv, D].
+    Whole pages are written, the last one's tail past S with zeros, as the
+    JAX package's ``write_prefill`` pads.  The ids are read on the device
+    only."""
+    B, S, Hkv, D = k.shape
+    page = k_pages.shape[2]
+    n = pages.shape[1]
+    pad = (0, 0, 0, 0, 0, n * page - S)
+    idx = pages.long()
+    for pool, new in ((k_pages, k), (v_pages, v)):
+        blocks = torch.nn.functional.pad(new, pad).reshape(
+            B, n, page, Hkv, D).transpose(2, 3)          # [B, n, Hkv, page, D]
+        pool.index_put_((idx,), blocks.to(pool.dtype))
+
+
 def _decode_window(pos: torch.Tensor, cfg: ModelConfig, is_local: bool):
     """(lens, start) int32 of a decode step writing at ``pos``: it attends
     to [start, pos + 1), the last ``local_window`` positions on a local

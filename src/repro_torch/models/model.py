@@ -19,6 +19,8 @@ Entry points:
       trainer)
   prefill(params, cfg, tokens|embeds)          -> (logits [B, Vpad],
                                                    PrefillCache)
+  prefill_paged(params, cfg, tokens, k, v, pages, ssm, conv, slots)
+      -> logits [B, Vpad], the caches written into the engine's pool
   prefill_chunk(params, cfg, tokens, k, v, table, start, n_valid, trash)
       -> logits [B, Vpad] at position start + n_valid - 1
   decode_step(params, cfg, tokens, cache)      -> (logits, DecodeCache)
@@ -44,7 +46,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, rms_norm, sincos_embedding, softcap
-from repro_torch.models.sampling import sample, step_generator
+from repro_torch.models.sampling import sample_step
 
 
 @dataclasses.dataclass
@@ -326,6 +328,22 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
     return logits
 
 
+def _prefill_layers(params, cfg: ModelConfig, tokens, embeds, keep
+                    ) -> torch.Tensor:
+    """The one-shot prefill's forward: each layer's caches (k, v, ssm,
+    conv; None where the model has none) go to ``keep(layer, caches)`` as
+    the layer ends, so nothing holds them past it.  Returns the last
+    token's logits [B, Vpad] fp32."""
+    B, S, device = _shape(tokens, embeds)
+    positions = _positions(B, S, device)
+    x = embed_inputs(params, cfg, tokens, embeds, positions)
+    for layer in range(cfg.n_layers):
+        x, caches = _block(x, layer_params(params["blocks"], layer), cfg,
+                           layer, positions)
+        keep(layer, caches)
+    return lm_logits(params, cfg, x[:, -1:, :])[:, 0]
+
+
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None):
     """One-shot prefill of same-length prompts.
@@ -335,22 +353,44 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
     [L, B, H, P, N] and the conv window [L, B, W - 1, conv_ch], each None
     where the model has none).
     """
-    B, S, device = _shape(tokens, embeds)
-    positions = _positions(B, S, device)
-    x = embed_inputs(params, cfg, tokens, embeds, positions)
     # each layer's caches go straight into the layer-stacked tensors, so a
     # layer's own copy is freed with it (no list of L copies to stack)
     stacked = [None] * 4
-    for layer in range(cfg.n_layers):
-        x, caches = _block(x, layer_params(params["blocks"], layer), cfg,
-                           layer, positions)
+
+    def keep(layer, caches):
         for i, c in enumerate(caches):
             if c is not None:
                 if stacked[i] is None:
                     stacked[i] = c.new_empty((cfg.n_layers, *c.shape))
                 stacked[i][layer] = c
-    logits = lm_logits(params, cfg, x[:, -1:, :])[:, 0]
+
+    logits = _prefill_layers(params, cfg, tokens, embeds, keep)
     return logits, PrefillCache(*stacked)
+
+
+def prefill_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  k: torch.Tensor | None, v: torch.Tensor | None,
+                  pages: torch.Tensor, ssm: torch.Tensor | None,
+                  conv: torch.Tensor | None, slots: torch.Tensor
+                  ) -> torch.Tensor:
+    """One-shot prefill of same-length prompts written into the serving
+    engine's state in place: ``prefill``'s forward, each layer's K/V
+    written into the sequences' pages of the pools k/v [L, P, Hkv, page,
+    D] (``attention.write_pages``; pages [B, ceil(S / page)] int32, the
+    last page's tail zeroed) and its final SSM state and conv window into
+    rows ``slots`` [B] of ssm [L, rows, H, P, N] / conv [L, rows, W - 1,
+    conv_ch].  Every index is a device tensor and nothing is read back to
+    the host, so one captured CUDA graph per (B, S) serves every group of
+    that shape.  Returns the last token's logits [B, Vpad] fp32."""
+    def keep(layer, caches):
+        k_new, v_new, state, window = caches
+        if k_new is not None:
+            attn_lib.write_pages(k[layer], v[layer], pages, k_new, v_new)
+        if state is not None:
+            ssm[layer].index_copy_(0, slots, state.to(ssm.dtype))
+            conv[layer].index_copy_(0, slots, window.to(conv.dtype))
+
+    return _prefill_layers(params, cfg, tokens, None, keep)
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -461,7 +501,7 @@ def decode_step_paged(params, cfg: ModelConfig, tokens: torch.Tensor | None,
 def decode_loop_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                       state: PagedDecodeState, horizon: int, *,
                       temperature: float = 0.0, seed: int = 0,
-                      step0: int = 0, step=None):
+                      step0: int | torch.Tensor = 0, step=None):
     """``horizon`` decode steps with the tokens kept on the device.
 
     The scatter-first loop: each step writes its K/V token into the pool
@@ -469,19 +509,18 @@ def decode_loop_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     back.  Nothing here reads a value back to the host; the caller makes
     one transfer of the returned [B, horizon] block per horizon.  Page
     capacity for ``horizon`` more tokens per sequence must already be in
-    the block table.  With ``temperature > 0`` step ``step0 + i`` samples from
-    ``step_generator(seed, step0 + i)``, so sampled streams do not depend
-    on the horizon.  ``step`` replaces ``decode_step_paged``
-    (``models.sharded`` passes its own, with ``params`` its
-    ``ShardedModel``).
+    the block table.  With ``temperature > 0`` step ``step0 + i`` samples
+    with ``sampling.sample_step(seed, step0 + i)``, so sampled streams do
+    not depend on the horizon; ``step0`` is an int or an int64 device
+    scalar (the decode graph's buffer: one capture serves every step).
+    ``step`` replaces ``decode_step_paged`` (``models.sharded`` passes its
+    own, with ``params`` its ``ShardedModel``).
     Returns (tokens [B, horizon] int32, state with lens + horizon).
     """
     step = step or decode_step_paged
     out = []
     for i in range(horizon):
         logits, state = step(params, cfg, tokens, state)
-        gen = (step_generator(seed, step0 + i, tokens.device)
-               if temperature > 0 else None)
-        tokens = sample(logits, cfg, gen, temperature=temperature)
+        tokens = sample_step(logits, cfg, seed, step0 + i, temperature)
         out.append(tokens)
     return torch.stack(out, dim=1), state

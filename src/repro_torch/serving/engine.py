@@ -25,29 +25,42 @@ buckets, and the horizon to a power-of-two floor of the safe step count
 (``min(decode_horizon, min remaining max_new_tokens)``, collapsed to 1 on a
 step that admitted a request).  Page capacity for the whole horizon is
 pre-extended against the admission-time reservation, so the device loop
-never needs a host allocation.  Under greedy decoding the token stream is
-the same for every horizon.
+never needs a host allocation.  The token stream is the same for every
+horizon: greedy, or sampled with a counter-based generator keyed by
+(seed, global decode step, batch row) (``sampling.sample_step``).
 
 ``step_async()`` runs the host scheduling and fires the decode without
 reading it back; ``finish_step(pending)`` performs the transfer and
 retirement; ``step()`` is their composition.
 
 The compiled step (``serving.graphs``), as the JAX engine jits its hot
-path: on an unsharded paged engine the whole device half of a decode
-horizon (the slots' table, lens and SSM row gathers, the loop, the
-scatter back and the trash slot's lens pinned to 0) is one step per
-(batch bucket, page bucket, horizon), and on any unsharded engine a chunk
-forward is one per (chunk bucket, page bucket) with ``start`` and
-``n_valid`` as device scalars.
-On the card the first call of a key runs eagerly and is then captured as
-a CUDA graph; later calls copy their inputs into the key's buffers and
-replay it (``graph_captures``, ``graph_replays``, ``capture_s``; not in
-``load_stats()``).  On the CPU the same buffers are reused and nothing is
-captured.  What stays eager, chosen by configuration: the one-shot
-prefill (shaped per prompt length), the dense mode's decode (its gather
-is sized per step by the longest context), sharded engines, and a sampled
-decode (its per-step ``torch.Generator`` cannot be captured).  ``graphs=False`` runs it all
-eagerly, with ``start``/``n_valid`` as host ints.
+path, on every unsharded engine:
+- a one-shot prefill group is one step per (group size, prompt length),
+  the JAX engine's ``_prefill`` keys (lengths are not bucketed: a padded
+  prompt would also run an SSD scan over its pad).  Its inputs are the
+  tokens, the slots and their page ids; it writes the K/V pages and the
+  slots' SSM and conv rows in place (``models.prefill_paged``) and
+  returns the last-token logits, from which the host picks the first
+  tokens (``_pick``, whose ``torch.Generator`` stays outside);
+- on a paged engine, the whole device half of a decode horizon (the
+  slots' table, lens and SSM row gathers, the loop with its sampling,
+  the scatter back and the trash slot's lens pinned to 0) is one step
+  per (batch bucket, page bucket, horizon), greedy or sampled: the
+  sampler's global step is an input buffer (``step0``);
+- a chunk forward is one per (chunk bucket, page bucket) with ``start``
+  and ``n_valid`` as device scalars.
+On the card the first call of a decode or chunk key runs eagerly and is
+then captured as a CUDA graph; later calls copy their inputs into the
+key's buffers and replay it (``graph_captures``, ``graph_replays``,
+``capture_s``; not in ``load_stats()``).  A prefill key, a prompt length
+that traffic need not repeat, runs eagerly at its first call and is
+captured at its second; the 64 most recently called prefill entries are
+kept (``graphs.ON_REUSE``, ``REUSE_CAP``).  On the CPU the same buffers are reused and nothing is
+captured.  What stays eager, chosen by configuration: the dense mode's
+decode (its gather is sized per step by the longest context; JAX
+compiles it per step length too, and it is ``bench_engine``'s A/B
+baseline) and sharded engines.  ``graphs=False`` runs it all eagerly,
+with ``start``/``n_valid`` as host ints.
 
 Models with SSM layers (mamba2, hymba) keep one SSM state and conv window
 row per slot on the device: prefill writes a request's rows, each decode
@@ -134,8 +147,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import (DecodeCache, PagedDecodeState,
-                                decode_loop_paged, decode_step, prefill,
-                                prefill_chunk)
+                                decode_loop_paged, decode_step,
+                                prefill_chunk, prefill_paged)
 from repro_torch.models import sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sampling import sample
@@ -271,9 +284,9 @@ class ServingEngine:
         it.  ``prefix_cache`` turns on the pool's prefix cache (ignored for
         models with SSM layers or no attention).  ``clock``,
         ``telemetry``, ``trace_id`` and ``role``: see the module
-        docstring.  ``graphs=False`` runs the decode horizon and the chunk
-        forward eagerly where the configuration would compile them (see
-        the module docstring).
+        docstring.  ``graphs=False`` runs the one-shot prefill, the decode
+        horizon and the chunk forward eagerly where the configuration
+        would compile them (see the module docstring).
 
         ``mesh`` (``launch.mesh.make_replica_mesh``) + ``shard_plan``
         (``launch.sharding.make_plan(cfg, "serve", ...)``) run the replica
@@ -301,7 +314,7 @@ class ServingEngine:
         self.device = torch.device(device)
         self._mesh = mesh
         self._shard_plan = shard_plan
-        self._prefill, self._prefill_chunk = prefill, prefill_chunk
+        self._prefill_chunk = prefill_chunk
         self._decode_loop = decode_loop_paged
         if mesh is not None:
             if shard_plan is None:
@@ -312,7 +325,6 @@ class ServingEngine:
             self.params = sharded.ShardedModel.build(params, cfg,
                                                      shard_plan, mesh)
             self.device = mesh.first
-            self._prefill = sharded.prefill
             self._prefill_chunk = sharded.prefill_chunk
             self._decode_loop = sharded.decode_loop_paged
         self.decode_mode = decode_mode
@@ -359,8 +371,8 @@ class ServingEngine:
         # tokens that went through a prefill forward (one-shot or chunked),
         # re-prefilled contexts included; a page import adds none
         self.prefill_tokens = 0
-        # global decode-step counter: step t samples from
-        # step_generator(seed, t) in every horizon
+        # global decode-step counter: step t samples with
+        # sampling.sample_step(seed, t) in every horizon
         self._sample_step = 0
         # one increment per decode device->host sync (one per horizon)
         self.decode_syncs = 0
@@ -398,13 +410,12 @@ class ServingEngine:
                 self.prefix_cache.telemetry = self.telemetry
         # (rid, cached tokens, context tokens) per admission
         self.prefix_events: list[tuple[int, int, int]] = []
-        # the compiled steps: the chunk forward of an unsharded engine (in
-        # both modes the same forward over the paged pool), and its paged
-        # decode horizon when greedy
+        # the compiled steps of an unsharded engine: the one-shot prefill
+        # and the chunk forward (in both modes the same forwards over the
+        # paged pool), and the paged mode's decode horizon
         self._steps = StepGraphs(self.device)
-        self._chunk_graphs = graphs and mesh is None
-        self._decode_graphs = (self._chunk_graphs and greedy
-                               and decode_mode == "paged")
+        self._graphs = graphs and mesh is None
+        self._decode_graphs = self._graphs and decode_mode == "paged"
 
     @property
     def graph_captures(self) -> int:
@@ -824,14 +835,17 @@ class ServingEngine:
         for pl, group in by_len.items():
             toks = torch.from_numpy(
                 np.stack([r.prefill_tokens for r in group])).to(self.device)
-            logits, cache = self._prefill(self.params, self.cfg, toks)
-            for i, r in enumerate(group):
-                if self.cfg.has_attn:
-                    self.cache.write_prefill(r.slot, cache.k[:, i],
-                                             cache.v[:, i])
-                if self.cfg.has_ssm:
-                    self.cache.ssm[:, r.slot] = cache.ssm[:, i]
-                    self.cache.conv[:, r.slot] = cache.conv[:, i]
+            if self._mesh is None:
+                logits = self._prefill_group(group, toks)
+            else:
+                logits, cache = sharded.prefill(self.params, self.cfg, toks)
+                for i, r in enumerate(group):
+                    if self.cfg.has_attn:
+                        self.cache.write_prefill(r.slot, cache.k[:, i],
+                                                 cache.v[:, i])
+                    if self.cfg.has_ssm:
+                        self.cache.ssm[:, r.slot] = cache.ssm[:, i]
+                        self.cache.conv[:, r.slot] = cache.conv[:, i]
             first = self._pick(logits)           # one sync per group
             self.prefill_tokens += pl * len(group)
             t_first = self.clock()
@@ -844,6 +858,29 @@ class ServingEngine:
                 if fresh:
                     self._note_first_token(r, t_first)
                 self._publish(r.slot, r)
+
+    def _prefill_group(self, group: list[EngineRequest],
+                       tokens: torch.Tensor) -> torch.Tensor:
+        """One same-length group's prefill on an unsharded engine, written
+        into the slots' pages and SSM rows by the step ("prefill", B, S);
+        returns the last-token logits [B, Vpad]."""
+        B, S = tokens.shape
+        n = -(-S // self.cache.block_size)
+        slots = [r.slot for r in group]
+        slot_t = torch.tensor(slots, dtype=torch.long, device=self.device)
+        pages = torch.from_numpy(
+            self.cache.block_table[slots, :n]).to(self.device)
+        inputs = dict(tokens=tokens, slot_t=slot_t, pages=pages)
+        if not self._graphs:
+            return self._prefill_step(**inputs)
+        return self._steps.run(("prefill", B, S), inputs,
+                               self._prefill_step, self._graph_reads())
+
+    def _prefill_step(self, tokens, slot_t, pages) -> torch.Tensor:
+        """The one-shot prefill on device inputs, in place."""
+        c = self.cache
+        return prefill_paged(self.params, self.cfg, tokens, c.k, c.v, pages,
+                             c.ssm, c.conv, slot_t)
 
     def _chunk_forward(self, r: EngineRequest, start: int, n_valid: int,
                        bucket: int) -> torch.Tensor:
@@ -858,7 +895,7 @@ class ServingEngine:
         self.prefill_tokens += n_valid
         tokens = torch.from_numpy(buf).to(self.device)
         table = self.cache.block_table_dev[r.slot:r.slot + 1, :n_pages]
-        if not self._chunk_graphs:
+        if not self._graphs:
             return self._prefill_chunk(
                 self.params, self.cfg, tokens, self.cache.k, self.cache.v,
                 table, start, n_valid, self.cache.pool.trash_page)
@@ -985,7 +1022,10 @@ class ServingEngine:
         bs = self.cache.block_size
         need = (int(self.cache.seq_lens[slots].max()) + bs - 1) // bs
         n_pages = _pow2_bucket(need, self.cache.max_blocks_per_seq)
-        step0 = self._sample_step
+        # the sampler's global step as a device buffer: a captured graph
+        # replays what its closure baked in
+        step0 = torch.tensor(self._sample_step, dtype=torch.int64,
+                             device=dev)
         self._sample_step += horizon
         self.horizon_counts[horizon] = self.horizon_counts.get(horizon, 0) + 1
         self.last_horizon = horizon
@@ -993,23 +1033,24 @@ class ServingEngine:
             self.telemetry.emit("dispatch", replica=self.trace_id, n=B,
                                 h=horizon)
 
-        def step(slot_t, last):
-            return self._decode_step(slot_t, last, n_pages, horizon, step0)
+        def step(slot_t, last, step0):
+            return self._decode_step(slot_t, last, step0, n_pages, horizon)
 
+        inputs = dict(slot_t=slot_t, last=last, step0=step0)
         if self._decode_graphs:
             # the graph's output is copied out: a later replay cannot
             # overwrite a horizon that has not been synced
             toks = self._steps.run(("decode", bucket, n_pages, horizon),
-                                   dict(slot_t=slot_t, last=last), step,
-                                   self._graph_reads())
+                                   inputs, step, self._graph_reads())
         else:
-            toks = step(slot_t, last)
+            toks = step(**inputs)
         return PendingDecode(slots, toks, horizon)
 
-    def _decode_step(self, slot_t, last, n_pages: int, horizon: int,
-                     step0: int) -> torch.Tensor:
+    def _decode_step(self, slot_t, last, step0, n_pages: int,
+                     horizon: int) -> torch.Tensor:
         """The device half of a decode horizon over the slots ``slot_t``
-        (trash-padded) fed ``last``: gather their table, lens and SSM rows,
+        (trash-padded) fed ``last``, sampling from global step ``step0``
+        (an int64 device scalar): gather their table, lens and SSM rows,
         run the loop, scatter lens and rows back.  Returns [B, horizon]."""
         cache = self.cache
         has_ssm = cache.ssm is not None

@@ -15,7 +15,12 @@ port's train state and the other way round.
 
 ``save`` copies every leaf to host numpy before it returns (the port's
 optimizer updates its tensors in place, so the async writer would
-otherwise race the next step); the writes run on a worker thread.
+otherwise race the next step); the writes run on a worker thread.  A
+bf16 leaf is written as the JAX package writes one (numpy has no
+bfloat16): 2-byte raw records (``|V2``) under the manifest dtype
+"bfloat16"; ``restore`` reads each leaf by its manifest dtype, a bf16 one
+by viewing the records as int16 and then as ``torch.bfloat16``, so no
+bit is lost to a float round trip.
 """
 from __future__ import annotations
 
@@ -43,10 +48,23 @@ def flatten_with_paths(tree, prefix: str = ""):
     return [(prefix, tree)]
 
 
-def _to_host(leaf) -> np.ndarray:
+def _to_host(leaf) -> tuple[np.ndarray, str]:
+    """A host copy of one leaf and its manifest dtype."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.array(leaf, copy=True)
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2"), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.array(leaf, copy=True)
+    return arr, str(arr.dtype)
+
+
+def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A leaf read from disk, by its manifest dtype."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class CheckpointManager:
@@ -91,12 +109,12 @@ class CheckpointManager:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp, exist_ok=True)
         manifest = {"step": step, "leaves": []}
-        for i, (path, leaf) in enumerate(zip(paths, leaves)):
+        for i, (path, (leaf, dtype)) in enumerate(zip(paths, leaves)):
             fname = f"leaf_{i:05d}.npy"
             np.save(os.path.join(tmp, fname), leaf)
             manifest["leaves"].append(
                 {"path": path, "file": fname,
-                 "shape": list(leaf.shape), "dtype": str(leaf.dtype)})
+                 "shape": list(leaf.shape), "dtype": dtype})
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         with open(os.path.join(tmp, "COMMITTED"), "w") as f:
@@ -147,8 +165,8 @@ class CheckpointManager:
             arr = np.load(os.path.join(d, entry["file"]))
             assert list(arr.shape) == list(leaf.shape), \
                 f"shape mismatch at {path}: {arr.shape} vs {leaf.shape}"
-            new_leaves.append(torch.from_numpy(arr).to(device=leaf.device,
-                                                       dtype=leaf.dtype))
+            new_leaves.append(_from_host(arr, entry["dtype"]).to(
+                device=leaf.device, dtype=leaf.dtype))
         it = iter(new_leaves)
         return tree_map(lambda _: next(it), template)
 

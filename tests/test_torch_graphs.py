@@ -4,12 +4,14 @@ jit caches, on the CPU.
 On the CPU a compiled step reuses its key's static buffers and captures
 nothing, so these tests hold the buffer plumbing: a buffer left stale
 between two calls of one key gives wrong tokens here too.  The JAX engine
-compiles one decode program per (batch bucket, page bucket, horizon)
-(``_fused``) and one chunk program per (chunk bucket, page bucket)
-(``_chunk``); the port keeps one step entry per such key, and the counts
-must be equal on the same streams.  fp32, smoke configs: greedy tokens are
-equal, the chunk forward on device scalars equals its int form exactly and
-JAX's within ATOL = 1e-4.
+compiles one prefill program per (group size, prompt length)
+(``_prefill``), one decode program per (batch bucket, page bucket,
+horizon) (``_fused``) and one chunk program per (chunk bucket, page
+bucket) (``_chunk``); the port keeps one step entry per such key, and the
+counts must be equal on the same streams (the one-shot prefill and the
+sampled decode: ``test_torch_graphs_prefill_sampled.py``).  fp32, smoke
+configs: greedy tokens are equal, the chunk forward on device scalars
+equals its int form exactly and JAX's within ATOL = 1e-4.
 """
 import copy
 
@@ -49,6 +51,19 @@ def _bucketed_stream(eng, vocab):
     return {r.rid: list(r.generated) for r in eng.run_to_completion()}
 
 
+def _count_calls(eng) -> dict:
+    """{kind: compiled-step calls} of ``eng``, counted from now on."""
+    calls: dict = {}
+    run = eng._steps.run
+
+    def counting(key, *args):
+        calls[key[0]] = calls.get(key[0], 0) + 1
+        return run(key, *args)
+
+    eng._steps.run = counting
+    return calls
+
+
 def _pair(arch, **kw):
     jcfg, jp, cfg, tp = _weights(arch)
     return (JaxEngine(jcfg, jp, **kw),
@@ -59,13 +74,24 @@ def _pair(arch, **kw):
 def test_decode_keys_match_the_jax_fused_cache(horizon):
     jeng, eng, vocab = _pair("yi-9b", num_blocks=256, block_size=8,
                              max_seqs=8, decode_horizon=horizon)
+    calls = _count_calls(eng)
     assert _bucketed_stream(eng, vocab) == _bucketed_stream(jeng, vocab)
     n_keys = len(eng._steps.keys("decode"))
+    n_prefill = len(eng._steps.keys("prefill"))
     assert n_keys == jeng._fused._cache_size()
     assert eng._steps.keys("chunk") == []
-    # every horizon went through a key: built once, then replayed
-    assert eng.graph_captures == n_keys
-    assert eng.graph_replays == eng.decode_syncs - n_keys > 0
+    # every horizon went through a key: built once, then replayed; a
+    # prefill key ran eagerly once, was built at its second call and
+    # replayed after that
+    st = eng._steps
+    assert calls["decode"] == eng.decode_syncs
+    assert st.eager["prefill"] == n_prefill
+    assert 0 < st.built["prefill"] < n_prefill
+    assert eng.graph_captures == n_keys + st.built["prefill"]
+    assert eng.graph_replays == (eng.decode_syncs - n_keys
+                                 + calls["prefill"] - n_prefill
+                                 - st.built["prefill"])
+    assert eng.decode_syncs - n_keys > 0
     assert eng.decode_syncs == jeng.decode_syncs
     assert set(eng.load_stats()) == LOAD_STATS_KEYS
 
@@ -120,7 +146,8 @@ def test_graphed_tokens_equal_eager_tokens(arch):
 def test_one_key_with_other_slots_and_tokens():
     """A request decodes alone in slot 1 after its neighbour retires, a
     later one alone in slot 0: one decode key serves both with other slots
-    and tokens in its buffers, and a warm second pass captures nothing."""
+    and tokens in its buffers; a second pass builds the prefill keys its
+    first ran eagerly, and a warm third pass captures nothing."""
     _, _, cfg, tp = _weights("yi-9b")
     kw = dict(num_blocks=64, block_size=8, max_seqs=2)
     rng = np.random.RandomState(7)
@@ -149,8 +176,11 @@ def test_one_key_with_other_slots_and_tokens():
     want = serve(eager, 0)
     assert serve(graphed, 0) == want
     assert seen[("decode", 1, 2, 1)] == {(0,), (1,)}
-    captures = graphed.graph_captures
+    assert graphed._steps.built["prefill"] == 0
     assert serve(graphed, 100) == want
+    assert graphed._steps.built["prefill"] == 2
+    captures = graphed.graph_captures
+    assert serve(graphed, 200) == want
     assert graphed.graph_captures == captures
 
 
@@ -171,24 +201,28 @@ def test_new_weights_drop_the_graphs():
 
 
 def test_eager_configurations_build_no_decode_step():
-    """The dense mode's decode and a sampled decode stay eager; both
-    engines still compile their chunk forwards, and the dense engine's
-    tokens equal its eager twin's."""
+    """The dense mode's decode stays eager: the dense engine builds no
+    decode step and, its prompts all chunked, no prefill step, but
+    compiles its chunk forwards, and its tokens equal its eager twin's.
+    A sampled paged engine compiles its decode horizons and one-shot
+    prefills."""
     _, _, cfg, tp = _weights("yi-9b")
-    kw = dict(num_blocks=128, block_size=8, max_seqs=4,
-              prefill_chunk_tokens=8)
-    dense = ServingEngine(cfg, tp, device="cpu", decode_mode="dense", **kw)
+    kw = dict(num_blocks=128, block_size=8, max_seqs=4)
+    dense = ServingEngine(cfg, tp, device="cpu", decode_mode="dense",
+                          prefill_chunk_tokens=8, **kw)
     eager = ServingEngine(cfg, tp, device="cpu", decode_mode="dense",
-                          graphs=False, **kw)
+                          prefill_chunk_tokens=8, graphs=False, **kw)
     assert (_quickstart_job(dense, cfg.vocab_size)
             == _quickstart_job(eager, cfg.vocab_size))
     assert dense._steps.keys("decode") == []
+    assert dense._steps.keys("prefill") == []
     assert len(dense._steps.keys("chunk")) > 0 and dense.graph_replays > 0
     assert eager.graph_captures == 0
     sampled = ServingEngine(cfg, tp, device="cpu", greedy=False, **kw)
     _quickstart_job(sampled, cfg.vocab_size)
-    assert sampled._steps.keys("decode") == []
-    assert len(sampled._steps.keys("chunk")) > 0
+    assert len(sampled._steps.keys("decode")) > 0
+    assert len(sampled._steps.keys("prefill")) > 0
+    assert sampled.graph_replays > 0
 
 
 # --------------------------------------------------------------------------

@@ -1330,8 +1330,8 @@ def test_captured_kernels_replay_their_eager_calls(cuda):
 def test_graphed_engine_equals_eager_on_the_card(cuda, arch):
     """A smoke engine in bf16 (paged at horizon 4, 16-token chunks, which
     the SSM model ignores): the graphed engine's streams, decode_syncs and
-    B1, B2 (and offset) and B4 launches equal the eager engine's, and a
-    warm second pass captures nothing."""
+    B1, B2 (and offset) and B4 launches equal the eager engine's on three
+    passes, and the warm third captures nothing."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
@@ -1347,15 +1347,128 @@ def test_graphed_engine_equals_eager_on_the_card(cuda, arch):
     runs = []
     for graphs in (False, True):
         eng = ServingEngine(cfg, params, device=cuda, graphs=graphs, **kw)
-        for rid0 in (0, 100):
+        for rid0 in (0, 100, 200):
             ops.reset_launch_counts()
             captures = eng.graph_captures
             fin, _ = cs.serve_on(eng, prompts, 12, rid0=rid0)
             eng._chunk_rr = 0
             runs.append(({r: fin[r].generated for r in fin},
                          cs.graph_counts(ops), eng.graph_captures - captures))
-    (eager, counts, _), _, (cold, cold_counts, built), (
-        warm, warm_counts, rebuilt) = runs
-    assert cold == eager and warm == eager
-    assert cold_counts == counts and warm_counts == counts
-    assert built > 0 and rebuilt == 0
+    (eager, counts, _), = runs[:1]
+    for got, got_counts, _ in runs[1:]:
+        assert got == eager and got_counts == counts
+    # cold: the decode and chunk keys; second pass: the prefill keys the
+    # cold one ran eagerly; warm: nothing
+    built = [n for _, _, n in runs[3:]]
+    assert built[0] > 0 and built[2] == 0
+    assert built[1] == eng._steps.built["prefill"]
+
+
+@pytest.mark.gpu
+def test_captured_capacity_prefill_replays_its_eager_run(cuda):
+    """An olmoe smoke group of two 1100-token prompts (2200 tokens, past
+    ``moe.DENSE_TOKENS``: the capacity dispatch) as the prefill step
+    ("prefill", 2, 1100): the cold call (eager), the second (eager on the
+    static buffers, then captured) and a replay, each on other slots and
+    pages, write the eager engine's K/V to the bit and give its first
+    tokens and streams."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, moe
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_smoke_config("olmoe-1b-7b")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, cfg.vocab_size, 1100).astype(np.int32)
+               for _ in range(2)]
+    assert 2 * 1100 > moe.DENSE_TOKENS
+    kw = dict(num_blocks=320, block_size=16, max_seqs=4,
+              max_blocks_per_seq=80, decode_horizon=2, dtype=torch.bfloat16)
+    runs = {}
+    for graphs in (False, True):
+        eng = ServingEngine(cfg, params, device=cuda, graphs=graphs, **kw)
+        for n, rid0 in enumerate((0, 10, 20)):
+            if n:
+                # a later pass takes other slots and pages
+                eng.submit(90 + n, prompts[0][:40 + n], 2)
+                eng.step()
+            for i, p in enumerate(prompts):
+                eng.submit(rid0 + i, p, 5)
+            eng.step()
+            pages = [eng.cache.k[:, eng.cache.seq_blocks[r.slot]].clone()
+                     for r in sorted(eng.active.values(),
+                                     key=lambda r: r.rid) if r.rid >= rid0]
+            fin = {r.rid - rid0: r.generated
+                   for r in eng.run_to_completion() if r.rid < 90}
+            runs[graphs, n] = (pages, fin)
+        if graphs:
+            assert ("prefill", 2, 1100) in eng._steps.entries
+            assert eng._steps.replayed["prefill"] >= 1
+    for n in (0, 1, 2):
+        (want_pages, want), (got_pages, got) = runs[False, n], runs[True, n]
+        assert got == want
+        for a, b in zip(got_pages, want_pages):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-9b", "hymba-1.5b"])
+def test_sampled_graphed_engine_equals_eager_on_the_card(cuda, arch):
+    """A sampled smoke engine in bf16 (paged at horizon 4): the graphed
+    engine's streams and launches equal the eager engine's on two passes,
+    the counter-based sampler's noise made inside the decode graphs from
+    the step buffer, and the warm third pass captures nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cs = _chip_smoke()
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 40, 23, 61, 17, 9)]
+    kw = dict(num_blocks=128, block_size=8, max_seqs=4, decode_horizon=4,
+              dtype=torch.bfloat16, greedy=False, seed=5)
+    runs = []
+    for graphs in (False, True):
+        eng = ServingEngine(cfg, params, device=cuda, graphs=graphs, **kw)
+        for rid0 in (0, 100, 200):
+            ops.reset_launch_counts()
+            captures = eng.graph_captures
+            fin, _ = cs.serve_on(eng, prompts, 12, rid0=rid0)
+            runs.append(({r: fin[r].generated for r in fin},
+                         cs.graph_counts(ops), eng.graph_captures - captures))
+        assert (len(eng._steps.keys("decode")) > 0) == graphs
+    eager, graphed = runs[:3], runs[3:]
+    for (want, counts, _), (got, got_counts, _) in zip(eager, graphed):
+        assert got == want and got_counts == counts
+    assert graphed[0][2] > 0 and graphed[2][2] == 0
+    eng = ServingEngine(cfg, params, device=cuda, **dict(kw, greedy=True))
+    fin, _ = cs.serve_on(eng, prompts, 12)
+    greedy = {r: fin[r].generated for r in fin}
+    assert greedy != eager[0][0]
+
+
+@pytest.mark.gpu
+def test_counter_hash_on_the_card_equals_the_cpu(cuda):
+    """The sampler's integer hash gives the CPU's bits on the card: its
+    32-bit multiply and finaliser over [0, 2^32), the top included, and
+    ``step_hash`` of several (seed, step) at a decode batch's shape; the
+    Gumbel noise made from it agrees within float rounding."""
+    from repro_torch.models import sampling
+    rng = np.random.RandomState(2)
+    xs = torch.from_numpy(np.concatenate([
+        rng.randint(0, 2 ** 32, 1 << 16, dtype=np.int64),
+        [0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]]))
+    assert torch.equal(sampling._fmix32(xs.to(cuda)).cpu(),
+                       sampling._fmix32(xs))
+    for c in (0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9, 0x7FEB352D):
+        assert torch.equal(sampling._mul32(xs.to(cuda), c).cpu(),
+                           sampling._mul32(xs, c))
+    for seed, step in ((0, 0), (5, 1234), (2 ** 40 + 7, 2 ** 32 + 3)):
+        t = torch.tensor(step, dtype=torch.int64)
+        assert torch.equal(sampling.step_hash(seed, t.to(cuda), 8, 4096)
+                           .cpu(), sampling.step_hash(seed, t, 8, 4096))
+        torch.testing.assert_close(
+            sampling.step_noise(seed, t.to(cuda), 8, 4096).cpu(),
+            sampling.step_noise(seed, t, 8, 4096), rtol=1e-6, atol=1e-5)

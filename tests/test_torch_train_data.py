@@ -6,6 +6,7 @@ the port's train state; the port's round trip, GC and uncommitted
 directories) and the FLOP counts of the roofline.
 """
 import dataclasses
+import json
 import os
 
 import jax
@@ -225,6 +226,66 @@ def test_jax_checkpoint_restores_into_the_port(tmp_path):
     for g, w in zip(got_l, want_l):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert int(restored["opt"]["step"]) == 9
+
+
+def test_bf16_train_state_roundtrips_bit_for_bit(tmp_path):
+    """A bf16 train state (``param_dtype=torch.bfloat16``; the moments
+    stay fp32) saves as the JAX package writes bf16 leaves, 2-byte raw
+    records under the manifest dtype "bfloat16", and restores to the bit
+    into a template of other values; the fp32 leaves' manifest entries
+    keep their numpy names."""
+    cfg = get_smoke_config("hymba-1.5b")
+    state = init_train_state(cfg, 0, TrainConfig(param_dtype=torch.bfloat16),
+                             "cpu")
+    r = np.random.RandomState(2)
+    for leaf in topt.tree_leaves(state["params"]):
+        if leaf.dtype == torch.bfloat16:
+            leaf.copy_(torch.from_numpy(r.randn(*leaf.shape).astype(
+                np.float32)))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state, 5)
+    mgr.wait()
+    other = init_train_state(cfg, 1, TrainConfig(param_dtype=torch.bfloat16),
+                             "cpu")
+    restored, step = mgr.restore_latest(other)
+    assert step == 5
+    got, want = topt.tree_leaves(restored), topt.tree_leaves(state)
+    assert any(w.dtype == torch.bfloat16 for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        if w.dtype == torch.bfloat16:
+            g, w = g.view(torch.int16), w.view(torch.int16)
+        assert torch.equal(g, w)
+    d = tmp_path / "step_000000005"
+    with open(d / "manifest.json") as f:
+        entries = json.load(f)["leaves"]
+    assert {e["dtype"] for e in entries} == {"bfloat16", "float32", "int32"}
+    for e in entries:
+        arr = np.load(d / e["file"])
+        if e["dtype"] == "bfloat16":
+            assert arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+        else:
+            assert str(arr.dtype) == e["dtype"]
+
+
+def test_jax_bf16_leaf_restores_into_the_port(tmp_path):
+    """A bf16 leaf that JAX's CheckpointManager wrote (``|V2`` records,
+    manifest dtype "bfloat16") restores into the port's bf16 leaf with
+    the same bits, beside an fp32 and an int32 leaf."""
+    r = np.random.RandomState(3)
+    w = r.randn(5, 7).astype(np.float32)
+    jstate = {"w": jnp.asarray(w).astype(jnp.bfloat16),
+              "b": jnp.asarray(w[0]), "step": jnp.asarray(4, jnp.int32)}
+    JCheckpointManager(str(tmp_path)).save(jstate, 4, blocking=True)
+    template = {"w": torch.zeros(5, 7, dtype=torch.bfloat16),
+                "b": torch.zeros(7),
+                "step": torch.zeros((), dtype=torch.int32)}
+    restored, step = CheckpointManager(str(tmp_path)).restore_latest(template)
+    assert step == 4 and restored["w"].dtype == torch.bfloat16
+    want = np.asarray(jstate["w"]).view(np.int16)
+    assert np.array_equal(restored["w"].view(torch.int16).numpy(), want)
+    assert torch.equal(restored["b"], torch.from_numpy(w[0]))
+    assert int(restored["step"]) == 4
 
 
 def test_checkpoint_roundtrip_gc_and_uncommitted(tmp_path):

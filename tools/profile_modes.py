@@ -1,17 +1,21 @@
-"""Where the device time of the phase-5 yi-9b job goes, by engine mode.
+"""Where the device time of the phase-5 job goes, by model and engine mode.
 
-    python3 tools/profile_modes.py [--eager]
+    python3 tools/profile_modes.py [--eager] [--models yi-9b,hymba-1.5b]
+                                   [--runs paged,chunked]
 
 Needs one CUDA card and ``nvcc``, as ``chip_smoke.py`` does.  Serves
 ``chip_smoke.py``'s phase-5 job (8 requests, prompts of 320-963 tokens,
-32 new tokens each, random bf16 weights from seed 0) on full-width yi-9b
-in each engine mode of that phase (paged decode, the dense decode mode,
-chunked prefill in 256-token budgets) under ``torch.profiler`` with CUDA
-activity.  By default each mode's engine runs its compiled steps
-(``serving.graphs``: CUDA graphs for the paged decode and the chunk
-forward; the dense mode stays eager): a cold pass captures every key, a
-warm pass of the same prompts is timed unprofiled, and a third, profiled
-pass reads the steady state; the idle share is taken against the warm
+32 new tokens each, random bf16 weights from seed 0) on each full-width
+model of ``--models`` (default yi-9b; any of ``chip_smoke.FULL_WIDTH``)
+in each engine mode that phase runs it in (``--runs`` keeps some: for
+yi-9b paged decode, the dense decode mode, chunked prefill in 256-token
+budgets) under ``torch.profiler`` with CUDA activity.  By default each
+mode's engine runs its compiled steps (``serving.graphs``: CUDA graphs
+for the one-shot prefill, the paged decode and the chunk forward; the
+dense mode's decode stays eager): a cold pass captures every decode and
+chunk key, a second pass of the same prompts every prefill key (captured
+at its second call), a warm third is timed unprofiled, and a fourth,
+profiled pass reads the steady state; the idle share is taken against the warm
 unprofiled wall, where the profiler's host cost does not stretch it.
 ``--eager`` profiles eager engines (``graphs=False``) after a one-prompt
 warm-up, as before the compiled step, against the profiled wall.  For
@@ -24,6 +28,7 @@ The last line is one JSON object with the card and every reading.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -70,6 +75,11 @@ def device_times(prof) -> dict[str, float]:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--models", default="yi-9b")
+    ap.add_argument("--runs", default=None)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_modes: no CUDA device", file=sys.stderr)
         return 1
@@ -82,69 +92,82 @@ def main() -> int:
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     build.build_all()
-    (arch, variants), = [fw for fw in cs.FULL_WIDTH if fw[0] == "yi-9b"]
-    cfg = get_config(arch)
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    prompts = cs.full_width_prompts(cfg)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    eager = "--eager" in sys.argv[1:]
+    eager = args.eager
     readings = []
-    for var in variants:
-        kw = dict(cs.FULL_WIDTH_ENGINE, **var.options)
-        unprofiled = cold = None
-        if eager:
-            cs.serve(cfg, params, prompts[:1], 4, "cuda", graphs=False,
-                     **kw)                                   # warm-up
-        else:
-            _, eng, cold = cs.serve(cfg, params, prompts, 32, "cuda", **kw)
-            eng._chunk_rr = 0       # the cold pass's schedule again
-            _, unprofiled = cs.serve_on(eng, prompts, 32, rid0=100)
-            eng._chunk_rr = 0
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        with torch.profiler.profile(activities=acts) as prof:
-            if eager:
-                fin, eng, _ = cs.serve(cfg, params, prompts, 32, "cuda",
-                                       graphs=False, **kw)
-            else:
-                fin, _ = cs.serve_on(eng, prompts, 32, rid0=200)
-        wall = time.monotonic() - t0
-        times = device_times(prof)
-        busy = sum(times.values())
-        base = wall if unprofiled is None else unprofiled
-        by_group: dict[str, float] = {}
-        for name, t in times.items():
-            g = group_of(name)
-            by_group[g] = by_group.get(g, 0.0) + t
-        top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
-        ttft = [fin[r].t_first - fin[r].t_submit for r in fin]
-        mode = "eager" if eager else "graphed, warm"
-        walls = (f"wall {wall:.3f} s (profiled)" if eager else
-                 f"cold wall {cold:.3f} s, warm wall {unprofiled:.3f} s "
-                 f"(unprofiled), {wall:.3f} s (profiled)")
-        print(f"{arch} {var.name} ({mode}): {walls}, TTFT mean "
-              f"{1e3 * np.mean(ttft):.1f} ms, steps {eng.steps}, graph "
-              f"captures {eng.graph_captures}, replays {eng.graph_replays}; "
-              f"device busy {busy:.1f} ms, idle share "
-              f"{1 - busy / (1e3 * base):.3f}", flush=True)
-        if busy == 0:
-            print("  the profiler saw no device time: time with CUDA events "
-                  "instead", flush=True)
-        for g, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
-            print(f"  {g:22s} {t:10.1f} ms  {t / max(busy, 1e-9):6.1%}")
-        for name, t in top:
-            print(f"    {t:10.1f} ms  {name[:100]}")
-        readings.append({"arch": arch, "run": var.name, "mode": mode,
-                         "wall_s": wall, "warm_wall_s": unprofiled,
-                         "cold_wall_s": cold,
-                         "ttft_mean_ms": 1e3 * float(np.mean(ttft)),
-                         "steps": eng.steps, "device_busy_ms": busy,
-                         "idle_share": 1 - busy / (1e3 * base),
-                         "by_group_ms": by_group,
-                         "top_kernels_ms": dict(top)})
+    full_width = dict(cs.FULL_WIDTH)
+    for arch in args.models.split(","):
+        cfg = get_config(arch)
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16,
+                             device="cuda")
+        prompts = cs.full_width_prompts(cfg)
+        for var in full_width[arch]:
+            if args.runs is None or var.name in args.runs.split(","):
+                readings.append(profile_run(cs, cfg, params, prompts, var,
+                                            eager, acts))
+        del params
+        torch.cuda.empty_cache()
     print(json.dumps({"card": card, "readings": readings}))
     return 0
+
+
+def profile_run(cs, cfg, params, prompts, var, eager: bool, acts) -> dict:
+    """Serve the job on one model and engine mode, profile one pass and
+    print it (see the module docstring); returns the reading."""
+    arch = cfg.name
+    kw = dict(cs.FULL_WIDTH_ENGINE, **var.options)
+    unprofiled = cold = None
+    if eager:
+        cs.serve(cfg, params, prompts[:1], 4, "cuda", graphs=False,
+                 **kw)                                   # warm-up
+    else:
+        _, eng, cold = cs.serve(cfg, params, prompts, 32, "cuda", **kw)
+        for rid0 in (100, 200):
+            eng._chunk_rr = 0   # the cold pass's schedule again
+            _, unprofiled = cs.serve_on(eng, prompts, 32, rid0=rid0)
+        eng._chunk_rr = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.profiler.profile(activities=acts) as prof:
+        if eager:
+            fin, eng, _ = cs.serve(cfg, params, prompts, 32, "cuda",
+                                   graphs=False, **kw)
+        else:
+            fin, _ = cs.serve_on(eng, prompts, 32, rid0=300)
+    wall = time.monotonic() - t0
+    times = device_times(prof)
+    busy = sum(times.values())
+    base = wall if unprofiled is None else unprofiled
+    by_group: dict[str, float] = {}
+    for name, t in times.items():
+        g = group_of(name)
+        by_group[g] = by_group.get(g, 0.0) + t
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    ttft = [fin[r].t_first - fin[r].t_submit for r in fin]
+    mode = "eager" if eager else "graphed, warm"
+    walls = (f"wall {wall:.3f} s (profiled)" if eager else
+             f"cold wall {cold:.3f} s, warm wall {unprofiled:.3f} s "
+             f"(unprofiled), {wall:.3f} s (profiled)")
+    print(f"{arch} {var.name} ({mode}): {walls}, TTFT mean "
+          f"{1e3 * np.mean(ttft):.1f} ms, steps {eng.steps}, graph "
+          f"captures {eng.graph_captures}, replays {eng.graph_replays}; "
+          f"device busy {busy:.1f} ms, idle share "
+          f"{1 - busy / (1e3 * base):.3f}", flush=True)
+    if busy == 0:
+        print("  the profiler saw no device time: time with CUDA events "
+              "instead", flush=True)
+    for g, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {g:22s} {t:10.1f} ms  {t / max(busy, 1e-9):6.1%}")
+    for name, t in top:
+        print(f"    {t:10.1f} ms  {name[:100]}")
+    return {"arch": arch, "run": var.name, "mode": mode,
+            "wall_s": wall, "warm_wall_s": unprofiled,
+            "cold_wall_s": cold,
+            "ttft_mean_ms": 1e3 * float(np.mean(ttft)),
+            "steps": eng.steps, "device_busy_ms": busy,
+            "idle_share": 1 - busy / (1e3 * base),
+            "by_group_ms": by_group, "top_kernels_ms": dict(top)}
 
 
 if __name__ == "__main__":
